@@ -1,0 +1,45 @@
+"""Compensated work accumulation and Maxwell-Boltzmann velocities."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import units
+
+
+class KahanAccumulator:
+    """Compensated (Kahan) accumulator, one lane per replica.
+
+    NCMC work summed naively in f32 over a long protocol drifts by O(kT);
+    Kahan summation keeps the error at O(eps * |W|). PyTorch evaluates
+    ``(t - total) - y`` as written, so the compensation survives in f32."""
+
+    def __init__(self, total: torch.Tensor, compensation: torch.Tensor):
+        self.total = total
+        self.compensation = compensation
+
+    @classmethod
+    def zeros(cls, shape, dtype, device):
+        z = torch.zeros(shape, dtype=dtype, device=device)
+        return cls(z, z.clone())
+
+    def add(self, value) -> "KahanAccumulator":
+        y = value - self.compensation
+        t = self.total + y
+        return KahanAccumulator(t, (t - self.total) - y)
+
+    @property
+    def value(self):
+        return self.total
+
+
+def maxwell_boltzmann_velocities(source, masses, temperature: float, n_replicas: int,
+                                 dtype=torch.float32, device="cpu"):
+    """(R, N, 3) velocities from the Maxwell-Boltzmann distribution; frozen
+    (zero-mass) atoms get zero velocity."""
+    masses = np.asarray(masses, np.float64)
+    inv_mass = np.where(masses > 0, 1.0 / np.maximum(masses, 1e-30), 0.0)
+    sigma = torch.as_tensor(np.sqrt(units.kT(temperature) * inv_mass), dtype=dtype, device=device)
+    noise = source.normal((n_replicas, len(masses), 3), dtype, device)
+    return sigma[None, :, None] * noise

@@ -1,0 +1,783 @@
+"""Nonbonded LJ + electrostatics with alchemical softcore semantics, sweep
+backend.
+
+Port of the sweep branch of ``blues_tpu.potentials.nonbonded``
+(``_make_pair_backend_energy`` with backend 'sweep'): the frozen production
+protocol's pair space is statically culled to permanent reach balls around
+the mobile rows, summed by the sweep pair kernel (``potentials/sweep.py``),
+and corrected by short exclusion / exception lists, PME reciprocal/self/
+plasma terms and the dispersion correction. The lambda split
+E(x, lam) = E0(x) + Ea(x, lam) is built for alchemical systems.
+
+Positions are (R, N, 3); every energy is (R,). Other backends, the 'exact'
+PME treatment, triclinic boxes and systems where culling does not engage
+raise ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import heapq
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import units
+from ..core.system import AlchemicalRegion, NonbondedParams
+from .geometry import distance, periodic_displacement
+from .pairs import pair_energy_force
+from .pme import PMEParams, make_pme_reciprocal, precompute_spread_grid
+from .sweep import SweepPairSum, build_row_groups
+
+CUTOFF_PERIODIC = "CutoffPeriodic"
+CUTOFF_NONPERIODIC = "CutoffNonPeriodic"
+PME = "PME"
+
+
+def ewald_alpha(cutoff: float, tolerance: float = 5e-4) -> float:
+    """OpenMM's alpha choice: erfc(alpha*rc)/rc ~ tol."""
+    return math.sqrt(-math.log(2.0 * tolerance)) / cutoff
+
+
+def _good_fft_size(n: int) -> int:
+    """Smallest size >= n whose factors are 2/3/5."""
+    while True:
+        m = n
+        for p in (2, 3, 5):
+            while m % p == 0:
+                m //= p
+        if m == 1:
+            return n
+        n += 1
+
+
+def choose_pme_params(box_lengths, cutoff: float, tolerance: float = 5e-4, order: int = 5) -> PMEParams:
+    alpha = ewald_alpha(cutoff, tolerance)
+    grid = tuple(
+        _good_fft_size(int(math.ceil(2.0 * alpha * L / (3.0 * tolerance**0.2))))
+        for L in np.asarray(box_lengths, dtype=np.float64)
+    )
+    return PMEParams(alpha=alpha, grid=grid, order=order)
+
+
+def dispersion_correction_coeff(sigma, epsilon, cutoff: float) -> float:
+    """Isotropic long-range LJ correction coefficient: E_corr = coeff / V
+    (the JAX package's estimate, pairwise below 2048 atoms and sampled with
+    a fixed seed above)."""
+    sigma = np.asarray(sigma, np.float64)
+    epsilon = np.asarray(epsilon, np.float64)
+    n = len(sigma)
+    if n > 2048:
+        rng = np.random.default_rng(0)
+        ii = rng.integers(0, n, 200000)
+        jj = rng.integers(0, n, 200000)
+        sij = 0.5 * (sigma[ii] + sigma[jj])
+        eij = np.sqrt(epsilon[ii] * epsilon[jj])
+    else:
+        sij = 0.5 * (sigma[:, None] + sigma[None, :])
+        eij = np.sqrt(epsilon[:, None] * epsilon[None, :])
+    c6 = np.mean(4.0 * eij * sij**6)
+    c12 = np.mean(4.0 * eij * sij**12)
+    return 2.0 * math.pi * n * n * (c12 / (9.0 * cutoff**9) - c6 / (3.0 * cutoff**3))
+
+
+def reaction_field_constants(cutoff: float, dielectric: float = 78.3):
+    k_rf = (1.0 / cutoff**3) * (dielectric - 1.0) / (2.0 * dielectric + 1.0)
+    c_rf = (1.0 / cutoff) * (3.0 * dielectric) / (2.0 * dielectric + 1.0)
+    return k_rf, c_rf
+
+
+def lj_energy_pair(r2, sigma, epsilon):
+    s2 = sigma * sigma / r2
+    s6 = s2 * s2 * s2
+    return 4.0 * epsilon * (s6 * s6 - s6)
+
+
+def softcore_lj_energy_pair(r2, sigma, epsilon, lam_s, alpha=0.5, a=1.0, b=1.0):
+    s2 = sigma * sigma
+    s6 = s2 * s2 * s2
+    r6 = r2 * r2 * r2
+    reff6 = alpha * (1.0 - lam_s) ** b * s6 + r6
+    x = s6 / reff6
+    return 4.0 * epsilon * lam_s**a * (x * x - x)
+
+
+def _no_image_geometry(x0, cols, rows, centers, radii, L, cutoff, margin=0.01):
+    """Eligibility + static column shifts for skipping the per-pair minimum
+    image (the JAX package's extent proof): every reachable (row, column)
+    pair differs by less than L - cutoff in every dimension. Returns
+    (col_shifts (nc, 3), center (3,)) or None."""
+    ctr = centers.mean(0)
+    s = -L * np.round((x0[cols] - ctr) / L)
+    in_rows = np.zeros(len(x0), bool)
+    in_rows[rows] = True
+    if s[in_rows[cols]].any():
+        return None
+    d0 = np.linalg.norm(x0[rows] - centers, axis=1)
+    if (d0 > radii + 1e-6).any():
+        return None
+    row_lo = (centers - radii[:, None]).min(0)
+    row_hi = (centers + radii[:, None]).max(0)
+    col_pts = x0[cols] + s
+    M = np.maximum(col_pts.max(0) - row_lo, row_hi - col_pts.min(0))
+    if not np.all(M + margin < L - cutoff):
+        return None
+    return s, ctr
+
+
+def _cull_balls(rows_np, x0, Lnp, bonds_for_cull, masses, skin, cage_margin, n):
+    """Permanent reach balls (centers, radii) of the mobile rows: anchored
+    chains get the summed bond lengths to their frozen anchor (multi-source
+    Dijkstra, 10% stretch margin), unanchored components a ball around their
+    build COM of radius r_comp + max(2*skin, cage_margin)."""
+    row_set = set(rows_np.tolist())
+    centers = np.zeros((len(rows_np), 3))
+    radii = np.full(len(rows_np), -1.0)
+    if bonds_for_cull is not None and len(bonds_for_cull):
+        b = np.asarray(bonds_for_cull, np.int64)
+        db = x0[b[:, 0]] - x0[b[:, 1]]
+        if Lnp is not None:
+            db -= Lnp * np.round(db / Lnp)
+        blen = np.linalg.norm(db, axis=1) * 1.1 + 0.01
+        row_pos = {int(a): k for k, a in enumerate(rows_np)}
+        adj, heap, best, anchor = {}, [], {}, {}
+        for (i, j), L in zip(b, blen):
+            i, j = int(i), int(j)
+            ri, rj = i in row_set, j in row_set
+            if ri and rj:
+                adj.setdefault(i, []).append((j, L))
+                adj.setdefault(j, []).append((i, L))
+            elif ri and not rj:
+                if L < best.get(i, np.inf):
+                    best[i] = L
+                    anchor[i] = j
+                    heapq.heappush(heap, (L, i, j))
+            elif rj and not ri:
+                if L < best.get(j, np.inf):
+                    best[j] = L
+                    anchor[j] = i
+                    heapq.heappush(heap, (L, j, i))
+        done = set()
+        while heap:
+            d, a, anc = heapq.heappop(heap)
+            if a in done or d > best.get(a, np.inf):
+                continue
+            done.add(a)
+            anchor[a] = anc
+            for nb_a, L in adj.get(a, ()):
+                nd = d + L
+                if nd < best.get(nb_a, np.inf):
+                    best[nb_a] = nd
+                    anchor[nb_a] = anc
+                    heapq.heappush(heap, (nd, nb_a, anc))
+        for a in done:
+            k = row_pos[a]
+            centers[k] = x0[anchor[a]]
+            radii[k] = best[a]
+
+    unanchored = radii < 0
+    if unanchored.any():
+        comp = {int(a): int(a) for a in rows_np[unanchored]}
+
+        def find(a):
+            while comp[a] != a:
+                comp[a] = comp[comp[a]]
+                a = comp[a]
+            return a
+
+        if bonds_for_cull is not None and len(bonds_for_cull):
+            for i, j in np.asarray(bonds_for_cull, np.int64):
+                i, j = int(i), int(j)
+                if i in comp and j in comp:
+                    ri, rj = find(i), find(j)
+                    if ri != rj:
+                        comp[ri] = rj
+        groups = {}
+        for k, a in enumerate(rows_np):
+            if unanchored[k]:
+                groups.setdefault(find(int(a)), []).append(k)
+        m_np = np.asarray(masses, np.float64) if masses is not None else np.ones(n)
+        for ks in groups.values():
+            al = rows_np[ks]
+            w = np.maximum(m_np[al], 1e-12)
+            com0 = (x0[al] * w[:, None]).sum(0) / w.sum()
+            r_comp = np.sqrt(((x0[al] - com0) ** 2).sum(-1).max())
+            centers[ks] = com0
+            radii[ks] = r_comp + max(2.0 * skin, float(cage_margin))
+    return centers, radii
+
+
+def _excl_mask(excl, n, rows, cols):
+    """Build-time exclusion mask over the (rows x cols) pair space and the
+    per-exclusion flag of pairs it covers."""
+    rpos = np.full(n, -1, np.int64)
+    rpos[rows] = np.arange(len(rows))
+    cpos = np.full(n, -1, np.int64)
+    cpos[cols] = np.arange(len(cols))
+    mask = np.zeros((len(rows), len(cols)), bool)
+    covered = np.zeros(len(excl), bool)
+    if len(excl):
+        i_, j_ = excl[:, 0], excl[:, 1]
+        m1 = (rpos[i_] >= 0) & (cpos[j_] >= 0)
+        m2 = (rpos[j_] >= 0) & (cpos[i_] >= 0)
+        mask[rpos[i_[m1]], cpos[j_[m1]]] = True
+        mask[rpos[j_[m2]], cpos[i_[m2]]] = True
+        covered = m1 | m2
+    return mask, covered
+
+
+class _Consts:
+    """Host arrays staged on a device, converted once per dtype."""
+
+    def __init__(self, device):
+        self.device = device
+        self.host = {}
+        self._cache = {}
+
+    def __setitem__(self, name, value):
+        self.host[name] = np.asarray(value)
+
+    def __call__(self, name, dtype=None):
+        key = (name, dtype)
+        t = self._cache.get(key)
+        if t is None:
+            a = self.host[name]
+            if a.dtype == bool:
+                t = torch.as_tensor(a, device=self.device)
+            elif np.issubdtype(a.dtype, np.integer):
+                t = torch.as_tensor(a.astype(np.int64), device=self.device)
+            else:
+                t = torch.as_tensor(a, dtype=dtype, device=self.device)
+            self._cache[key] = t
+        return t
+
+
+def _lam(v, dtype, device):
+    if torch.is_tensor(v):
+        return v.to(dtype=dtype, device=device)
+    return float(v)
+
+
+class NonbondedEnergy:
+    """fn(x (R, N, 3), box (3, 3), globals) -> (R,) nonbonded energy, with
+    ``lambda_e0`` / ``lambda_ea`` when the lambda split applies."""
+
+    def __init__(
+        self,
+        nb: NonbondedParams,
+        *,
+        method: str,
+        cutoff: float,
+        alchemical: Optional[AlchemicalRegion],
+        alchemical_pme_treatment: str,
+        ewald_tolerance: float,
+        rf_dielectric: float,
+        box_for_pme,
+        masses,
+        frozen_ref_positions,
+        dispersion_correction: bool,
+        switch_distance,
+        frozen_cull_skin,
+        frozen_cull_cage_margin: float,
+        bonds_for_cull,
+        sweep_row_group,
+        device,
+    ):
+        if alchemical_pme_treatment not in ("direct-space", "coulomb"):
+            raise ValueError(
+                f"alchemical_pme_treatment {alchemical_pme_treatment!r} is not ported; "
+                "the port implements 'direct-space' and 'coulomb'"
+            )
+        if method not in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC):
+            raise ValueError(f"the sweep backend needs a cutoff method, got {method!r}")
+        if box_for_pme is not None:
+            b = np.asarray(box_for_pme, np.float64)
+            if np.abs(b - np.diag(np.diag(b))).max() > 0:
+                raise ValueError("the port supports orthorhombic boxes only")
+        if switch_distance is not None and not (0.0 < switch_distance < cutoff):
+            raise ValueError(f"switch_distance {switch_distance} must lie in (0, cutoff={cutoff})")
+        self.device = dev = torch.device(device)
+        n = nb.charge.shape[0]
+        self.n_atoms = n
+        charges = np.asarray(nb.charge, np.float64)
+        sigmas = np.asarray(nb.sigma, np.float64)
+        epsilons = np.asarray(nb.epsilon, np.float64)
+        is_alch = np.zeros(n, bool)
+        sc = alchemical if alchemical is not None else AlchemicalRegion(atoms=np.zeros(0, np.int32))
+        if alchemical is not None and len(alchemical.atoms):
+            is_alch[np.asarray(alchemical.atoms, np.int64)] = True
+        self.sc = sc
+        self.alchemical = alchemical
+        alch_coulomb = alchemical_pme_treatment == "coulomb" and method == PME and alchemical is not None
+        self.method, self.cutoff, self.switch_distance = method, float(cutoff), switch_distance
+        self.alch_coulomb = alch_coulomb
+        periodic = method in (PME, CUTOFF_PERIODIC)
+        self.periodic = periodic
+
+        pme_params = None
+        alpha = 0.0
+        if method == PME:
+            if box_for_pme is None:
+                raise ValueError("PME requires box_for_pme")
+            pme_params = choose_pme_params(np.diag(np.asarray(box_for_pme)), cutoff, ewald_tolerance)
+            alpha = pme_params.alpha
+        self.pme_params, self.alpha = pme_params, alpha
+        k_rf, c_rf = (
+            reaction_field_constants(cutoff, rf_dielectric)
+            if method in (CUTOFF_PERIODIC, CUTOFF_NONPERIODIC)
+            else (0.0, 0.0)
+        )
+        self.k_rf, self.c_rf = k_rf, c_rf
+
+        m = np.asarray(masses) if masses is not None else np.ones(n)
+        if not (m <= 0).any() or frozen_ref_positions is None:
+            raise ValueError(
+                "the sweep backend needs frozen atoms with reference positions "
+                "(freeze_radius); unfrozen systems need the cells/tiled backends, not ported"
+            )
+        in_rows_np = (m > 0) | is_alch
+        active_rows = np.where(in_rows_np)[0].astype(np.int64)
+        self.disp_coeff = (
+            dispersion_correction_coeff(nb.sigma, nb.epsilon, cutoff)
+            if (periodic and alchemical is None and dispersion_correction)
+            else 0.0
+        )
+        x0 = np.asarray(frozen_ref_positions, np.float64)
+        self.box0 = None if box_for_pme is None else np.asarray(box_for_pme, np.float64)
+
+        recip, recip_frozen = None, None
+        if method == PME:
+            fro_idx = np.where(~in_rows_np)[0]
+            base_grid = precompute_spread_grid(pme_params, x0[fro_idx], charges[fro_idx], self.box0)
+            recip_frozen = make_pme_reciprocal(
+                pme_params, base_grid=base_grid, spread_subset=active_rows, device=dev
+            )
+        self.recip = recip_frozen
+
+        common = dict(
+            method=method, cutoff=cutoff, alpha_ewald=alpha, k_rf=k_rf, c_rf=c_rf,
+            annihilate_sterics=sc.annihilate_sterics, softcore_alpha=sc.softcore_alpha,
+            periodic=periodic, switch_distance=switch_distance, alch_coulomb=alch_coulomb,
+            device=dev,
+        )
+
+        # --- static column culling (permanent reach balls) -------------------
+        if frozen_cull_skin is None or frozen_cull_skin <= 0:
+            raise ValueError("the sweep backend needs column culling (frozen_cull_skin > 0)")
+        skin = float(frozen_cull_skin)
+        Lnp = np.diag(self.box0) if (periodic and self.box0 is not None) else None
+        rows_np = active_rows
+        centers, radii = _cull_balls(
+            rows_np, x0, Lnp, bonds_for_cull, masses, skin, frozen_cull_cage_margin, n
+        )
+        colmask = np.zeros(n, bool)
+        for lo in range(0, len(rows_np), 512):
+            d = x0[:, None, :] - centers[None, lo : lo + 512, :]
+            if Lnp is not None:
+                d -= Lnp * np.round(d / Lnp)
+            reach = (cutoff + radii[lo : lo + 512])[None, :]
+            colmask |= ((d * d).sum(-1) <= reach * reach).any(1)
+        colmask[rows_np] = True
+        if colmask.mean() > 0.75:
+            raise ValueError(
+                "column culling does not engage for this system (more than 75% of atoms "
+                "in reach); the row-compacted pallas backend it would need is not ported"
+            )
+        col_idx = np.where(colmask)[0].astype(np.int64)
+        self.cull_bounds = (rows_np.copy(), centers.copy(), radii.copy())
+        self.cull_info = (len(col_idx), n)
+        noimg = _no_image_geometry(x0, col_idx, rows_np, centers, radii, Lnp, cutoff) if Lnp is not None else None
+        col_const = x0[col_idx] + (noimg[0] if noimg is not None else 0.0)
+        col_msel = np.where(in_rows_np[col_idx])[0]
+        col_mgid = col_idx[col_msel]
+
+        c = self.c = _Consts(dev)
+        c["guard_rows"] = rows_np
+        c["guard_centers"] = centers
+        c["guard_r2"] = (radii + 1e-3) ** 2
+
+        excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
+        excl_mask_np, excl_prefiltered = _excl_mask(excl_all, n, rows_np, col_idx)
+
+        per_atom_main = dict(
+            q_std=charges * (1.0 - is_alch), q_alch=charges * is_alch, sigma=sigmas,
+            epsilon=epsilons, alch=is_alch.astype(np.float64), in_rows=in_rows_np.astype(np.float64),
+        )
+        groups_main = None
+        if sweep_row_group:
+            groups_main = build_row_groups(
+                rows=rows_np, centers=centers, radii=radii, cols=col_idx, ref_positions=x0,
+                box_lengths=Lnp, cutoff=cutoff, group_size=sweep_row_group, excl_mask=excl_mask_np,
+            )
+        self.pair_sum = SweepPairSum(
+            row_gid=rows_np, col_gid=col_idx, per_atom=per_atom_main, n_atoms=n,
+            excl_mask=excl_mask_np, col_const_positions=col_const, col_mobile_sel=col_msel,
+            col_mobile_gid=col_mgid, skip_min_image=noimg is not None, groups=groups_main,
+            name="MAIN", **common,
+        )
+
+        # --- exclusion / exception lists, filtered to mobile-involving -------
+        exc_idx_all = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
+        live_x = in_rows_np[excl_all[:, 0]] | in_rows_np[excl_all[:, 1]]
+        live_e = in_rows_np[exc_idx_all[:, 0]] | in_rows_np[exc_idx_all[:, 1]]
+        excl = excl_all[live_x]
+        exc_idx = exc_idx_all[live_e]
+        x_pref = excl_prefiltered[live_x]
+        self.excl_ff_const = 0.0
+        if method == PME and len(excl_all):
+            from scipy.special import erf as _erf
+
+            ff = excl_all[~live_x]
+            if len(ff):
+                d = x0[ff[:, 0]] - x0[ff[:, 1]]
+                if Lnp is not None:
+                    d -= Lnp * np.round(d / Lnp)
+                rff = np.linalg.norm(d, axis=1)
+                qqff = charges[ff[:, 0]] * charges[ff[:, 1]]
+                self.excl_ff_const = -float(
+                    units.ONE_4PI_EPS0 * np.sum(qqff * _erf(alpha * rff) / rff)
+                )
+        exc_sig = np.asarray(nb.exceptions_sigma, np.float64)[live_e]
+        exc_eps = np.asarray(nb.exceptions_epsilon, np.float64)[live_e]
+        exc_qq = np.asarray(nb.exceptions_chargeprod, np.float64)[live_e]
+        q_std_np = charges * (1.0 - is_alch)
+        q_alch_np = charges * is_alch
+        q_eff_np = q_std_np if alchemical is not None else charges
+        c["q_eff"] = q_eff_np
+
+        def pair_params(pairs):
+            i, j = pairs[:, 0], pairs[:, 1]
+            ai, aj = is_alch[i], is_alch[j]
+            return dict(
+                sig=0.5 * (sigmas[i] + sigmas[j]),
+                eps=np.sqrt(epsilons[i] * epsilons[j]),
+                qq_std=q_std_np[i] * q_std_np[j],
+                qq_na=q_std_np[i] * q_alch_np[j] + q_alch_np[i] * q_std_np[j],
+                qq_aa=q_alch_np[i] * q_alch_np[j],
+                scale=((ai ^ aj) | ((ai & aj) & sc.annihilate_sterics)).astype(np.float64),
+            )
+
+        def stage_pairs(prefix, pairs):
+            c[prefix + "_idx"] = pairs.reshape(-1, 2)
+            if len(pairs):
+                for k, v in pair_params(pairs).items():
+                    c[f"{prefix}_{k}"] = v
+
+        def stage_exc(prefix, sel):
+            pairs = exc_idx[sel]
+            c[prefix + "_idx"] = pairs.reshape(-1, 2)
+            c[prefix + "_sig"] = exc_sig[sel]
+            c[prefix + "_eps"] = exc_eps[sel]
+            c[prefix + "_qq"] = exc_qq[sel]
+            ai, aj = is_alch[pairs[:, 0]], is_alch[pairs[:, 1]]
+            na, aa = ai ^ aj, ai & aj
+            c[prefix + "_ster"] = (na | (aa & sc.annihilate_sterics)).astype(np.float64)
+            c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
+
+        # full path: subtract the excluded pairs the kernel included (those
+        # not masked at build time), add all live exceptions; the PME erf
+        # correction covers every live exclusion
+        x_included = (in_rows_np[excl[:, 0]] | in_rows_np[excl[:, 1]]) & ~x_pref
+        stage_pairs("xsub", excl[x_included])
+        stage_exc("exc", np.ones(len(exc_idx), bool))
+        c["erf_idx"] = excl
+
+        # --- lambda split ------------------------------------------------------
+        self.pair_sum0 = self.ea_sweep = None
+        self.has_split = False
+        alch_atoms_np = (
+            np.asarray(alchemical.atoms, np.int64)
+            if (alchemical is not None and len(alchemical.atoms))
+            else np.zeros(0, np.int64)
+        )
+        if len(alch_atoms_np):
+            if len(alch_atoms_np) > 128:
+                raise ValueError(
+                    "the port's EA sweep takes at most 128 alchemical atoms; the dense "
+                    "NA block for larger regions is not ported"
+                )
+            self._build_split(
+                alch_atoms_np, is_alch, in_rows_np, charges, sigmas, epsilons, col_idx, col_const,
+                rows_np, centers, radii, x0, Lnp, excl, exc_idx, pair_params, stage_pairs,
+                stage_exc, noimg, common, sweep_row_group, q_std_np,
+            )
+
+    # ------------------------------------------------------------------
+    def _build_split(
+        self, alch_atoms_np, is_alch, in_rows_np, charges, sigmas, epsilons, col_idx, col_const,
+        rows_np, centers, radii, x0, Lnp, excl, exc_idx, pair_params, stage_pairs, stage_exc,
+        noimg, common, sweep_row_group, q_std_np,
+    ):
+        c = self.c
+        n = self.n_atoms
+        sc = self.sc
+        alch_set = set(alch_atoms_np.tolist())
+        cols_na = np.asarray([cc for cc in col_idx if cc not in alch_set], np.int64)
+        rows0 = np.asarray([r for r in rows_np if r not in alch_set], np.int64)
+        xa_sel = is_alch[excl[:, 0]] | is_alch[excl[:, 1]] if len(excl) else np.zeros(0, bool)
+        ea_sel = (
+            is_alch[exc_idx[:, 0]] | is_alch[exc_idx[:, 1]] if len(exc_idx) else np.zeros(0, bool)
+        )
+        pref0_live = np.zeros(len(excl), bool)
+        if len(rows0):
+            sel0c = np.searchsorted(col_idx, cols_na)
+            col_msel0 = np.where(in_rows_np[cols_na])[0]
+            excl_mask0, pref0_live = _excl_mask(excl, n, rows0, cols_na)
+            in_rows0 = np.zeros(n)
+            in_rows0[rows0] = 1.0
+            per_atom0 = dict(
+                q_std=charges, q_alch=np.zeros(n), sigma=sigmas, epsilon=epsilons,
+                alch=np.zeros(n), in_rows=in_rows0,
+            )
+            groups0 = None
+            if sweep_row_group:
+                bpos = np.full(n, -1, np.int64)
+                bpos[rows_np] = np.arange(len(rows_np))
+                sel0 = bpos[rows0]
+                groups0 = build_row_groups(
+                    rows=rows0, centers=centers[sel0], radii=radii[sel0], cols=cols_na,
+                    ref_positions=x0, box_lengths=Lnp, cutoff=self.cutoff,
+                    group_size=sweep_row_group, excl_mask=excl_mask0,
+                )
+            self.pair_sum0 = SweepPairSum(
+                row_gid=rows0, col_gid=cols_na, per_atom=per_atom0, n_atoms=n,
+                excl_mask=excl_mask0, col_const_positions=col_const[sel0c],
+                col_mobile_sel=col_msel0, col_mobile_gid=cols_na[col_msel0],
+                skip_min_image=noimg is not None, groups=groups0, name="E0", **common,
+            )
+
+        # alchemical-involving exclusions are masked out of the pair blocks
+        excl_a = excl[xa_sel] if len(excl) else excl
+        excl_pairs = set(map(tuple, np.sort(excl_a, axis=1).tolist())) if len(excl_a) else set()
+        aiu, aju = np.triu_indices(len(alch_atoms_np), k=1)
+        if len(aiu):
+            keep = np.asarray(
+                [
+                    (int(min(alch_atoms_np[i], alch_atoms_np[j])), int(max(alch_atoms_np[i], alch_atoms_np[j])))
+                    not in excl_pairs
+                    for i, j in zip(aiu, aju)
+                ],
+                bool,
+            )
+            aiu, aju = aiu[keep], aju[keep]
+        na_excl_mask = np.zeros((len(alch_atoms_np), len(cols_na)), bool)
+        arow = {int(a): k for k, a in enumerate(alch_atoms_np)}
+        cpos = {int(cc): k for k, cc in enumerate(cols_na)}
+        for i, j in excl_pairs:
+            if i in arow and j in cpos:
+                na_excl_mask[arow[i], cpos[j]] = True
+            if j in arow and i in cpos:
+                na_excl_mask[arow[j], cpos[i]] = True
+        if not len(cols_na):
+            raise ValueError("the EA sweep needs non-alchemical columns")
+        selc = np.searchsorted(col_idx, cols_na)
+        mob_sel_cols = np.where(in_rows_np[cols_na])[0]
+        per_atom_ea = dict(
+            q_std=q_std_np, q_alch=charges * is_alch, sigma=sigmas, epsilon=epsilons,
+            alch=is_alch.astype(np.float64), in_rows=np.zeros(n),
+        )
+        self.ea_sweep = SweepPairSum(
+            row_gid=alch_atoms_np, col_gid=cols_na, per_atom=per_atom_ea, n_atoms=n,
+            excl_mask=na_excl_mask if na_excl_mask.any() else None,
+            col_const_positions=col_const[selc], col_mobile_sel=mob_sel_cols,
+            col_mobile_gid=cols_na[mob_sel_cols], col_forces=True, col_force_keep=mob_sel_cols,
+            skip_min_image=noimg is not None, name="EA", **common,
+        )
+        # intra-alchemical pairs (upper triangle, once each)
+        a_sig, a_eps, a_q = sigmas[alch_atoms_np], epsilons[alch_atoms_np], charges[alch_atoms_np]
+        c["aa_idx"] = np.stack([alch_atoms_np[aiu], alch_atoms_np[aju]], -1).reshape(-1, 2)
+        c["aa_sig"] = 0.5 * (a_sig[aiu] + a_sig[aju])
+        c["aa_eps"] = np.sqrt(a_eps[aiu] * a_eps[aju])
+        c["aa_qq"] = a_q[aiu] * a_q[aju]
+        stage_exc("exca", ea_sel)
+        # E0 corrections: non-alchemical exclusions not masked in pair_sum0,
+        # non-alchemical exceptions (plain LJ, no lambda)
+        stage_pairs("x0sub", excl[~xa_sel & ~pref0_live])
+        stage_exc("exc0", ~ea_sel)
+        self.has_split = True
+
+    # ------------------------------------------------------------------
+    def pair_factors(self, globals_, dtype, device):
+        g = globals_ or {}
+        lam_s = _lam(g.get("lambda_sterics", 1.0), dtype, device)
+        lam_e = _lam(g.get("lambda_electrostatics", 1.0), dtype, device)
+        f_aa = lam_e if self.sc.annihilate_electrostatics else 1.0
+        return lam_s, lam_e, f_aa
+
+    def _pair_kw(self):
+        return dict(
+            method=self.method, alpha_ewald=self.alpha, k_rf=self.k_rf, c_rf=self.c_rf,
+            softcore_alpha=self.sc.softcore_alpha, switch_distance=self.switch_distance,
+            cutoff=self.cutoff, alch_coulomb=self.alch_coulomb,
+        )
+
+    def _disp(self, x, idx, box):
+        dr = x[:, idx[:, 0]] - x[:, idx[:, 1]]
+        if self.periodic and box is not None:
+            dr = periodic_displacement(dr, box)
+        return dr
+
+    def _sub_excluded(self, x, box, prefix, lam_s, f_na, f_aa):
+        """-sum of the pair term over the staged exclusion list ``prefix``."""
+        c, dt = self.c, x.dtype
+        idx = c(prefix + "_idx")
+        if not len(idx):
+            return 0.0
+        dr = self._disp(x, idx, box)
+        r2 = torch.clamp((dr * dr).sum(-1), min=1e-6)
+        e, _ = pair_energy_force(
+            r2, c(prefix + "_sig", dt), c(prefix + "_eps", dt), c(prefix + "_qq_std", dt),
+            c(prefix + "_qq_na", dt), c(prefix + "_qq_aa", dt), c(prefix + "_scale", dt),
+            lam_sterics=lam_s, f_na=f_na, f_aa=f_aa, **self._pair_kw(),
+        )
+        e = torch.where(r2 < self.cutoff * self.cutoff, e, torch.zeros((), dtype=dt, device=x.device))
+        return -e.sum(-1)
+
+    def _exceptions(self, x, box, prefix, lam_s, lam_e, scaled=True):
+        c, dt, sc = self.c, x.dtype, self.sc
+        idx = c(prefix + "_idx")
+        if not len(idx):
+            return 0.0
+        dre = self._disp(x, idx, box)
+        re2 = torch.clamp((dre * dre).sum(-1), min=1e-12)
+        re = torch.sqrt(re2)
+        sig, eps, qq = c(prefix + "_sig", dt), c(prefix + "_eps", dt), c(prefix + "_qq", dt)
+        lj = lj_energy_pair(re2, sig, eps)
+        el = units.ONE_4PI_EPS0 * qq / re
+        if scaled:
+            soft = softcore_lj_energy_pair(
+                re2, sig, eps, lam_s, sc.softcore_alpha, sc.softcore_a, sc.softcore_b
+            )
+            ster = c(prefix + "_ster", dt)
+            elec = c(prefix + "_elec", dt)
+            lj = torch.where(ster > 0, soft, lj)
+            el = torch.where(elec > 0, lam_e * el, el)
+        return (lj + el).sum(-1)
+
+    def _reciprocal(self, x, box):
+        """PME reciprocal/self/plasma/erf-exclusion terms with q_std, plus
+        the poison for a box that differs from the frozen grid's."""
+        c, dt = self.c, x.dtype
+        ke, alpha = units.ONE_4PI_EPS0, self.alpha
+        q = c("q_eff", dt)
+        box0 = torch.as_tensor(self.box0, dtype=dt, device=x.device)
+        mismatch = (box - box0).abs().max() > 1e-5
+        e = torch.where(
+            mismatch,
+            torch.tensor(float("nan"), dtype=dt, device=x.device),
+            torch.zeros((), dtype=dt, device=x.device),
+        ) + self.recip(x, q, box)
+        e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
+        vol = box[0, 0] * box[1, 1] * box[2, 2]
+        e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / vol
+        idx = c("erf_idx")
+        if len(idx):
+            rx = distance(periodic_displacement(x[:, idx[:, 0]] - x[:, idx[:, 1]], box))
+            qq = q[idx[:, 0]] * q[idx[:, 1]]
+            e = e - (ke * qq * torch.erf(alpha * rx) / rx).sum(-1)
+        if self.excl_ff_const:
+            e = e + self.excl_ff_const
+        return e
+
+    def _tail(self, x, box):
+        e = 0.0
+        if self.method == PME:
+            e = self._reciprocal(x, box)
+        if self.disp_coeff:
+            e = e + self.disp_coeff / (box[0, 0] * box[1, 1] * box[2, 2])
+        return e
+
+    def cull_guard(self, x, box):
+        """NaN in energy AND forces when a row leaves its reach ball; zero
+        otherwise. The 1e-30*sum(x) factor carries the poison into autograd
+        forces, so MD (which reads forces only) trips its rollback."""
+        c, dt = self.c, x.dtype
+        d = x[:, c("guard_rows")] - c("guard_centers", dt)
+        if self.periodic and box is not None:
+            bl = torch.diagonal(box).to(dt)
+            d = d - bl * torch.round(d / bl)
+        bad = ((d * d).sum(-1) > c("guard_r2", dt)).any(-1).detach()
+        poison = torch.where(
+            bad,
+            torch.tensor(float("nan"), dtype=dt, device=x.device),
+            torch.zeros((), dtype=dt, device=x.device),
+        )
+        return poison * (1.0 + 1e-30 * x.sum((1, 2)))
+
+    def energy_rest(self, x, box=None, globals_=None):
+        """Exclusion/exception corrections, PME reciprocal terms, dispersion."""
+        lam_s, lam_e, f_aa = self.pair_factors(globals_, x.dtype, x.device)
+        e = self._sub_excluded(x, box, "xsub", lam_s, lam_e, f_aa)
+        e = e + self._exceptions(x, box, "exc", lam_s, lam_e)
+        return e + self._tail(x, box)
+
+    def __call__(self, x, box=None, globals_=None):
+        lam_s, lam_e, f_aa = self.pair_factors(globals_, x.dtype, x.device)
+        e = self.pair_sum.energy(x, box, lam_s, lam_e, f_aa)
+        return e + self.cull_guard(x, box) + self.energy_rest(x, box, globals_)
+
+    def lambda_e0(self, x, box=None):
+        """Lambda-independent part E0(x): non-alchemical pair sum, culling
+        guard, non-alchemical corrections and every reciprocal-space term."""
+        e = self.cull_guard(x, box)
+        if self.pair_sum0 is not None:
+            e = e + self.pair_sum0.energy(x, box, 1.0, 1.0, 1.0)
+        e = e + self._sub_excluded(x, box, "x0sub", 1.0, 1.0, 1.0)
+        e = e + self._exceptions(x, box, "exc0", 1.0, 1.0, scaled=False)
+        return e + self._tail(x, box)
+
+    def lambda_ea(self, x, box=None, globals_=None):
+        """Alchemical part Ea(x, lambda): the EA sweep, intra-alchemical pairs
+        and alchemical-involving exceptions."""
+        c, dt = self.c, x.dtype
+        lam_s, lam_e, f_aa = self.pair_factors(globals_, dt, x.device)
+        e = self.ea_sweep.energy(x, box, lam_s, lam_e, f_aa)
+        idx = c("aa_idx")
+        if len(idx):
+            dra = self._disp(x, idx, box)
+            r2 = (dra * dra).sum(-1)
+            in_cut = r2 < self.cutoff * self.cutoff
+            r2 = torch.clamp(r2, min=1e-6)
+            zero = torch.zeros((), dtype=dt, device=x.device)
+            e_aa, _ = pair_energy_force(
+                r2, c("aa_sig", dt), c("aa_eps", dt), zero, zero, c("aa_qq", dt),
+                bool(self.sc.annihilate_sterics), lam_sterics=lam_s, f_na=lam_e, f_aa=f_aa,
+                **self._pair_kw(),
+            )
+            e = e + torch.where(in_cut, e_aa, zero).sum(-1)
+        return e + self._exceptions(x, box, "exca", lam_s, lam_e)
+
+
+def make_nonbonded_energy(
+    nb: NonbondedParams,
+    *,
+    method: str = PME,
+    cutoff: float = 1.0,
+    alchemical: Optional[AlchemicalRegion] = None,
+    alchemical_pme_treatment: str = "direct-space",
+    ewald_tolerance: float = 5e-4,
+    rf_dielectric: float = 78.3,
+    box_for_pme=None,
+    backend: str = "sweep",
+    masses=None,
+    frozen_ref_positions=None,
+    dispersion_correction: bool = True,
+    switch_distance=None,
+    frozen_cull_skin: Optional[float] = 0.45,
+    frozen_cull_cage_margin: float = 1.0,
+    bonds_for_cull=None,
+    sweep_row_group: Optional[int] = None,
+    device="cpu",
+) -> NonbondedEnergy:
+    if backend != "sweep":
+        raise ValueError(f"nonbonded backend {backend!r} is not ported; the port has 'sweep' only")
+    return NonbondedEnergy(
+        nb, method=method, cutoff=cutoff, alchemical=alchemical,
+        alchemical_pme_treatment=alchemical_pme_treatment, ewald_tolerance=ewald_tolerance,
+        rf_dielectric=rf_dielectric, box_for_pme=box_for_pme, masses=masses,
+        frozen_ref_positions=frozen_ref_positions, dispersion_correction=dispersion_correction,
+        switch_distance=switch_distance, frozen_cull_skin=frozen_cull_skin,
+        frozen_cull_cage_margin=frozen_cull_cage_margin, bonds_for_cull=bonds_for_cull,
+        sweep_row_group=sweep_row_group, device=device,
+    )

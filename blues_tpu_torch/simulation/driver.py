@@ -1,0 +1,298 @@
+"""The hybrid MD <-> NCMC <-> Metropolis driver over R replicas.
+
+Counterpart of ``blues_tpu.simulation.driver.BLUESSimulation`` on the
+frozen production path: mobile-state compaction, the monolithic NCMC
+protocol with the lambda split, the alchemical correction and Metropolis
+test, Maxwell-Boltzmann velocity resampling, and ``nstepsMD`` BAOAB steps
+with a rollback when MD ends non-finite. Positions are (R, N, 3); the JAX
+package's ``vmap`` over replicas is the leading dimension here.
+
+Acceptance (reference semantics):
+
+    log_accept = -(protocol_work)/kT + correction
+    correction = -[(E_alch(x0) - E_md(x0)) + (E_md(x1) - E_alch(x1))]/kT
+
+Configurations outside this slice (no compaction, barostat, segmented
+dispatch, frame reporters, moves other than rotation or null) raise
+``ValueError``.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import units
+from ..core.rng import TorchRandomSource
+from ..core.state import maxwell_boltzmann_velocities
+from ..core.system import System
+from ..integrators.constraints import make_constraint_fns
+from ..integrators.langevin import LangevinParams, make_md_step
+from ..integrators.ncmc import make_ncmc_protocol
+from ..integrators.schedules import build_ncmc_schedule, calculate_ncmc_steps
+from ..moves.base import Move, NullMove
+from ..moves.rotation import RandomLigandRotationMove
+from ..potentials.energy import make_energy_fn, make_force_fn
+from .compact import build_mobile_compaction
+
+logger = logging.getLogger("blues_tpu_torch.simulation")
+
+
+@dataclass
+class SimulationConfig:
+    """Same field names and defaults as the JAX package's config."""
+
+    nIter: int = 100
+    nstepsNC: int = 100
+    nstepsMD: int = 100
+    temperature: float = 300.0  # K
+    dt: float = 0.002  # ps
+    friction: float = 1.0  # 1/ps
+    nprop: int = 1
+    propLambda: float = 0.3
+    moveStep: Optional[int] = None
+    splitting: str = "H V R O R V H"
+    alchemical_functions: Optional[dict] = None
+    nonbonded_method: str = "NoCutoff"
+    cutoff: float = 1.0  # nm
+    switch_distance: Optional[float] = None
+    ewald_tolerance: float = 5e-4
+    alchemical_pme_treatment: str = "direct-space"
+    md_report_interval: Optional[int] = None
+    pressure: Optional[float] = None
+    barostat_frequency: int = 25
+    n_replicas: int = 1
+    constraint_tolerance: float = 1e-6
+    use_pallas: Optional[bool] = None
+    nonbonded_backend: str = "auto"
+    frozen_cull_skin: Optional[float] = 0.45
+    sweep_row_group: Optional[int] = None
+    nlist_rebuild_interval: int = 10
+    ncmc_frame_indices: Optional[tuple] = None
+    lambda_split: Optional[bool] = None
+    max_steps_per_dispatch: Optional[int] = None
+    frozen_compact: object = "auto"
+    md_fault_injection: float = 0.0
+
+
+class IterationStats(NamedTuple):
+    accepted: torch.Tensor  # (R,) bool
+    protocol_work: torch.Tensor  # (R,) kJ/mol
+    correction: torch.Tensor  # (R,) units of kT
+    log_accept: torch.Tensor
+    md_potential: torch.Tensor  # (R,) kJ/mol at iteration end
+    ncmc_potential: torch.Tensor  # (R,) alchemical potential at protocol end
+    mid_work: torch.Tensor
+    md_failed: torch.Tensor  # (R,) bool: MD rolled back
+
+
+def _check_slice(cfg: SimulationConfig, move):
+    out = []
+    if cfg.pressure is not None:
+        out.append("pressure (barostat)")
+    if cfg.max_steps_per_dispatch:
+        out.append("max_steps_per_dispatch")
+    if cfg.md_report_interval is not None or cfg.ncmc_frame_indices is not None:
+        out.append("frame reporters (md_report_interval / ncmc_frame_indices)")
+    if cfg.frozen_compact is False:
+        out.append("frozen_compact=False")
+    if cfg.use_pallas:
+        out.append("use_pallas")
+    if cfg.nonbonded_backend not in ("auto", "sweep"):
+        out.append(f"nonbonded_backend={cfg.nonbonded_backend!r}")
+    if move is not None and type(move) not in (Move, NullMove, RandomLigandRotationMove):
+        out.append(f"move {type(move).__name__}")
+    if out:
+        raise ValueError("outside the port's slice: " + ", ".join(out))
+
+
+class BLUESSimulation:
+    """Drives iterations of [NCMC protocol -> accept/reject -> MD]."""
+
+    def __init__(self, system: System, move, config: SimulationConfig, device="cpu",
+                 dtype=torch.float32):
+        _check_slice(config, move)
+        self.system, self.move, self.cfg = system, move, config
+        self.device = torch.device(device)
+        self.dtype = dtype
+        ncmc = calculate_ncmc_steps(config.nstepsNC, config.nprop, config.propLambda)
+        self.nstepsNC = ncmc["nstepsNC"]
+        self.propSteps = ncmc["propSteps"]
+        self.moveStep = config.moveStep if config.moveStep is not None else ncmc["moveStep"]
+
+        common = dict(
+            nonbonded_method=config.nonbonded_method,
+            cutoff=config.cutoff,
+            switch_distance=config.switch_distance,
+            ewald_tolerance=config.ewald_tolerance,
+            frozen_cull_skin=config.frozen_cull_skin,
+            sweep_row_group=config.sweep_row_group,
+            device=self.device,
+        )
+        self.energy_md = make_energy_fn(system.replace(alchemical=None), **common)
+        self.energy_alch = (
+            make_energy_fn(system, alchemical_pme_treatment=config.alchemical_pme_treatment, **common)
+            if system.alchemical is not None
+            else self.energy_md
+        )
+        self.force_md = make_force_fn(self.energy_md)
+        self.force_alch = make_force_fn(self.energy_alch)
+        self._constrain = make_constraint_fns(system.constraints, system.masses, self.device)
+        self.schedule = build_ncmc_schedule(
+            self.nstepsNC,
+            alchemical_functions=config.alchemical_functions,
+            splitting=config.splitting,
+            nprop=config.nprop,
+            prop_lambda=config.propLambda,
+            move_step=self.moveStep,
+        )
+        self.langevin_params = LangevinParams(config.dt, config.friction, config.temperature)
+        self._kT = units.kT(config.temperature)
+
+        comp = build_mobile_compaction(system, self.energy_alch, self.force_alch, move, self.device)
+        if comp is None:
+            raise ValueError(
+                "the system/move is not compaction-eligible (needs frozen reference "
+                "positions, no boundary-straddling constraints, a remappable move); "
+                "the full-array iteration is outside the port's slice"
+            )
+        self._compact = comp
+        self._constrain_m = make_constraint_fns(comp.constraints_m, comp.masses_m, self.device)
+        self.source = None
+        self.state = None
+        self.accept_counter = 0
+        self.iteration_count = 0
+        self.stats_history: list = []
+
+    def _build_dynamics(self):
+        comp, lp, src = self._compact, self.langevin_params, self.source
+        cx_m, cv_m = self._constrain_m
+        self.protocol_fn_m = make_ncmc_protocol(
+            comp.efn_m, comp.ffn_m, comp.masses_m, lp, cx_m, cv_m, self.schedule, src,
+            move=comp.move_m, splitting=self.cfg.splitting, lambda_split=self.cfg.lambda_split,
+            device=self.device,
+        )
+
+        def ffn_md_m(xm, box=None, globals_=None):
+            e, f = self.force_md(comp.expand(xm), box, globals_)
+            return e, f.index_select(1, comp.mobile_idx_t)
+
+        self._ffn_md_m = ffn_md_m
+        self._md_step_m = make_md_step(ffn_md_m, comp.masses_m, lp, cx_m, cv_m, src, self.device)
+
+    # ------------------------------------------------------------------
+    def initialize(self, positions, box=None, seed: int = 0, source=None, velocities=None):
+        """Set the state: positions (N, 3) are broadcast to (R, N, 3).
+        Draws come from ``source``, else a ``torch.Generator`` seeded with
+        ``seed`` on the simulation's device."""
+        R = self.cfg.n_replicas
+        if source is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+            source = TorchRandomSource(gen)
+        self.source = source
+        self._build_dynamics()
+        if box is None:
+            if self.system.box is None:
+                raise ValueError("the port's path is periodic: the system needs a box")
+            box = self.system.box
+        box = torch.as_tensor(np.asarray(box), dtype=self.dtype, device=self.device)
+        x = torch.as_tensor(np.asarray(positions), dtype=self.dtype, device=self.device)
+        if x.dim() == 2:
+            x = x.unsqueeze(0).expand(R, -1, -1).contiguous()
+        if velocities is None:
+            v = maxwell_boltzmann_velocities(
+                source, self.system.masses, self.cfg.temperature, R, self.dtype, self.device
+            )
+        else:
+            v = torch.as_tensor(np.asarray(velocities), dtype=self.dtype, device=self.device)
+            if v.dim() == 2:
+                v = v.unsqueeze(0).expand(R, -1, -1).contiguous()
+        self.state = (x, v, box)
+        return self.state
+
+    @torch.no_grad()
+    def minimize(self, n_steps: int = 1000):
+        """FIRE-minimise the current positions of every replica."""
+        from ..integrators.minimize import minimize_fire
+
+        if self.state is None:
+            raise RuntimeError("call initialize() first")
+        x, v, box = self.state
+        xm, _ = minimize_fire(
+            self.force_md, self.system.masses, x, box, n_steps=n_steps,
+            constrain_x=self._constrain[0],
+        )
+        self.state = (xm, v, box)
+        return self.state
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def run_iteration(self) -> IterationStats:
+        """One MD <-> NCMC iteration on every replica; returns its stats."""
+        if self.state is None:
+            raise RuntimeError("call initialize() first")
+        cfg, comp, src = self.cfg, self._compact, self.source
+        x, v, box = self.state
+        R, dt, dev = x.shape[0], x.dtype, x.device
+        mob = comp.mobile_idx_t
+
+        e_md0 = self.energy_md(x, box, None)
+        res = self.protocol_fn_m(comp.gather(x), comp.gather(v), box)
+        x_prop = x.index_copy(1, mob, res.positions)
+        e_md1 = self.energy_md(x_prop, box, None)
+        correction = -((res.e_initial - e_md0) + (e_md1 - res.e_final)) / self._kT
+        log_accept = res.log_accept + correction
+        rand = torch.log(src.uniform((R,), dt, dev))
+        accepted = torch.isfinite(log_accept) & (log_accept > rand)
+        x = torch.where(accepted[:, None, None], x_prop, x)
+
+        # velocities for the mobile subset only (frozen ones are zero)
+        xm = comp.gather(x)
+        vm = maxwell_boltzmann_velocities(src, comp.masses_m, cfg.temperature, R, dt, dev)
+        vm = self._constrain_m[1](vm, xm)
+        xm_keep, vm_keep = xm, vm
+        _, fm = self._ffn_md_m(xm, box, None)
+        for _ in range(cfg.nstepsMD):
+            xm, vm, fm, _e = self._md_step_m(xm, vm, fm, box)
+        if cfg.md_fault_injection > 0.0:
+            fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
+            xm = torch.where(fault[:, None, None], torch.full_like(xm, float("nan")), xm)
+        e_md_end = self.energy_md(x.index_copy(1, mob, xm), box, None)
+        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xm).all(-1).all(-1)
+        xm = torch.where(md_ok[:, None, None], xm, xm_keep)
+        vm = torch.where(md_ok[:, None, None], vm, vm_keep)
+        x = x.index_copy(1, mob, xm)
+        v = torch.zeros_like(x).index_copy(1, mob, vm)
+        self.state = (x, v, box)
+        self.iteration_count += 1
+        return IterationStats(
+            accepted=accepted,
+            protocol_work=res.protocol_work,
+            correction=correction,
+            log_accept=log_accept,
+            md_potential=e_md_end,
+            ncmc_potential=res.e_final,
+            mid_work=res.mid_work,
+            md_failed=~md_ok,
+        )
+
+    def run(self, n_iter: Optional[int] = None):
+        """Run ``n_iter`` iterations (default ``nIter``); returns the
+        acceptance ratio over all replicas and iterations."""
+        n_iter = n_iter if n_iter is not None else self.cfg.nIter
+        n_accept = n_total = 0.0
+        for _ in range(n_iter):
+            stats = self.run_iteration()
+            acc = stats.accepted.cpu().numpy()
+            n_accept += float(acc.sum())
+            n_total += float(acc.size)
+            self.accept_counter += int(acc.sum())
+            self.stats_history.append({k: t.cpu().numpy() for k, t in stats._asdict().items()})
+        ratio = n_accept / max(n_total, 1.0)
+        logger.info("Acceptance Ratio: %s", ratio)
+        return ratio

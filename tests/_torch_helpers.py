@@ -1,0 +1,32 @@
+"""Shared settings of the PyTorch-port parity tests (test_torch_*.py)."""
+
+import jax.numpy as jnp
+import torch
+
+# the tier-1 run spreads test files over several worker processes on one
+# CPU; PyTorch's intra-op thread pool in each of them oversubscribes it
+# (a 9 s test took 180 s), so the port's tests run its CPU ops on one thread
+torch.set_num_threads(1)
+
+#: the small frozen test system's energy settings: PME at a 0.65 nm cutoff,
+#: a cage margin small enough that column culling engages at 2,500 atoms
+KW = dict(
+    nonbonded_method="PME", cutoff=0.65, ewald_tolerance=5e-4, frozen_cull_skin=0.15,
+    frozen_cull_cage_margin=0.3, sweep_row_group=16,
+)
+
+
+class F64Jnp:
+    """``jax.numpy`` with float32 mapped to float64 and the einsum's
+    accumulation type dropped. Installed as ``blues_tpu.potentials.pme.jnp``
+    under x64, it runs the JAX PME formulas with the charge grid in float64
+    (the package spreads into a float32 grid even under x64)."""
+
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    @staticmethod
+    def einsum(*args, preferred_element_type=None, **kw):
+        return jnp.einsum(*args, **kw)
