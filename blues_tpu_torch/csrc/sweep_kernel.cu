@@ -1,11 +1,20 @@
-// Culled frozen pair sweep (softcore LJ + Ewald-erfc / reaction-field /
+// Row x column pair sweep (softcore LJ + Ewald-erfc / reaction-field /
 // plain Coulomb) for NVIDIA Hopper, sm_90a.
 //
-// Replaces the TPU Pallas kernel blues_tpu/potentials/pallas/sweep_kernel.py
-// (_make_kernel, launched by make_sweep_pair_sum). It computes the same sum
-// over the same host-built layout (blues_tpu_torch/potentials/sweep.py):
-// rows are packed in blocks of up to 32 row slots, each block owning a
-// contiguous range of column storage (its Morton group's culled columns).
+// Replaces two TPU Pallas kernels, which compute the same pair math over
+// different layouts:
+//   * K1, blues_tpu/potentials/pallas/sweep_kernel.py (_make_kernel,
+//     launched by make_sweep_pair_sum): the culled frozen sweep;
+//   * K2, blues_tpu/potentials/pallas/pair_kernel.py (_make_kernel,
+//     launched by make_pallas_pair_sum): active rows x all (or a subset of)
+//     columns, min-image on, no exclusion mask, no groups.
+// Both run on the host-built layout of blues_tpu_torch/potentials/sweep.py
+// (K2 is a configuration of it, potentials/pair_kernel.py): rows are packed
+// in blocks of up to 32 row slots, and each block reads the range
+// [col_range[2b], col_range[2b + 1]) of the column storage. Blocks of one
+// Morton group with an exclusion mask own private ranges (the exclusion
+// bits are per row slot); unmasked blocks of one group share one range, so
+// K2's hundreds of blocks read a single copy of the columns.
 //
 // What bounds it: this is an fp32 pair kernel whose work per pair is SFU and
 // ALU arithmetic (one rsqrtf, one __expf, one reciprocal, ~60 FMAs); device
@@ -15,25 +24,26 @@
 // block's columns over several SMs are later work.
 //
 // Design:
-//   * sweep_rows_kernel (MAIN and E0 instances): grid (row block, replica),
-//     256 threads. Each of the 8 warps owns 4 row slots; the block streams
-//     its real column range through shared memory in tiles of 256 columns
-//     (no padding tiles), lanes stride over the tile, and each row's F and E
-//     are summed with warp shuffles and written once. No float atomics, so
-//     the result is deterministic.
+//   * sweep_rows_kernel (MAIN and E0 instances, and K2): grid (row block,
+//     replica), 256 threads. Each of the 8 warps owns 4 row slots; the block
+//     streams its real column range through shared memory in tiles of 256
+//     columns (no padding tiles), lanes stride over the tile, and each row's
+//     F and E are summed with warp shuffles and written once. No float
+//     atomics, so the result is deterministic.
 //   * sweep_cols_kernel (EA instance, <= 128 alchemical rows with column
 //     reaction forces): one thread per column loops over the rows held in
 //     shared memory and writes its column force directly; per-warp row
 //     partials go to scratch and sweep_reduce_kernel sums them in a fixed
 //     order.
 //
-// Numerics: rsqrtf and __expf carry a few ulp of error, and the erfc is the
-// Abramowitz & Stegun 7.1.26 form (|err| <= 1.5e-7) shared with the TPU
-// kernel; both sit inside the stated tolerances (energy 5e-5*|E| + 1e-2,
-// forces 2e-5*max|F|) that the plain PyTorch version is held to.
+// Numerics: see pair_math.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pair_math.cuh"
+
+using namespace pair_math;
 
 namespace {
 
@@ -48,125 +58,13 @@ constexpr int MAX_EA_ROWS = 128;
 constexpr int F_QSTD = 0, F_QALCH = 1, F_SIG = 2, F_EPS = 3, F_ALCH = 4,
               F_INROWS = 5, F_GID = 6, F_VALID = 7;
 
-enum Method { M_PME = 0, M_RF = 1, M_PLAIN = 2 };
-
-struct PairConsts {
-  int method;
-  float cutoff2;
-  int use_cutoff;
-  float alpha_ewald;
-  float k_rf;
-  float c_rf;
-  float ann;
-  float softcore_alpha;
-  int wrap;
-  int has_switch;
-  float switch_distance;
-  float cutoff;
-  int alch_coulomb;
-  float ke;
-};
-
-__device__ __forceinline__ void coulomb_erfc(float r2, float qq, float alpha,
-                                             float ke, float& e, float& g) {
-  const float inv_r = rsqrtf(r2);
-  const float r = r2 * inv_r;
-  const float x = alpha * r;
-  const float gauss = __expf(-x * x);
-  const float t = 1.0f / (1.0f + 0.3275911f * x);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  e = ke * qq * (poly * gauss) * inv_r;
-  g = -(e + ke * qq * (2.0f * alpha * 0.5641895835477563f) * gauss) * inv_r *
-      inv_r;
-}
-
-__device__ __forceinline__ void coulomb_plain(float r2, float qq, float ke,
-                                              float& e, float& g) {
-  const float inv_r = rsqrtf(r2);
-  e = ke * qq * inv_r;
-  g = -e * inv_r * inv_r;
-}
-
-__device__ __forceinline__ void lj_switch(float r2, const PairConsts& c,
-                                          float& s, float& ds, float& inv_r) {
-  inv_r = rsqrtf(r2);
-  const float r = r2 * inv_r;
-  const float width = c.cutoff - c.switch_distance;
-  float t = (r - c.switch_distance) / width;
-  t = fminf(fmaxf(t, 0.0f), 1.0f);
-  s = 1.0f + t * t * t * (-10.0f + t * (15.0f - 6.0f * t));
-  ds = t * t * (-30.0f + t * (60.0f - 30.0f * t)) / width;
-}
-
-// potentials/pairs.py pair_energy_force, f32 branch
-__device__ __forceinline__ void pair_ef(float r2, float sig, float eps,
-                                        float qq_std, float qq_na, float qq_aa,
-                                        float scale_ster, float lam_s,
-                                        float f_na, float f_aa,
-                                        const PairConsts& c, float& e,
-                                        float& g) {
-  const float lam_eff = scale_ster * lam_s + (1.0f - scale_ster);
-  const float s2 = sig * sig;
-  const float s6 = s2 * s2 * s2;
-  const float r6 = r2 * r2 * r2;
-  const float reff6 = c.softcore_alpha * (1.0f - lam_eff) * s6 + r6;
-  const float inv6 = 1.0f / reff6;
-  const float x = s6 * inv6;
-  float e_lj = 4.0f * eps * lam_eff * (x * x - x);
-  float g_lj = -24.0f * eps * lam_eff * (2.0f * x - 1.0f) * x * inv6 * r2 * r2;
-  float sw = 1.0f, dsw = 0.0f, sw_inv_r = 0.0f;
-  if (c.has_switch) {
-    lj_switch(r2, c, sw, dsw, sw_inv_r);
-    g_lj = sw * g_lj + dsw * e_lj * sw_inv_r;
-    e_lj = sw * e_lj;
-  }
-  float e_el, g_el;
-  if (c.alch_coulomb && c.method == M_PME) {
-    coulomb_erfc(r2, qq_std, c.alpha_ewald, c.ke, e_el, g_el);
-    float e_a, g_a;
-    coulomb_plain(r2, f_na * qq_na + f_aa * qq_aa, c.ke, e_a, g_a);
-    if (c.has_switch) {
-      g_a = sw * g_a + dsw * e_a * sw_inv_r;
-      e_a = sw * e_a;
-    }
-    e_el += e_a;
-    g_el += g_a;
-  } else {
-    const float qq = qq_std + f_na * qq_na + f_aa * qq_aa;
-    if (c.method == M_PME) {
-      coulomb_erfc(r2, qq, c.alpha_ewald, c.ke, e_el, g_el);
-    } else if (c.method == M_RF) {
-      const float inv_r = rsqrtf(r2);
-      e_el = c.ke * qq * (inv_r + c.k_rf * r2 - c.c_rf);
-      g_el = c.ke * qq * (-inv_r * inv_r * inv_r + 2.0f * c.k_rf);
-    } else {
-      coulomb_plain(r2, qq, c.ke, e_el, g_el);
-    }
-  }
-  e = e_lj + e_el;
-  g = g_lj + g_el;
-}
-
-__device__ __forceinline__ float wrap1(float d, float L, int wrap) {
-  return wrap ? d - L * rintf(d / L) : d;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // params: [lam_s, f_na, f_aa, Lx, Ly, Lz]
 __global__ void __launch_bounds__(ROWS_THREADS)
     sweep_rows_kernel(const float* __restrict__ xr,     // (R, n_slots, 3)
                       const float* __restrict__ xc,     // (R, S, 3)
                       const float* __restrict__ rfeat,  // (n_slots, 8)
                       const float* __restrict__ cfeat,  // (S, 8)
-                      const int* __restrict__ col_start,  // (G + 1,)
+                      const int* __restrict__ col_range,  // (G, 2)
                       const uint32_t* __restrict__ excl,  // (S,) or null
                       const float* __restrict__ params,
                       float* __restrict__ out,  // (R, n_slots, 4)
@@ -183,8 +81,8 @@ __global__ void __launch_bounds__(ROWS_THREADS)
   const float lam_s = params[0], f_na = params[1], f_aa = params[2];
   const float Lx = params[3], Ly = params[4], Lz = params[5];
 
-  const int c0 = col_start[g];
-  const int c1 = col_start[g + 1];
+  const int c0 = col_range[2 * g];
+  const int c1 = col_range[2 * g + 1];
 
   float rx[ROWS_PER_WARP], ry[ROWS_PER_WARP], rz[ROWS_PER_WARP];
   float rqs[ROWS_PER_WARP], rqa[ROWS_PER_WARP], rsig[ROWS_PER_WARP],
@@ -240,7 +138,7 @@ __global__ void __launch_bounds__(ROWS_THREADS)
         const float dx = wrap1(rx[k] - s_x[j], Lx, c.wrap);
         const float dy = wrap1(ry[k] - s_y[j], Ly, c.wrap);
         const float dz = wrap1(rz[k] - s_z[j], Lz, c.wrap);
-        float r2 = dx * dx + dy * dy + dz * dz;
+        float r2 = dist2(dx, dy, dz);
         if (c.use_cutoff && !(r2 < c.cutoff2)) continue;
         r2 = fmaxf(r2, 1e-6f);
         const float aa = ral[k] * s_al[j];
@@ -338,7 +236,7 @@ __global__ void __launch_bounds__(COLS_THREADS)
       const float dx = wrap1(s_rx[r] - cx, Lx, c.wrap);
       const float dy = wrap1(s_ry[r] - cy, Ly, c.wrap);
       const float dz = wrap1(s_rz[r] - cz, Lz, c.wrap);
-      float r2 = dx * dx + dy * dy + dz * dz;
+      float r2 = dist2(dx, dy, dz);
       if (!c.use_cutoff || r2 < c.cutoff2) {
         r2 = fmaxf(r2, 1e-6f);
         const float ai = s_f[r][F_ALCH];
@@ -394,35 +292,13 @@ __global__ void sweep_reduce_kernel(const float* __restrict__ partial,
   out[((size_t)rep * nr + r) * 4 + k] = s;
 }
 
-PairConsts make_consts(int method, float cutoff, int use_cutoff,
-                       float alpha_ewald, float k_rf, float c_rf, float ann,
-                       float softcore_alpha, int wrap, int has_switch,
-                       float switch_distance, int alch_coulomb, float ke) {
-  PairConsts c;
-  c.method = method;
-  c.cutoff = cutoff;
-  c.cutoff2 = cutoff * cutoff;
-  c.use_cutoff = use_cutoff;
-  c.alpha_ewald = alpha_ewald;
-  c.k_rf = k_rf;
-  c.c_rf = c_rf;
-  c.ann = ann;
-  c.softcore_alpha = softcore_alpha;
-  c.wrap = wrap;
-  c.has_switch = has_switch;
-  c.switch_distance = switch_distance;
-  c.alch_coulomb = alch_coulomb;
-  c.ke = ke;
-  return c;
-}
-
 }  // namespace
 
 extern "C" {
 
 // MAIN / E0: returns cudaGetLastError() after the launch
 int sweep_rows_launch(const float* xr, const float* xc, const float* rfeat,
-                      const float* cfeat, const int* col_start,
+                      const float* cfeat, const int* col_range,
                       const uint32_t* excl, const float* params, float* out,
                       int R, int G, int S, int method, float cutoff,
                       int use_cutoff, float alpha_ewald, float k_rf, float c_rf,
@@ -435,7 +311,7 @@ int sweep_rows_launch(const float* xr, const float* xc, const float* rfeat,
                   alch_coulomb, ke);
   dim3 grid(G, R);
   sweep_rows_kernel<<<grid, ROWS_THREADS, 0, (cudaStream_t)stream>>>(
-      xr, xc, rfeat, cfeat, col_start, excl, params, out, G * ROWS_PER_BLOCK,
+      xr, xc, rfeat, cfeat, col_range, excl, params, out, G * ROWS_PER_BLOCK,
       S, c);
   return (int)cudaGetLastError();
 }

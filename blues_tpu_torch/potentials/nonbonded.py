@@ -1,17 +1,24 @@
-"""Nonbonded LJ + electrostatics with alchemical softcore semantics, sweep
-backend.
+"""Nonbonded LJ + electrostatics with alchemical softcore semantics.
 
-Port of the sweep branch of ``blues_tpu.potentials.nonbonded``
-(``_make_pair_backend_energy`` with backend 'sweep'): the frozen production
-protocol's pair space is statically culled to permanent reach balls around
-the mobile rows, summed by the sweep pair kernel (``potentials/sweep.py``),
-and corrected by short exclusion / exception lists, PME reciprocal/self/
-plasma terms and the dispersion correction. The lambda split
-E(x, lam) = E0(x) + Ea(x, lam) is built for alchemical systems.
+Port of ``blues_tpu.potentials.nonbonded._make_pair_backend_energy`` for
+three pair backends, which share every term around the pair sum
+(exclusion / exception lists, PME reciprocal/self/plasma terms and the
+dispersion correction) and the lambda split E(x, lam) = E0(x) + Ea(x, lam)
+of alchemical systems:
+
+  * 'sweep' (frozen production systems): the pair space is statically
+    culled to permanent reach balls around the mobile rows, summed by the
+    sweep kernel K1 (``potentials/sweep.py``) for MAIN, E0 and EA, with a
+    cull guard, a frozen-background PME grid and filtered lists;
+  * 'pcells' (no frozen atoms): the cell-list kernel K3
+    (``potentials/pcells.py``) for MAIN and E0, full lists, PME over every
+    atom, and a dense alchemical x non-alchemical block for Ea;
+  * 'pallas' (no frozen atoms): the same with the all-pairs kernel K2
+    (``potentials/pair_kernel.py``).
 
 Positions are (R, N, 3); every energy is (R,). Other backends, the 'exact'
-PME treatment, triclinic boxes and systems where culling does not engage
-raise ``ValueError``.
+PME treatment, triclinic boxes, frozen systems where culling does not
+engage and frozen systems on 'pcells'/'pallas' raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,9 +32,12 @@ import torch
 
 from .. import units
 from ..core.system import AlchemicalRegion, NonbondedParams
+from .features import build_pair_features
 from .geometry import distance, periodic_displacement
 from .pairs import pair_energy_force
 from .pme import PMEParams, make_pme_reciprocal, precompute_spread_grid
+from .pair_kernel import PallasPairSum
+from .pcells import CellsPairSum
 from .sweep import SweepPairSum, build_row_groups
 
 CUTOFF_PERIODIC = "CutoffPeriodic"
@@ -261,7 +271,12 @@ def _lam(v, dtype, device):
 
 class NonbondedEnergy:
     """fn(x (R, N, 3), box (3, 3), globals) -> (R,) nonbonded energy, with
-    ``lambda_e0`` / ``lambda_ea`` when the lambda split applies."""
+    ``lambda_e0`` / ``lambda_ea`` when the lambda split applies.
+
+    The rest terms (exclusion and exception lists, PME reciprocal/self/
+    plasma, dispersion) are shared by every backend; only the pair sums
+    differ: ``_build_sweep`` for frozen systems, ``_build_unfrozen`` for the
+    cells (K3) and pair (K2) kernels on systems where every atom moves."""
 
     def __init__(
         self,
@@ -282,7 +297,8 @@ class NonbondedEnergy:
         frozen_cull_cage_margin: float,
         bonds_for_cull,
         sweep_row_group,
-        device,
+        backend: str = "sweep",
+        device="cpu",
     ):
         if alchemical_pme_treatment not in ("direct-space", "coulomb"):
             raise ValueError(
@@ -290,7 +306,7 @@ class NonbondedEnergy:
                 "the port implements 'direct-space' and 'coulomb'"
             )
         if method not in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC):
-            raise ValueError(f"the sweep backend needs a cutoff method, got {method!r}")
+            raise ValueError(f"the {backend} backend needs a cutoff method, got {method!r}")
         if box_for_pme is not None:
             b = np.asarray(box_for_pme, np.float64)
             if np.abs(b - np.diag(np.diag(b))).max() > 0:
@@ -298,6 +314,7 @@ class NonbondedEnergy:
         if switch_distance is not None and not (0.0 < switch_distance < cutoff):
             raise ValueError(f"switch_distance {switch_distance} must lie in (0, cutoff={cutoff})")
         self.device = dev = torch.device(device)
+        self.backend = backend
         n = nb.charge.shape[0]
         self.n_atoms = n
         charges = np.asarray(nb.charge, np.float64)
@@ -314,6 +331,7 @@ class NonbondedEnergy:
         self.alch_coulomb = alch_coulomb
         periodic = method in (PME, CUTOFF_PERIODIC)
         self.periodic = periodic
+        self._charges, self._sigmas, self._epsilons, self._is_alch = charges, sigmas, epsilons, is_alch
 
         pme_params = None
         alpha = 0.0
@@ -329,38 +347,216 @@ class NonbondedEnergy:
             else (0.0, 0.0)
         )
         self.k_rf, self.c_rf = k_rf, c_rf
-
-        m = np.asarray(masses) if masses is not None else np.ones(n)
-        if not (m <= 0).any() or frozen_ref_positions is None:
-            raise ValueError(
-                "the sweep backend needs frozen atoms with reference positions "
-                "(freeze_radius); unfrozen systems need the cells/tiled backends, not ported"
-            )
-        in_rows_np = (m > 0) | is_alch
-        active_rows = np.where(in_rows_np)[0].astype(np.int64)
         self.disp_coeff = (
             dispersion_correction_coeff(nb.sigma, nb.epsilon, cutoff)
             if (periodic and alchemical is None and dispersion_correction)
             else 0.0
         )
-        x0 = np.asarray(frozen_ref_positions, np.float64)
         self.box0 = None if box_for_pme is None else np.asarray(box_for_pme, np.float64)
-
-        recip, recip_frozen = None, None
-        if method == PME:
-            fro_idx = np.where(~in_rows_np)[0]
-            base_grid = precompute_spread_grid(pme_params, x0[fro_idx], charges[fro_idx], self.box0)
-            recip_frozen = make_pme_reciprocal(
-                pme_params, base_grid=base_grid, spread_subset=active_rows, device=dev
-            )
-        self.recip = recip_frozen
-
-        common = dict(
+        self.common = dict(
             method=method, cutoff=cutoff, alpha_ewald=alpha, k_rf=k_rf, c_rf=c_rf,
             annihilate_sterics=sc.annihilate_sterics, softcore_alpha=sc.softcore_alpha,
             periodic=periodic, switch_distance=switch_distance, alch_coulomb=alch_coulomb,
             device=dev,
         )
+        self.c = _Consts(dev)
+        q_std_np = charges * (1.0 - is_alch)
+        self._q_std, self._q_alch = q_std_np, charges * is_alch
+        self.c["q_eff"] = q_std_np if alchemical is not None else charges
+        self._exc_sig = np.asarray(nb.exceptions_sigma, np.float64)
+        self._exc_eps = np.asarray(nb.exceptions_epsilon, np.float64)
+        self._exc_qq = np.asarray(nb.exceptions_chargeprod, np.float64)
+        self.pair_sum0 = self.ea_sweep = None
+        self.has_split = False
+        self.cull_info = self.cull_bounds = None
+        self._guard = False
+        self.excl_ff_const = 0.0
+
+        m = np.asarray(masses) if masses is not None else np.ones(n)
+        frozen = bool((m <= 0).any())
+        if backend == "sweep":
+            if not frozen or frozen_ref_positions is None:
+                raise ValueError(
+                    "the sweep backend needs frozen atoms with reference positions "
+                    "(freeze_radius); unfrozen systems take backend 'pcells' or 'pallas'"
+                )
+            self._build_sweep(
+                nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
+                bonds_for_cull, sweep_row_group,
+            )
+        elif backend in ("pcells", "pallas"):
+            if frozen:
+                raise ValueError(
+                    f"backend {backend!r} on a system with frozen atoms is not ported "
+                    "(the sweep backend's no-cull fallback); frozen systems take 'sweep'"
+                )
+            self._build_unfrozen(nb)
+        else:
+            raise ValueError(
+                f"nonbonded backend {backend!r} is not ported; the port has 'sweep', "
+                "'pcells' and 'pallas'"
+            )
+
+    # ------------------------------------------------------------------
+    def _pair_params(self, pairs):
+        i, j = pairs[:, 0], pairs[:, 1]
+        ai, aj = self._is_alch[i], self._is_alch[j]
+        q_std, q_alch = self._q_std, self._q_alch
+        return dict(
+            sig=0.5 * (self._sigmas[i] + self._sigmas[j]),
+            eps=np.sqrt(self._epsilons[i] * self._epsilons[j]),
+            qq_std=q_std[i] * q_std[j],
+            qq_na=q_std[i] * q_alch[j] + q_alch[i] * q_std[j],
+            qq_aa=q_alch[i] * q_alch[j],
+            scale=((ai ^ aj) | ((ai & aj) & self.sc.annihilate_sterics)).astype(np.float64),
+        )
+
+    def _stage_pairs(self, prefix, pairs):
+        """Stage an exclusion list whose pair term ``_sub_excluded`` removes."""
+        self.c[prefix + "_idx"] = pairs.reshape(-1, 2)
+        if len(pairs):
+            for k, v in self._pair_params(pairs).items():
+                self.c[f"{prefix}_{k}"] = v
+
+    def _stage_exc(self, prefix, exc_idx, sel, exc_keep=None):
+        """Stage the exceptions ``exc_idx[sel]``; ``exc_keep`` selects their
+        parameters from the system's list when ``exc_idx`` is a subset."""
+        c, sc = self.c, self.sc
+        keep = slice(None) if exc_keep is None else exc_keep
+        pairs = exc_idx[sel]
+        c[prefix + "_idx"] = pairs.reshape(-1, 2)
+        c[prefix + "_sig"] = self._exc_sig[keep][sel]
+        c[prefix + "_eps"] = self._exc_eps[keep][sel]
+        c[prefix + "_qq"] = self._exc_qq[keep][sel]
+        ai, aj = self._is_alch[pairs[:, 0]], self._is_alch[pairs[:, 1]]
+        na, aa = ai ^ aj, ai & aj
+        c[prefix + "_ster"] = (na | (aa & sc.annihilate_sterics)).astype(np.float64)
+        c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
+
+    def _split_lists(self, alch_atoms_np, cols_na, excl, exc_idx, exc_keep, pref0_live):
+        """Lists of the lambda split shared by every backend: the intra-
+        alchemical pairs, the alchemical and non-alchemical exceptions, and
+        E0's exclusion subtraction. Returns the build-time exclusion mask of
+        the alchemical x non-alchemical block (alchemical-involving
+        exclusions are masked there, not computed and subtracted)."""
+        c = self.c
+        is_alch = self._is_alch
+        xa_sel = is_alch[excl[:, 0]] | is_alch[excl[:, 1]] if len(excl) else np.zeros(0, bool)
+        ea_sel = (
+            is_alch[exc_idx[:, 0]] | is_alch[exc_idx[:, 1]] if len(exc_idx) else np.zeros(0, bool)
+        )
+        excl_a = excl[xa_sel] if len(excl) else excl
+        excl_pairs = set(map(tuple, np.sort(excl_a, axis=1).tolist())) if len(excl_a) else set()
+        aiu, aju = np.triu_indices(len(alch_atoms_np), k=1)
+        if len(aiu):
+            keep = np.asarray(
+                [
+                    (int(min(alch_atoms_np[i], alch_atoms_np[j])), int(max(alch_atoms_np[i], alch_atoms_np[j])))
+                    not in excl_pairs
+                    for i, j in zip(aiu, aju)
+                ],
+                bool,
+            )
+            aiu, aju = aiu[keep], aju[keep]
+        na_excl_mask = np.zeros((len(alch_atoms_np), len(cols_na)), bool)
+        arow = {int(a): k for k, a in enumerate(alch_atoms_np)}
+        cpos = {int(cc): k for k, cc in enumerate(cols_na)}
+        for i, j in excl_pairs:
+            if i in arow and j in cpos:
+                na_excl_mask[arow[i], cpos[j]] = True
+            if j in arow and i in cpos:
+                na_excl_mask[arow[j], cpos[i]] = True
+        # intra-alchemical pairs (upper triangle, once each)
+        a_sig, a_eps, a_q = (
+            self._sigmas[alch_atoms_np], self._epsilons[alch_atoms_np], self._charges[alch_atoms_np]
+        )
+        c["aa_idx"] = np.stack([alch_atoms_np[aiu], alch_atoms_np[aju]], -1).reshape(-1, 2)
+        c["aa_sig"] = 0.5 * (a_sig[aiu] + a_sig[aju])
+        c["aa_eps"] = np.sqrt(a_eps[aiu] * a_eps[aju])
+        c["aa_qq"] = a_q[aiu] * a_q[aju]
+        self._stage_exc("exca", exc_idx, ea_sel, exc_keep)
+        # E0 corrections: non-alchemical exclusions not masked in pair_sum0,
+        # non-alchemical exceptions (plain LJ, no lambda)
+        self._stage_pairs("x0sub", excl[~xa_sel & ~pref0_live])
+        self._stage_exc("exc0", exc_idx, ~ea_sel, exc_keep)
+        self.has_split = True
+        return na_excl_mask
+
+    # ------------------------------------------------------------------
+    def _build_unfrozen(self, nb):
+        """Every atom is a row: no culling, no guard, no frozen-background
+        PME grid; the full exclusion and exception lists; the pair sums are
+        the cells kernel (K3, 'pcells') or the pair kernel (K2, 'pallas')."""
+        c, n, common = self.c, self.n_atoms, self.common
+        charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
+        if self.method == PME:
+            self.recip = make_pme_reciprocal(self.pme_params, device=self.device)
+        feats = build_pair_features(charges, sigmas, epsilons, is_alch)
+        if self.backend == "pcells":
+            self.pair_sum = CellsPairSum(feats, box0=self.box0, name="cells_main", **common)
+        else:
+            self.pair_sum = PallasPairSum(feats, name="pair_main", **common)
+
+        excl = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
+        exc_idx = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
+        self._stage_pairs("xsub", excl)
+        self._stage_exc("exc", exc_idx, np.ones(len(exc_idx), bool))
+        c["erf_idx"] = excl
+
+        alch_atoms_np = (
+            np.asarray(self.alchemical.atoms, np.int64)
+            if (self.alchemical is not None and len(self.alchemical.atoms))
+            else np.zeros(0, np.int64)
+        )
+        # the JAX package's split bound: larger regions run unsplit
+        if not (0 < len(alch_atoms_np) <= 512):
+            return
+        cols_na = np.flatnonzero(~is_alch)
+        if len(cols_na):
+            if self.backend == "pcells":
+                # no static column subset: the alchemical atoms' charge and
+                # epsilon are zeroed, so every pair they are in is exactly 0
+                feats0 = build_pair_features(
+                    charges * (1.0 - is_alch), sigmas, epsilons * (1.0 - is_alch), np.zeros(n, bool), cols_na,
+                )
+                self.pair_sum0 = CellsPairSum(feats0, box0=self.box0, name="cells_e0", **common)
+            else:
+                feats0 = build_pair_features(charges, sigmas, epsilons, np.zeros(n, bool), cols_na)
+                self.pair_sum0 = PallasPairSum(feats0, col_idx=cols_na, name="pair_e0", **common)
+        na_excl_mask = self._split_lists(
+            alch_atoms_np, cols_na, excl, exc_idx, None, np.zeros(len(excl), bool)
+        )
+        # the dense alchemical x non-alchemical block of Ea (plain tensor
+        # ops, forces from autograd)
+        c["ea_rows"] = alch_atoms_np
+        c["ea_cols"] = cols_na
+        c["ea_sig"] = 0.5 * (sigmas[alch_atoms_np][:, None] + sigmas[cols_na][None, :])
+        c["ea_eps"] = np.sqrt(epsilons[alch_atoms_np][:, None] * epsilons[cols_na][None, :])
+        c["ea_qq"] = charges[alch_atoms_np][:, None] * self._q_std[cols_na][None, :]
+        c["ea_keep"] = ~na_excl_mask
+
+    # ------------------------------------------------------------------
+    def _build_sweep(
+        self, nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
+        bonds_for_cull, sweep_row_group,
+    ):
+        """The frozen production path: culled columns, the cull guard, the
+        frozen-background PME grid, the sweep kernel (K1) for MAIN, E0 and
+        EA."""
+        dev, n, common, alchemical = self.device, self.n_atoms, self.common, self.alchemical
+        charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
+        method, cutoff, periodic, alpha = self.method, self.cutoff, self.periodic, self.alpha
+        in_rows_np = (np.asarray(masses) > 0) | is_alch
+        active_rows = np.where(in_rows_np)[0].astype(np.int64)
+        x0 = np.asarray(frozen_ref_positions, np.float64)
+
+        self.recip = None
+        if method == PME:
+            fro_idx = np.where(~in_rows_np)[0]
+            base_grid = precompute_spread_grid(self.pme_params, x0[fro_idx], charges[fro_idx], self.box0)
+            self.recip = make_pme_reciprocal(
+                self.pme_params, base_grid=base_grid, spread_subset=active_rows, device=dev
+            )
 
         # --- static column culling (permanent reach balls) -------------------
         if frozen_cull_skin is None or frozen_cull_skin <= 0:
@@ -382,7 +578,7 @@ class NonbondedEnergy:
         if colmask.mean() > 0.75:
             raise ValueError(
                 "column culling does not engage for this system (more than 75% of atoms "
-                "in reach); the row-compacted pallas backend it would need is not ported"
+                "in reach); the sweep's no-cull fallback to the pair kernel is not ported"
             )
         col_idx = np.where(colmask)[0].astype(np.int64)
         self.cull_bounds = (rows_np.copy(), centers.copy(), radii.copy())
@@ -392,16 +588,17 @@ class NonbondedEnergy:
         col_msel = np.where(in_rows_np[col_idx])[0]
         col_mgid = col_idx[col_msel]
 
-        c = self.c = _Consts(dev)
+        c = self.c
         c["guard_rows"] = rows_np
         c["guard_centers"] = centers
         c["guard_r2"] = (radii + 1e-3) ** 2
+        self._guard = True
 
         excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
         excl_mask_np, excl_prefiltered = _excl_mask(excl_all, n, rows_np, col_idx)
 
         per_atom_main = dict(
-            q_std=charges * (1.0 - is_alch), q_alch=charges * is_alch, sigma=sigmas,
+            q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas,
             epsilon=epsilons, alch=is_alch.astype(np.float64), in_rows=in_rows_np.astype(np.float64),
         )
         groups_main = None
@@ -424,7 +621,6 @@ class NonbondedEnergy:
         excl = excl_all[live_x]
         exc_idx = exc_idx_all[live_e]
         x_pref = excl_prefiltered[live_x]
-        self.excl_ff_const = 0.0
         if method == PME and len(excl_all):
             from scipy.special import erf as _erf
 
@@ -438,87 +634,31 @@ class NonbondedEnergy:
                 self.excl_ff_const = -float(
                     units.ONE_4PI_EPS0 * np.sum(qqff * _erf(alpha * rff) / rff)
                 )
-        exc_sig = np.asarray(nb.exceptions_sigma, np.float64)[live_e]
-        exc_eps = np.asarray(nb.exceptions_epsilon, np.float64)[live_e]
-        exc_qq = np.asarray(nb.exceptions_chargeprod, np.float64)[live_e]
-        q_std_np = charges * (1.0 - is_alch)
-        q_alch_np = charges * is_alch
-        q_eff_np = q_std_np if alchemical is not None else charges
-        c["q_eff"] = q_eff_np
-
-        def pair_params(pairs):
-            i, j = pairs[:, 0], pairs[:, 1]
-            ai, aj = is_alch[i], is_alch[j]
-            return dict(
-                sig=0.5 * (sigmas[i] + sigmas[j]),
-                eps=np.sqrt(epsilons[i] * epsilons[j]),
-                qq_std=q_std_np[i] * q_std_np[j],
-                qq_na=q_std_np[i] * q_alch_np[j] + q_alch_np[i] * q_std_np[j],
-                qq_aa=q_alch_np[i] * q_alch_np[j],
-                scale=((ai ^ aj) | ((ai & aj) & sc.annihilate_sterics)).astype(np.float64),
-            )
-
-        def stage_pairs(prefix, pairs):
-            c[prefix + "_idx"] = pairs.reshape(-1, 2)
-            if len(pairs):
-                for k, v in pair_params(pairs).items():
-                    c[f"{prefix}_{k}"] = v
-
-        def stage_exc(prefix, sel):
-            pairs = exc_idx[sel]
-            c[prefix + "_idx"] = pairs.reshape(-1, 2)
-            c[prefix + "_sig"] = exc_sig[sel]
-            c[prefix + "_eps"] = exc_eps[sel]
-            c[prefix + "_qq"] = exc_qq[sel]
-            ai, aj = is_alch[pairs[:, 0]], is_alch[pairs[:, 1]]
-            na, aa = ai ^ aj, ai & aj
-            c[prefix + "_ster"] = (na | (aa & sc.annihilate_sterics)).astype(np.float64)
-            c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
 
         # full path: subtract the excluded pairs the kernel included (those
         # not masked at build time), add all live exceptions; the PME erf
         # correction covers every live exclusion
         x_included = (in_rows_np[excl[:, 0]] | in_rows_np[excl[:, 1]]) & ~x_pref
-        stage_pairs("xsub", excl[x_included])
-        stage_exc("exc", np.ones(len(exc_idx), bool))
+        self._stage_pairs("xsub", excl[x_included])
+        self._stage_exc("exc", exc_idx, np.ones(len(exc_idx), bool), live_e)
         c["erf_idx"] = excl
 
         # --- lambda split ------------------------------------------------------
-        self.pair_sum0 = self.ea_sweep = None
-        self.has_split = False
         alch_atoms_np = (
             np.asarray(alchemical.atoms, np.int64)
             if (alchemical is not None and len(alchemical.atoms))
             else np.zeros(0, np.int64)
         )
-        if len(alch_atoms_np):
-            if len(alch_atoms_np) > 128:
-                raise ValueError(
-                    "the port's EA sweep takes at most 128 alchemical atoms; the dense "
-                    "NA block for larger regions is not ported"
-                )
-            self._build_split(
-                alch_atoms_np, is_alch, in_rows_np, charges, sigmas, epsilons, col_idx, col_const,
-                rows_np, centers, radii, x0, Lnp, excl, exc_idx, pair_params, stage_pairs,
-                stage_exc, noimg, common, sweep_row_group, q_std_np,
+        if not len(alch_atoms_np):
+            return
+        if len(alch_atoms_np) > 128:
+            raise ValueError(
+                "the port's EA sweep takes at most 128 alchemical atoms; the dense "
+                "NA block for larger frozen regions is not ported"
             )
-
-    # ------------------------------------------------------------------
-    def _build_split(
-        self, alch_atoms_np, is_alch, in_rows_np, charges, sigmas, epsilons, col_idx, col_const,
-        rows_np, centers, radii, x0, Lnp, excl, exc_idx, pair_params, stage_pairs, stage_exc,
-        noimg, common, sweep_row_group, q_std_np,
-    ):
-        c = self.c
-        n = self.n_atoms
-        sc = self.sc
         alch_set = set(alch_atoms_np.tolist())
         cols_na = np.asarray([cc for cc in col_idx if cc not in alch_set], np.int64)
         rows0 = np.asarray([r for r in rows_np if r not in alch_set], np.int64)
-        xa_sel = is_alch[excl[:, 0]] | is_alch[excl[:, 1]] if len(excl) else np.zeros(0, bool)
-        ea_sel = (
-            is_alch[exc_idx[:, 0]] | is_alch[exc_idx[:, 1]] if len(exc_idx) else np.zeros(0, bool)
-        )
         pref0_live = np.zeros(len(excl), bool)
         if len(rows0):
             sel0c = np.searchsorted(col_idx, cols_na)
@@ -537,7 +677,7 @@ class NonbondedEnergy:
                 sel0 = bpos[rows0]
                 groups0 = build_row_groups(
                     rows=rows0, centers=centers[sel0], radii=radii[sel0], cols=cols_na,
-                    ref_positions=x0, box_lengths=Lnp, cutoff=self.cutoff,
+                    ref_positions=x0, box_lengths=Lnp, cutoff=cutoff,
                     group_size=sweep_row_group, excl_mask=excl_mask0,
                 )
             self.pair_sum0 = SweepPairSum(
@@ -546,35 +686,13 @@ class NonbondedEnergy:
                 col_mobile_sel=col_msel0, col_mobile_gid=cols_na[col_msel0],
                 skip_min_image=noimg is not None, groups=groups0, name="E0", **common,
             )
-
-        # alchemical-involving exclusions are masked out of the pair blocks
-        excl_a = excl[xa_sel] if len(excl) else excl
-        excl_pairs = set(map(tuple, np.sort(excl_a, axis=1).tolist())) if len(excl_a) else set()
-        aiu, aju = np.triu_indices(len(alch_atoms_np), k=1)
-        if len(aiu):
-            keep = np.asarray(
-                [
-                    (int(min(alch_atoms_np[i], alch_atoms_np[j])), int(max(alch_atoms_np[i], alch_atoms_np[j])))
-                    not in excl_pairs
-                    for i, j in zip(aiu, aju)
-                ],
-                bool,
-            )
-            aiu, aju = aiu[keep], aju[keep]
-        na_excl_mask = np.zeros((len(alch_atoms_np), len(cols_na)), bool)
-        arow = {int(a): k for k, a in enumerate(alch_atoms_np)}
-        cpos = {int(cc): k for k, cc in enumerate(cols_na)}
-        for i, j in excl_pairs:
-            if i in arow and j in cpos:
-                na_excl_mask[arow[i], cpos[j]] = True
-            if j in arow and i in cpos:
-                na_excl_mask[arow[j], cpos[i]] = True
         if not len(cols_na):
             raise ValueError("the EA sweep needs non-alchemical columns")
+        na_excl_mask = self._split_lists(alch_atoms_np, cols_na, excl, exc_idx, live_e, pref0_live)
         selc = np.searchsorted(col_idx, cols_na)
         mob_sel_cols = np.where(in_rows_np[cols_na])[0]
         per_atom_ea = dict(
-            q_std=q_std_np, q_alch=charges * is_alch, sigma=sigmas, epsilon=epsilons,
+            q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas, epsilon=epsilons,
             alch=is_alch.astype(np.float64), in_rows=np.zeros(n),
         )
         self.ea_sweep = SweepPairSum(
@@ -584,18 +702,6 @@ class NonbondedEnergy:
             col_mobile_gid=cols_na[mob_sel_cols], col_forces=True, col_force_keep=mob_sel_cols,
             skip_min_image=noimg is not None, name="EA", **common,
         )
-        # intra-alchemical pairs (upper triangle, once each)
-        a_sig, a_eps, a_q = sigmas[alch_atoms_np], epsilons[alch_atoms_np], charges[alch_atoms_np]
-        c["aa_idx"] = np.stack([alch_atoms_np[aiu], alch_atoms_np[aju]], -1).reshape(-1, 2)
-        c["aa_sig"] = 0.5 * (a_sig[aiu] + a_sig[aju])
-        c["aa_eps"] = np.sqrt(a_eps[aiu] * a_eps[aju])
-        c["aa_qq"] = a_q[aiu] * a_q[aju]
-        stage_exc("exca", ea_sel)
-        # E0 corrections: non-alchemical exclusions not masked in pair_sum0,
-        # non-alchemical exceptions (plain LJ, no lambda)
-        stage_pairs("x0sub", excl[~xa_sel & ~pref0_live])
-        stage_exc("exc0", ~ea_sel)
-        self.has_split = True
 
     # ------------------------------------------------------------------
     def pair_factors(self, globals_, dtype, device):
@@ -657,17 +763,20 @@ class NonbondedEnergy:
 
     def _reciprocal(self, x, box):
         """PME reciprocal/self/plasma/erf-exclusion terms with q_std, plus
-        the poison for a box that differs from the frozen grid's."""
+        (frozen systems) the poison for a box that differs from the frozen
+        grid's."""
         c, dt = self.c, x.dtype
         ke, alpha = units.ONE_4PI_EPS0, self.alpha
         q = c("q_eff", dt)
-        box0 = torch.as_tensor(self.box0, dtype=dt, device=x.device)
-        mismatch = (box - box0).abs().max() > 1e-5
-        e = torch.where(
-            mismatch,
-            torch.tensor(float("nan"), dtype=dt, device=x.device),
-            torch.zeros((), dtype=dt, device=x.device),
-        ) + self.recip(x, q, box)
+        e = self.recip(x, q, box)
+        if self._guard:
+            box0 = torch.as_tensor(self.box0, dtype=dt, device=x.device)
+            mismatch = (box - box0).abs().max() > 1e-5
+            e = torch.where(
+                mismatch,
+                torch.tensor(float("nan"), dtype=dt, device=x.device),
+                torch.zeros((), dtype=dt, device=x.device),
+            ) + e
         e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
         vol = box[0, 0] * box[1, 1] * box[2, 2]
         e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / vol
@@ -690,8 +799,11 @@ class NonbondedEnergy:
 
     def cull_guard(self, x, box):
         """NaN in energy AND forces when a row leaves its reach ball; zero
-        otherwise. The 1e-30*sum(x) factor carries the poison into autograd
-        forces, so MD (which reads forces only) trips its rollback."""
+        otherwise (and for unfrozen systems, which have no guard). The
+        1e-30*sum(x) factor carries the poison into autograd forces, so MD
+        (which reads forces only) trips its rollback."""
+        if not self._guard:
+            return 0.0
         c, dt = self.c, x.dtype
         d = x[:, c("guard_rows")] - c("guard_centers", dt)
         if self.periodic and box is not None:
@@ -727,12 +839,33 @@ class NonbondedEnergy:
         e = e + self._exceptions(x, box, "exc0", 1.0, 1.0, scaled=False)
         return e + self._tail(x, box)
 
+    def _ea_block(self, x, box, lam_s, lam_e, f_aa):
+        """The dense alchemical x non-alchemical block (unfrozen systems):
+        plain tensor ops, build-time exclusion mask, forces from autograd."""
+        c, dt = self.c, x.dtype
+        dr = x[:, c("ea_rows"), None, :] - x[:, None, c("ea_cols"), :]
+        if self.periodic and box is not None:
+            dr = periodic_displacement(dr, box)
+        r2 = (dr * dr).sum(-1)
+        use = c("ea_keep") & (r2 < self.cutoff * self.cutoff)
+        r2 = torch.clamp(r2, min=1e-6)
+        zero = torch.zeros((), dtype=dt, device=x.device)
+        e, _ = pair_energy_force(
+            r2, c("ea_sig", dt), c("ea_eps", dt), zero, c("ea_qq", dt), zero, True,
+            lam_sterics=lam_s, f_na=lam_e, f_aa=f_aa, **self._pair_kw(),
+        )
+        return torch.where(use, e, zero).sum((-2, -1))
+
     def lambda_ea(self, x, box=None, globals_=None):
-        """Alchemical part Ea(x, lambda): the EA sweep, intra-alchemical pairs
-        and alchemical-involving exceptions."""
+        """Alchemical part Ea(x, lambda): the alchemical x non-alchemical
+        block (the EA sweep on frozen systems, dense otherwise), the
+        intra-alchemical pairs and the alchemical-involving exceptions."""
         c, dt = self.c, x.dtype
         lam_s, lam_e, f_aa = self.pair_factors(globals_, dt, x.device)
-        e = self.ea_sweep.energy(x, box, lam_s, lam_e, f_aa)
+        if self.ea_sweep is not None:
+            e = self.ea_sweep.energy(x, box, lam_s, lam_e, f_aa)
+        else:
+            e = self._ea_block(x, box, lam_s, lam_e, f_aa)
         idx = c("aa_idx")
         if len(idx):
             dra = self._disp(x, idx, box)
@@ -770,8 +903,18 @@ def make_nonbonded_energy(
     sweep_row_group: Optional[int] = None,
     device="cpu",
 ) -> NonbondedEnergy:
-    if backend != "sweep":
-        raise ValueError(f"nonbonded backend {backend!r} is not ported; the port has 'sweep' only")
+    """``backend``: 'sweep' (frozen systems), 'pcells' or 'pallas' (systems
+    without frozen atoms), or 'auto': 'sweep' for a mostly-frozen system.
+    The JAX package's 'auto' picks its XLA 'cells' backend for a
+    mostly-mobile one, which is not ported, so the port raises there."""
+    if backend == "auto":
+        mobile = np.asarray(masses) > 0 if masses is not None else np.ones(nb.charge.shape[0], bool)
+        if mobile.mean() > 0.5:
+            raise ValueError(
+                "backend 'auto' on a mostly-mobile system picks the 'cells' backend, "
+                "which is not ported; choose 'pcells' (cell list) or 'pallas' (all pairs)"
+            )
+        backend = "sweep"
     return NonbondedEnergy(
         nb, method=method, cutoff=cutoff, alchemical=alchemical,
         alchemical_pme_treatment=alchemical_pme_treatment, ewald_tolerance=ewald_tolerance,
@@ -779,5 +922,5 @@ def make_nonbonded_energy(
         frozen_ref_positions=frozen_ref_positions, dispersion_correction=dispersion_correction,
         switch_distance=switch_distance, frozen_cull_skin=frozen_cull_skin,
         frozen_cull_cage_margin=frozen_cull_cage_margin, bonds_for_cull=bonds_for_cull,
-        sweep_row_group=sweep_row_group, device=device,
+        sweep_row_group=sweep_row_group, backend=backend, device=device,
     )

@@ -14,9 +14,13 @@ Layout (built once on the host, numpy): rows are packed in blocks of at
 most 32 row slots. With ``groups`` (``build_row_groups``: Morton groups of
 rows, each with the columns inside its rows' permanent reach balls) every
 group is split into blocks of 32 that share its column set; without groups
-the blocks hold 32 consecutive rows each and all columns. Each block owns a
-contiguous range of packed column storage, so no padding columns exist.
-Build-time exclusions are a bit per (row slot, column storage position).
+the blocks hold 32 consecutive rows each and all columns. Each block reads
+a contiguous range ``col_range[b]`` of packed column storage, so no padding
+columns exist; the blocks of one group share one range, except under an
+exclusion mask, whose build-time bits are per (row slot, column storage
+position) and so need each block's own copy of its columns.
+The same layout with min-image on, no mask and no groups is the K2
+configuration (``potentials/pair_kernel.py``).
 The EA instance (``col_forces``) is a single block of up to 128 rows.
 
 ``SweepPairSum.__call__(x, box, lam_s, f_na, f_aa)`` returns ((R,) energy,
@@ -41,6 +45,9 @@ ROWS_PER_BLOCK = 32
 MAX_EA_ROWS = 128
 #: feature slots of the row and column feature arrays (csrc/sweep_kernel.cu)
 F_QSTD, F_QALCH, F_SIG, F_EPS, F_ALCH, F_INROWS, F_GID, F_VALID = range(8)
+#: pair elements per step of the plain version, by (on CUDA?): bounds its
+#: temporaries (a few tens of them per element)
+PLAIN_CHUNK_ELEMS = {False: 1 << 21, True: 1 << 25}
 _METHOD_CODE = {"PME": 0, "CutoffPeriodic": 1, "CutoffNonPeriodic": 1, "NoCutoff": 2}
 
 
@@ -90,8 +97,9 @@ def build_row_groups(
     return groups
 
 
-class _SweepFunction(torch.autograd.Function):
-    """E of the pair sum with the analytic forces as its pullback."""
+class PairSumFunction(torch.autograd.Function):
+    """E of a pair sum (sweep, pair or cells) with the analytic forces as
+    its pullback: backward is -F * grad_out."""
 
     @staticmethod
     def forward(ctx, x, box, pair_sum, lam_s, f_na, f_aa):
@@ -152,7 +160,7 @@ class SweepPairSum:
             if nr > MAX_EA_ROWS:
                 raise ValueError(f"col_forces takes at most {MAX_EA_ROWS} rows, got {nr}")
             tr = max(ROWS_PER_BLOCK, -(-nr // ROWS_PER_BLOCK) * ROWS_PER_BLOCK)
-            blocks = [(np.arange(nr), np.arange(nc))]
+            blocks = [(np.arange(nr), np.arange(nc), 0)]
         else:
             tr = ROWS_PER_BLOCK
             if groups is not None:
@@ -163,28 +171,34 @@ class SweepPairSum:
             else:
                 src = [(np.arange(nr), np.arange(nc))]
             blocks = [
-                (rs[lo : lo + tr], cs) for rs, cs in src for lo in range(0, len(rs), tr)
+                (rs[lo : lo + tr], cs, k)
+                for k, (rs, cs) in enumerate(src)
+                for lo in range(0, len(rs), tr)
             ]
+        # the blocks of one source group share one copy of its columns,
+        # unless an exclusion mask gives each block its own bits (per slot)
+        masked = em is not None and bool(em.any())
         n_blocks = len(blocks)
         n_slots = n_blocks * tr
         slot_row = np.full(n_slots, -1, np.int64)
-        col_start = np.zeros(n_blocks + 1, np.int64)
-        for b, (rs, cs) in enumerate(blocks):
+        col_range = np.zeros((n_blocks, 2), np.int64)
+        pieces, S = [], 0
+        for b, (rs, cs, k) in enumerate(blocks):
             slot_row[b * tr : b * tr + len(rs)] = rs
-            col_start[b + 1] = col_start[b] + len(cs)
-        occ_col = (
-            np.concatenate([cs for _, cs in blocks]).astype(np.int64)
-            if n_blocks
-            else np.zeros(0, np.int64)
-        )
-        S = len(occ_col)
+            if b and not masked and blocks[b - 1][2] == k:
+                col_range[b] = col_range[b - 1]
+            else:
+                col_range[b] = (S, S + len(cs))
+                pieces.append(cs)
+                S += len(cs)
+        occ_col = np.concatenate(pieces).astype(np.int64) if pieces else np.zeros(0, np.int64)
         n_words = tr // 32
         excl_bits = None
         excl_blocks = None
-        if em is not None and em.any():
+        if masked:
             excl_bits = np.zeros((S, n_words), np.uint32)
             excl_blocks = []
-            for b, (rs, cs) in enumerate(blocks):
+            for b, (rs, cs, _) in enumerate(blocks):
                 blk = em[np.ix_(rs, cs)]
                 dropped = em[rs].sum() - blk.sum()
                 if dropped:
@@ -195,7 +209,7 @@ class SweepPairSum:
                 full = np.zeros((tr, len(cs)), bool)
                 full[: len(rs)] = blk
                 excl_blocks.append(full)
-                c0 = col_start[b]
+                c0 = col_range[b, 0]
                 for s in range(len(rs)):
                     w, bit = divmod(s, 32)
                     excl_bits[c0 : c0 + len(cs), w] |= (blk[s].astype(np.uint32) << np.uint32(bit))
@@ -258,7 +272,7 @@ class SweepPairSum:
         self.shape_info = dict(
             nr=nr, nc=nc, n_blocks=n_blocks, n_slots=n_slots, col_storage=S,
             n_groups=len(groups) if groups is not None else None,
-            compute_slots=int(sum(tr * len(cs) for _, cs in blocks)),
+            compute_slots=int(sum(tr * len(cs) for _, cs, _ in blocks)),
             masked_pairs=int(em.sum()) if em is not None else 0,
             skip_min_image=self.skip_min_image,
         )
@@ -269,8 +283,8 @@ class SweepPairSum:
         self._live_slots = lt(np.where(live)[0])
         self._live_gid = lt(rows_np[slot_row[live]])
         self._occ_gid = lt(cols_np[occ_col])
-        self._col_start_np = col_start
-        self._col_start = torch.as_tensor(col_start, dtype=torch.int32, device=dev)
+        self._col_range_np = col_range
+        self._col_range = torch.as_tensor(col_range, dtype=torch.int32, device=dev).contiguous()
         # float32 features for the kernel and the f32 plain sum; float64 ones
         # (made on first use) keep the f64 plain sum at full precision
         self._feat_np = (row_feat, col_feat)
@@ -347,20 +361,33 @@ class SweepPairSum:
         out = x.new_zeros((R, self.n_slots, 4), dtype=calc)
         outc = x.new_zeros((R, self.S, 4), dtype=calc) if self.col_forces else None
         tr = self.tr
-        for b in range(self.n_blocks):
-            c0, c1 = int(self._col_start_np[b]), int(self._col_start_np[b + 1])
+        budget = PLAIN_CHUNK_ELEMS[x.device.type == "cuda"]
+        b = 0
+        while b < self.n_blocks:
+            c0, c1 = (int(v) for v in self._col_range_np[b])
+            # consecutive blocks over one shared column range go together
+            nb = 1
+            if self._excl_blocks is None:
+                most = max(1, budget // max(1, R * tr * (c1 - c0)))
+                while (
+                    nb < most and b + nb < self.n_blocks
+                    and tuple(self._col_range_np[b + nb]) == (c0, c1)
+                ):
+                    nb += 1
+            r = slice(b * tr, (b + nb) * tr)
+            bb = b
+            b += nb
             if c1 == c0:
                 continue
-            r = slice(b * tr, (b + 1) * tr)
-            fi = rf[r][None, :, None, :]  # (1, tr, 1, 8)
+            fi = rf[r][None, :, None, :]  # (1, nb*tr, 1, 8)
             fj = cf[c0:c1][None, None, :, :]  # (1, 1, C, 8)
-            dx = xr[:, r, None, :] - xc[:, None, c0:c1, :]  # (R, tr, C, 3)
+            dx = xr[:, r, None, :] - xc[:, None, c0:c1, :]  # (R, nb*tr, C, 3)
             if wrap:
                 dx = dx - blen * torch.round(dx / blen)
             r2 = dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1] + dx[..., 2] * dx[..., 2]
             valid = (fi[..., F_GID] != fj[..., F_GID]) & (fi[..., F_VALID] > 0)
             if self._excl_blocks is not None:
-                valid = valid & ~self._excl_blocks[b][None]
+                valid = valid & ~self._excl_blocks[bb][None]
             if use_cutoff:
                 valid = valid & (r2 < self.cutoff * self.cutoff)
             r2 = torch.clamp(r2, min=1e-6)
@@ -443,7 +470,7 @@ class SweepPairSum:
         else:
             err = lib.sweep_rows_launch(
                 xr.data_ptr(), xc.data_ptr(), self._row_feat.data_ptr(),
-                self._col_feat.data_ptr(), self._col_start.data_ptr(), ex,
+                self._col_feat.data_ptr(), self._col_range.data_ptr(), ex,
                 params.data_ptr(), out.data_ptr(), R, self.n_blocks, self.S,
                 *consts, stream,
             )
@@ -464,7 +491,7 @@ class SweepPairSum:
 
     def energy(self, x, box, lam_s, f_na, f_aa):
         """(R,) energy, differentiable in ``x`` through the analytic forces."""
-        return _SweepFunction.apply(x, box, self, lam_s, f_na, f_aa)
+        return PairSumFunction.apply(x, box, self, lam_s, f_na, f_aa)
 
 
 _BOUND = set()

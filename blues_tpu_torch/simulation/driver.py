@@ -1,20 +1,24 @@
 """The hybrid MD <-> NCMC <-> Metropolis driver over R replicas.
 
-Counterpart of ``blues_tpu.simulation.driver.BLUESSimulation`` on the
-frozen production path: mobile-state compaction, the monolithic NCMC
-protocol with the lambda split, the alchemical correction and Metropolis
-test, Maxwell-Boltzmann velocity resampling, and ``nstepsMD`` BAOAB steps
-with a rollback when MD ends non-finite. Positions are (R, N, 3); the JAX
-package's ``vmap`` over replicas is the leading dimension here.
+Counterpart of ``blues_tpu.simulation.driver.BLUESSimulation``: the
+monolithic NCMC protocol with the lambda split, the alchemical correction
+and Metropolis test, Maxwell-Boltzmann velocity resampling, and
+``nstepsMD`` BAOAB steps with a rollback when MD ends non-finite. On a
+frozen production system the dynamics runs on the compacted mobile state
+(``compact.py``); on a system without frozen atoms (backends 'pcells' and
+'pallas') it runs on the full state, as the JAX driver's ``iteration``.
+``frozen_compact='auto'`` takes the compact iteration where it is eligible.
+Positions are (R, N, 3); the JAX package's ``vmap`` over replicas is the
+leading dimension here.
 
 Acceptance (reference semantics):
 
     log_accept = -(protocol_work)/kT + correction
     correction = -[(E_alch(x0) - E_md(x0)) + (E_md(x1) - E_alch(x1))]/kT
 
-Configurations outside this slice (no compaction, barostat, segmented
-dispatch, frame reporters, moves other than rotation or null) raise
-``ValueError``.
+Configurations outside the port (a frozen system without compaction,
+barostat, segmented dispatch, frame reporters, moves other than rotation
+or null) raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -98,11 +102,9 @@ def _check_slice(cfg: SimulationConfig, move):
         out.append("max_steps_per_dispatch")
     if cfg.md_report_interval is not None or cfg.ncmc_frame_indices is not None:
         out.append("frame reporters (md_report_interval / ncmc_frame_indices)")
-    if cfg.frozen_compact is False:
-        out.append("frozen_compact=False")
     if cfg.use_pallas:
         out.append("use_pallas")
-    if cfg.nonbonded_backend not in ("auto", "sweep"):
+    if cfg.nonbonded_backend not in ("auto", "sweep", "pcells", "pallas"):
         out.append(f"nonbonded_backend={cfg.nonbonded_backend!r}")
     if move is not None and type(move) not in (Move, NullMove, RandomLigandRotationMove):
         out.append(f"move {type(move).__name__}")
@@ -129,6 +131,7 @@ class BLUESSimulation:
             cutoff=config.cutoff,
             switch_distance=config.switch_distance,
             ewald_tolerance=config.ewald_tolerance,
+            nonbonded_backend=config.nonbonded_backend,
             frozen_cull_skin=config.frozen_cull_skin,
             sweep_row_group=config.sweep_row_group,
             device=self.device,
@@ -153,15 +156,22 @@ class BLUESSimulation:
         self.langevin_params = LangevinParams(config.dt, config.friction, config.temperature)
         self._kT = units.kT(config.temperature)
 
-        comp = build_mobile_compaction(system, self.energy_alch, self.force_alch, move, self.device)
-        if comp is None:
+        comp = None
+        if config.frozen_compact:
+            comp = build_mobile_compaction(system, self.energy_alch, self.force_alch, move, self.device)
+            if config.frozen_compact is True and comp is None:
+                raise ValueError(
+                    "frozen_compact=True but the system/move is not compaction-eligible "
+                    "(needs frozen reference positions, no boundary-straddling "
+                    "constraints, a remappable move)"
+                )
+        if comp is None and (np.asarray(system.masses) <= 0).any():
             raise ValueError(
-                "the system/move is not compaction-eligible (needs frozen reference "
-                "positions, no boundary-straddling constraints, a remappable move); "
-                "the full-array iteration is outside the port's slice"
+                "a system with frozen atoms runs the compact iteration only; this one "
+                "is not compaction-eligible or frozen_compact is False (the full-array "
+                "iteration of a frozen system is not ported)"
             )
         self._compact = comp
-        self._constrain_m = make_constraint_fns(comp.constraints_m, comp.masses_m, self.device)
         self.source = None
         self.state = None
         self.accept_counter = 0
@@ -169,20 +179,34 @@ class BLUESSimulation:
         self.stats_history: list = []
 
     def _build_dynamics(self):
+        """The protocol, MD step and state views of the iteration: on the
+        compacted mobile state, or on the full state when there is no
+        compaction."""
         comp, lp, src = self._compact, self.langevin_params, self.source
-        cx_m, cv_m = self._constrain_m
-        self.protocol_fn_m = make_ncmc_protocol(
-            comp.efn_m, comp.ffn_m, comp.masses_m, lp, cx_m, cv_m, self.schedule, src,
-            move=comp.move_m, splitting=self.cfg.splitting, lambda_split=self.cfg.lambda_split,
-            device=self.device,
+        if comp is None:
+            efn, ffn, masses, move = self.energy_alch, self.force_alch, self.system.masses, self.move
+            self._constrain_d = self._constrain
+            self._ffn_md_d = self.force_md
+            self._gather = lambda x: x
+            self._put = lambda x, xd: xd
+        else:
+            efn, ffn, masses, move = comp.efn_m, comp.ffn_m, comp.masses_m, comp.move_m
+            self._constrain_d = make_constraint_fns(comp.constraints_m, comp.masses_m, self.device)
+
+            def ffn_md_m(xm, box=None, globals_=None):
+                e, f = self.force_md(comp.expand(xm), box, globals_)
+                return e, f.index_select(1, comp.mobile_idx_t)
+
+            self._ffn_md_d = ffn_md_m
+            self._gather = comp.gather
+            self._put = lambda x, xm: x.index_copy(1, comp.mobile_idx_t, xm)
+        self._masses_d = masses
+        cx, cv = self._constrain_d
+        self.protocol_fn = make_ncmc_protocol(
+            efn, ffn, masses, lp, cx, cv, self.schedule, src, move=move,
+            splitting=self.cfg.splitting, lambda_split=self.cfg.lambda_split, device=self.device,
         )
-
-        def ffn_md_m(xm, box=None, globals_=None):
-            e, f = self.force_md(comp.expand(xm), box, globals_)
-            return e, f.index_select(1, comp.mobile_idx_t)
-
-        self._ffn_md_m = ffn_md_m
-        self._md_step_m = make_md_step(ffn_md_m, comp.masses_m, lp, cx_m, cv_m, src, self.device)
+        self._md_step_d = make_md_step(self._ffn_md_d, masses, lp, cx, cv, src, self.device)
 
     # ------------------------------------------------------------------
     def initialize(self, positions, box=None, seed: int = 0, source=None, velocities=None):
@@ -236,14 +260,14 @@ class BLUESSimulation:
         """One MD <-> NCMC iteration on every replica; returns its stats."""
         if self.state is None:
             raise RuntimeError("call initialize() first")
-        cfg, comp, src = self.cfg, self._compact, self.source
+        cfg, src = self.cfg, self.source
+        gather, put = self._gather, self._put
         x, v, box = self.state
         R, dt, dev = x.shape[0], x.dtype, x.device
-        mob = comp.mobile_idx_t
 
         e_md0 = self.energy_md(x, box, None)
-        res = self.protocol_fn_m(comp.gather(x), comp.gather(v), box)
-        x_prop = x.index_copy(1, mob, res.positions)
+        res = self.protocol_fn(gather(x), gather(v), box)
+        x_prop = put(x, res.positions)
         e_md1 = self.energy_md(x_prop, box, None)
         correction = -((res.e_initial - e_md0) + (e_md1 - res.e_final)) / self._kT
         log_accept = res.log_accept + correction
@@ -251,23 +275,23 @@ class BLUESSimulation:
         accepted = torch.isfinite(log_accept) & (log_accept > rand)
         x = torch.where(accepted[:, None, None], x_prop, x)
 
-        # velocities for the mobile subset only (frozen ones are zero)
-        xm = comp.gather(x)
-        vm = maxwell_boltzmann_velocities(src, comp.masses_m, cfg.temperature, R, dt, dev)
-        vm = self._constrain_m[1](vm, xm)
-        xm_keep, vm_keep = xm, vm
-        _, fm = self._ffn_md_m(xm, box, None)
+        # velocities for the dynamics state (frozen ones stay zero)
+        xd = gather(x)
+        vd = maxwell_boltzmann_velocities(src, self._masses_d, cfg.temperature, R, dt, dev)
+        vd = self._constrain_d[1](vd, xd)
+        xd_keep, vd_keep = xd, vd
+        _, fd = self._ffn_md_d(xd, box, None)
         for _ in range(cfg.nstepsMD):
-            xm, vm, fm, _e = self._md_step_m(xm, vm, fm, box)
+            xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
         if cfg.md_fault_injection > 0.0:
             fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
-            xm = torch.where(fault[:, None, None], torch.full_like(xm, float("nan")), xm)
-        e_md_end = self.energy_md(x.index_copy(1, mob, xm), box, None)
-        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xm).all(-1).all(-1)
-        xm = torch.where(md_ok[:, None, None], xm, xm_keep)
-        vm = torch.where(md_ok[:, None, None], vm, vm_keep)
-        x = x.index_copy(1, mob, xm)
-        v = torch.zeros_like(x).index_copy(1, mob, vm)
+            xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
+        e_md_end = self.energy_md(put(x, xd), box, None)
+        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1)
+        xd = torch.where(md_ok[:, None, None], xd, xd_keep)
+        vd = torch.where(md_ok[:, None, None], vd, vd_keep)
+        x = put(x, xd)
+        v = put(torch.zeros_like(x), vd)
         self.state = (x, v, box)
         self.iteration_count += 1
         return IterationStats(

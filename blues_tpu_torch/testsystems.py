@@ -1,4 +1,4 @@
-"""Built-in test systems of the frozen NCMC path."""
+"""Built-in test systems of the NCMC paths."""
 
 from __future__ import annotations
 

@@ -8,22 +8,34 @@ Run from the repository root with no arguments:
 Phases (each prints its own line; any failure exits non-zero):
 
   1. device: the card's name and power limit; CUDA is required;
-  2. system: the 22,340-atom toluene + TIP3P slice (HMR 3.024 Da, freeze
-     radius 0.5 nm with mobile waters, PME 1.0 nm, sweep row groups of 32);
-  3. kernels: the CUDA sweep kernel (built from csrc/sweep_kernel.cu at first
-     use) against its plain PyTorch version for the MAIN, E0 and EA
-     instances at R = 1 and R = 8, with the sweep tests' tolerances
-     (energy 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1)), and their times;
-  4. main path: FIRE minimisation, then BLUESSimulation with R = 8 replicas,
-     nstepsNC = 50 and nstepsMD = 50 for 3 iterations, with the kernels'
-     launch counts from that run;
-  5. check: the MD energy and forces of the final states on the card against
-     the port's CPU path (the plain sum) on the same positions, with the
-     float32 rounding of the full-box Ewald self term added to the energy
-     tolerance;
+  2. build: both CUDA sources (csrc/sweep_kernel.cu, csrc/cells_kernel.cu),
+     one nvcc each, started together, with ptxas' register and
+     shared-memory report;
+  3. system: the frozen 22,341-atom toluene + TIP3P slice (HMR 3.024 Da,
+     freeze radius 0.5 nm with mobile waters, PME 1.0 nm, sweep row groups
+     of 32), and the same box with every atom mobile on backends 'pcells'
+     and 'pallas';
+  4. kernels: every kernel instance against its plain PyTorch version at
+     R = 1 and R = 8 on perturbed positions, with the sweep tests'
+     tolerances (energy 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1)), and its
+     time at R = 8: the sweep kernel K1 (MAIN, E0, EA) on the frozen slice;
+     the cells kernel K3 (MAIN, E0) and the sweep kernel's K2 configuration
+     (MAIN, E0) on the unfrozen box; then K2 MAIN against K3 MAIN, and the
+     K3 NaN poison of an overflowing bin;
+  5. main: FIRE, then BLUESSimulation on the frozen slice, R = 8, nstepsNC =
+     nstepsMD = 50, 3 iterations;
+  6. unfrozen: FIRE (200 steps), then BLUESSimulation on the unfrozen box
+     with backend 'pcells', R = 8, nstepsNC = nstepsMD = 50, 3 iterations;
+  7. pallas: a short run on backend 'pallas' from the minimised positions,
+     R = 2, nstepsNC = nstepsMD = 10, 1 iteration;
+  8. check: the MD energy and forces of the final states on the card
+     against the port's CPU path (the plain sums) on the same positions,
+     for the frozen slice and the unfrozen box.
 
-then the card's name and power limit, one JSON line of kernel results, and
-as the last line {"ok": true, "device": {...}}.
+Each of the three paths (5-7) must launch its kernels: every count is set
+to 0 just before the path and read just after. Then the card's name and
+power limit, one JSON line of kernel results, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -38,9 +50,20 @@ import warnings
 N_ATOMS = 22340
 R_MAIN = 8
 N_ITER = 3
+NSTEPS = 50
+N_MIN_FROZEN, N_MIN_UNFROZEN = 400, 200
+R_PALLAS, NSTEPS_PALLAS = 2, 10
 E_REL, E_ABS, F_REL = 5e-5, 1e-2, 2e-5
-REPLACES = "blues_tpu/potentials/pallas/sweep_kernel.py:550"
-SOURCE = "blues_tpu_torch/csrc/sweep_kernel.cu"
+#: the unfrozen raw pair sums hold every excluded bonded pair, which the rest
+#: term subtracts: composed values are checked to this fraction of the raw
+#: magnitudes (about 17 float32 ulps), as in tests/test_torch_unfrozen.py
+RAW_REL = 2e-6
+#: kernel -> (source, the TPU kernel's pallas_call it replaces)
+KERNELS = {
+    "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
+    "cells": ("blues_tpu_torch/csrc/cells_kernel.cu", "blues_tpu/potentials/pallas/cells_kernel.py:309"),
+    "pair": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/pair_kernel.py:239"),
+}
 
 
 def phase(name, msg):
@@ -55,37 +78,71 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def build_slice(device, n_atoms=N_ATOMS, cutoff=1.0):
+def _box(n_atoms):
+    """The toluene + TIP3P box with HMR 3.024 Da: (system, x0, ligand)."""
     import numpy as np
 
     from blues_tpu_torch.core.prmtop import repartition_hydrogen_masses
-    from blues_tpu_torch.moves import RandomLigandRotationMove
-    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
     from blues_tpu_torch.testsystems import t4_scale_toluene_box
 
     system, x0 = t4_scale_toluene_box(n_atoms=n_atoms)
     lig = system.topology.select_resname("LIG")
     graph = np.concatenate([np.asarray(e.idx).reshape(-1, 2) for e in (system.bonds, system.constraints)])
     system = system.replace(masses=repartition_hydrogen_masses(system.masses, graph, 3.024))
+    return system, np.asarray(x0), lig
+
+
+def _config(**kw):
+    from blues_tpu_torch.simulation import SimulationConfig
+
+    return SimulationConfig(
+        temperature=300.0, dt=0.004, friction=1.0, nonbonded_method="PME",
+        ewald_tolerance=0.005, **kw,
+    )
+
+
+def build_slice(device, n_atoms=N_ATOMS, cutoff=1.0):
+    """The frozen production slice on backend 'sweep'."""
+    import numpy as np
+
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    system, x0, lig = _box(n_atoms)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         frozen = system.freeze_radius(np.asarray(x0), lig, 0.5, solvent_resnames=())
-    cfg = SimulationConfig(
-        nstepsNC=50, nstepsMD=50, temperature=300.0, dt=0.004, friction=1.0,
-        nonbonded_method="PME", cutoff=cutoff, ewald_tolerance=0.005,
-        nonbonded_backend="sweep", sweep_row_group=32, frozen_cull_skin=0.45,
-        n_replicas=R_MAIN,
+    cfg = _config(
+        nstepsNC=NSTEPS, nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="sweep", sweep_row_group=32,
+        frozen_cull_skin=0.45, n_replicas=R_MAIN,
     )
     sim = BLUESSimulation(frozen, RandomLigandRotationMove(lig, frozen.masses), cfg, device=device)
-    return frozen, np.asarray(x0), sim
+    return frozen, x0, sim
 
 
-def sweeps_of(sim):
-    return {
-        "MAIN": sim.energy_md.nonbonded.pair_sum,
-        "E0": sim.energy_alch.nonbonded.pair_sum0,
-        "EA": sim.energy_alch.nonbonded.ea_sweep,
-    }
+def build_unfrozen(device, backend, n_replicas, nsteps, n_atoms=N_ATOMS, cutoff=1.0):
+    """The same box with every atom mobile, on backend 'pcells' or 'pallas'."""
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    system, x0, lig = _box(n_atoms)
+    cfg = _config(
+        nstepsNC=nsteps, nstepsMD=nsteps, cutoff=cutoff, nonbonded_backend=backend,
+        n_replicas=n_replicas,
+    )
+    sim = BLUESSimulation(system, RandomLigandRotationMove(lig, system.masses), cfg, device=device)
+    return system, x0, sim
+
+
+def sums_of(sim, kind):
+    """{kernel instance name: [pair sums]} of a simulation. MAIN lists the
+    MD energy's instance (the one the kernel checks use) and the
+    alchemical energy's, which the protocol's end-point energies launch."""
+    md, alch = sim.energy_md.nonbonded, sim.energy_alch.nonbonded
+    out = {f"{kind}_main": [md.pair_sum, alch.pair_sum], f"{kind}_e0": [alch.pair_sum0]}
+    if kind == "sweep":
+        out["sweep_ea"] = [alch.ea_sweep]
+    return out
 
 
 def time_ms(fn, n):
@@ -102,130 +159,190 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def check_kernels(sim, frozen, x0, device):
-    """Kernel vs plain on the card at R = 1 and R = 8; returns per-instance
-    results (max errors, ms at R = 8)."""
+def compare(label, ek, fk, ep, fp):
+    """Kernel (ek, fk) against reference (ep, fp) at the sweep tests'
+    tolerances; returns (max|dE|, max|dF|), raises when they disagree."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(0)
-    mobile = np.asarray(frozen.masses) > 0
-    box = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=device)
-    lam = {"MAIN": (1.0, 1.0, 1.0), "E0": (1.0, 1.0, 1.0), "EA": (0.4, 0.4, 0.4)}
+    torch.cuda.synchronize()
+    ek, fk, ep, fp = (t.double().cpu().numpy() for t in (ek, fk, ep, fp))
+    for arr in (ek, fk):
+        if not np.all(np.isfinite(arr)):
+            raise RuntimeError(f"{label}: non-finite kernel output")
+    e_err = np.abs(ek - ep)
+    f_err = float(np.abs(fk - fp).max())
+    e_tol = E_REL * np.abs(ep) + E_ABS
+    f_tol = F_REL * (float(np.abs(fp).max()) + 1.0)
+    phase(
+        "kernels",
+        f"{label}: E {ek[0]:.6f} vs {ep[0]:.6f} max|dE| {e_err.max():.3e} (tol {float(e_tol.min()):.3e}); "
+        f"max|dF| {f_err:.3e} (tol {f_tol:.3e})",
+    )
+    if not (np.all(e_err <= e_tol) and f_err < f_tol):
+        raise RuntimeError(f"{label}: the kernel disagrees")
+    return float(e_err.max()), f_err
+
+
+def perturbed(x0, movable, R, rng, device):
+    """(R, N, 3) float32 copies of x0 with the ``movable`` atoms moved by
+    0.002 nm Gaussian noise."""
+    import numpy as np
+    import torch
+
+    xs = np.repeat(x0[None].astype(np.float32), R, axis=0)
+    xs[:, movable] += 0.002 * rng.standard_normal((R, int(movable.sum()), 3)).astype(np.float32)
+    return torch.as_tensor(xs, device=device)
+
+
+def check_kernels(instances, xs, box, reps):
+    """Each (name, pair sum, lambdas) kernel against its plain version at
+    every R of ``xs`` ({R: positions}); returns {name: results} with the
+    times at R = R_MAIN (``reps`` = kernel and plain repetitions)."""
     results = {}
-    for name, ps in sweeps_of(sim).items():
+    for name, ps, lam in instances:
         res = dict(max_abs_err=0.0, max_e_err=0.0)
-        for R in (1, R_MAIN):
-            xs = np.repeat(x0[None].astype(np.float32), R, axis=0)
-            xs[:, mobile] += 0.002 * rng.standard_normal((R, int(mobile.sum()), 3)).astype(np.float32)
-            x = torch.as_tensor(xs, device=device)
-            ek, fk = ps.kernel(x, box, *lam[name])
-            ep, fp = ps.plain(x, box, *lam[name])
-            torch.cuda.synchronize()
-            ek, fk, ep, fp = (t.double().cpu().numpy() for t in (ek, fk, ep, fp))
-            for arr in (ek, fk):
-                if not np.all(np.isfinite(arr)):
-                    raise RuntimeError(f"{name} R={R}: non-finite kernel output")
-            e_err = np.abs(ek - ep)
-            f_err = float(np.abs(fk - fp).max())
-            f_scale = float(np.abs(fp).max()) + 1.0
-            e_ok = bool(np.all(e_err <= E_REL * np.abs(ep) + E_ABS))
-            f_ok = f_err < F_REL * f_scale
-            phase(
-                "kernels",
-                f"{name} R={R}: E kernel {ek[0]:.6f} plain {ep[0]:.6f} max|dE| {e_err.max():.3e} "
-                f"(tol {float((E_REL * np.abs(ep) + E_ABS).min()):.3e}); max|dF| {f_err:.3e} "
-                f"(tol {F_REL * f_scale:.3e})",
-            )
-            if not (e_ok and f_ok):
-                raise RuntimeError(f"{name} R={R}: kernel disagrees with the plain version")
+        for R, x in xs.items():
+            e_err, f_err = compare(f"{name} R={R}", *ps.kernel(x, box, *lam), *ps.plain(x, box, *lam))
             res["max_abs_err"] = max(res["max_abs_err"], f_err)
-            res["max_e_err"] = max(res["max_e_err"], float(e_err.max()))
+            res["max_e_err"] = max(res["max_e_err"], e_err)
             if R == R_MAIN:
-                res["ms"] = time_ms(lambda: ps.kernel(x, box, *lam[name]), 50)
-                res["plain_ms"] = time_ms(lambda: ps.plain(x, box, *lam[name]), 5)
+                res["ms"] = time_ms(lambda: ps.kernel(x, box, *lam), reps[0])
+                res["plain_ms"] = time_ms(lambda: ps.plain(x, box, *lam), reps[1])
                 phase("kernels", f"{name} R={R}: kernel {res['ms']:.4f} ms/call, plain {res['plain_ms']:.4f} ms/call")
         results[name] = res
     return results
 
 
-def run_main_path(sim, x0, card):
-    """Minimise, then N_ITER iterations at R_MAIN; returns summary numbers."""
+def check_poison(cells, x0, box, device):
+    """The cells kernel on two replicas, the second with ``cap`` atoms
+    moved into the first cell: that replica's E and every F are NaN, the
+    first replica's are finite."""
     import numpy as np
     import torch
 
-    sweeps = sweeps_of(sim)
-    for ps in sweeps.values():
-        ps.launches = 0
+    xs = np.repeat(x0[None].astype(np.float32), 2, axis=0)
+    w = float(np.diag(np.asarray(box.cpu()))[0]) / cells.ncells[0]
+    rng = np.random.default_rng(5)
+    xs[1, : cells.cap] = rng.uniform(0.05 * w, 0.95 * w, (cells.cap, 3))
+    x = torch.as_tensor(xs, device=device)
+    occ = cells.max_occupancy(x[1:], box)
+    e, f = cells.kernel(x, box, 1.0, 1.0, 1.0)
+    torch.cuda.synchronize()
+    ok0 = bool(torch.isfinite(e[0]) and torch.isfinite(f[0]).all())
+    poisoned = bool((~torch.isfinite(e[1])) and (~torch.isfinite(f[1])).all())
+    phase(
+        "kernels",
+        f"{cells.name} overflow: bin of {occ} atoms > cap {cells.cap}: E {float(e[1])}, "
+        f"non-finite F {int((~torch.isfinite(f[1])).sum())}/{f[1].numel()}; the other replica finite: {ok0}",
+    )
+    if not (occ > cells.cap and ok0 and poisoned):
+        raise RuntimeError("the cells kernel does not poison an overflowing bin")
+
+
+def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
+    """Initialise at x0, FIRE-minimise (n_min steps), then n_iter
+    iterations; every kernel count is 0 just before and ``counted``'s are
+    read just after. Returns summary numbers and the minimised positions
+    of replica 0."""
+    import numpy as np
+    import torch
+
+    for instances in every:
+        for ps in instances:
+            ps.launches = 0
     sim.initialize(x0, seed=2026)
     t0 = time.perf_counter()
-    sim.minimize(400)
+    if n_min:
+        sim.minimize(n_min)
     torch.cuda.synchronize()
     t_min = time.perf_counter() - t0
+    x_min = sim.state[0][0].cpu().numpy()
 
-    ncmc_s = [0.0]
-    protocol = sim.protocol_fn_m
+    timers = {"ncmc": 0.0, "md": 0.0, "md_steps": 0}
+    protocol, md_step = sim.protocol_fn, sim._md_step_d
 
     def timed_protocol(*args):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = protocol(*args)
         torch.cuda.synchronize()
-        ncmc_s[0] += time.perf_counter() - t
+        timers["ncmc"] += time.perf_counter() - t
         return out
 
-    sim.protocol_fn_m = timed_protocol
+    def timed_md_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = md_step(*args)
+        torch.cuda.synchronize()
+        timers["md"] += time.perf_counter() - t
+        timers["md_steps"] += 1
+        return out
+
+    sim.protocol_fn, sim._md_step_d = timed_protocol, timed_md_step
     stats = []
     t0 = time.perf_counter()
-    for _ in range(N_ITER):
+    for _ in range(n_iter):
         stats.append(sim.run_iteration())
     torch.cuda.synchronize()
     t_iter = time.perf_counter() - t0
-    launches = {k: ps.launches for k, ps in sweeps.items()}
+    launches = {k: sum(ps.launches for ps in v) for k, v in counted.items()}
 
     R = sim.cfg.n_replicas
     work = np.stack([s.protocol_work.cpu().numpy() for s in stats])
     for s in stats:
         for k, t in s._asdict().items():
             if tuple(t.shape) != (R,):
-                raise RuntimeError(f"stats.{k} has shape {tuple(t.shape)}, expected ({R},)")
+                raise RuntimeError(f"{label}: stats.{k} has shape {tuple(t.shape)}, expected ({R},)")
         acc = s.accepted.cpu().numpy()
         la = s.log_accept.double().cpu().numpy()
         if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
-            raise RuntimeError("accepted is inconsistent with log_accept")
+            raise RuntimeError(f"{label}: accepted is inconsistent with log_accept")
         kept = ~s.md_failed.cpu().numpy()  # a rolled-back replica reports its failed segment
         if not np.all(np.isfinite(s.md_potential.cpu().numpy()[kept])):
-            raise RuntimeError("non-finite MD potential without a rollback")
+            raise RuntimeError(f"{label}: non-finite MD potential without a rollback")
     x_end, v_end, _ = sim.state
     if not (torch.isfinite(x_end).all() and torch.isfinite(v_end).all()):
-        raise RuntimeError("non-finite positions or velocities after the iterations")
-    finite = np.isfinite(work)
-    if not np.all(finite.any(0)):
-        raise RuntimeError(f"a replica has non-finite work in every iteration: {work}")
+        raise RuntimeError(f"{label}: non-finite positions or velocities after the iterations")
+    if not np.all(np.isfinite(work).any(0)):
+        raise RuntimeError(f"{label}: a replica has non-finite work in every iteration: {work}")
     for k, n in launches.items():
         if n <= 0:
-            raise RuntimeError(f"sweep kernel {k} was not launched on the main path")
+            raise RuntimeError(f"{label}: kernel {k} was not launched on its path")
     n_micro = sim.schedule.n_micro
     acc_all = np.stack([s.accepted.cpu().numpy() for s in stats])
-    return dict(
+    res = dict(
         launches=launches,
         acceptance=float(acc_all.mean()),
         work_median=[float(np.median(w[np.isfinite(w)])) if np.isfinite(w).any() else float("nan") for w in work],
         md_failed=int(sum(int(s.md_failed.sum()) for s in stats)),
-        sps=R * n_micro * N_ITER / ncmc_s[0],
+        sps=R * n_micro * n_iter / timers["ncmc"],
+        micro_ms=1e3 * timers["ncmc"] / (n_micro * n_iter),
+        md_ms=1e3 * timers["md"] / max(timers["md_steps"], 1),
         t_min=t_min,
         t_iter=t_iter,
-        card=card,
     )
+    phase(
+        label,
+        f"R={R} x {n_iter} iterations on {card}: acceptance {res['acceptance']:.3f}, "
+        f"work medians {['%.3f' % w for w in res['work_median']]} kJ/mol, "
+        f"md rollbacks {res['md_failed']}, aggregate switching steps/s {res['sps']:.1f}, "
+        f"NCMC micro-step {res['micro_ms']:.2f} ms, MD step {res['md_ms']:.2f} ms (synchronised per step), "
+        f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}",
+    )
+    return res, x_min
 
 
-def check_against_cpu(sim, frozen):
-    """The MD energy and forces of the final replica states on the card
-    (sweep kernel) against the port's CPU path (plain sum) on the same
-    positions. Forces at the sweep tests' tolerance; energy at it plus
-    4*eps_f32*|Ewald self term|: the full-box energy holds that constant,
-    by far its largest term (it cancels in every NCMC difference), and the
-    two devices sum it in float32 in different orders."""
+def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
+    """The MD energy and forces of the final states (the first
+    ``n_replicas``, all by default) on the card against the port's CPU path
+    (plain sums) on the same positions. Forces
+    at the sweep tests' tolerance; energy at it plus 4*eps_f32*|Ewald self
+    term|: the full-box energy holds that constant, by far its largest term
+    on the frozen slice (it cancels in every NCMC difference), and the two
+    devices sum it in float32 in different orders. With ``raw_anchor`` (the
+    unfrozen sums, which carry the excluded pairs) both tolerances also get
+    RAW_REL times the raw pair sum's magnitudes."""
     import math
 
     import numpy as np
@@ -235,28 +352,135 @@ def check_against_cpu(sim, frozen):
 
     cfg = sim.cfg
     efn_cpu = make_energy_fn(
-        frozen.replace(alchemical=None), nonbonded_method=cfg.nonbonded_method, cutoff=cfg.cutoff,
-        ewald_tolerance=cfg.ewald_tolerance, frozen_cull_skin=cfg.frozen_cull_skin,
-        sweep_row_group=cfg.sweep_row_group, device="cpu",
+        system.replace(alchemical=None), nonbonded_method=cfg.nonbonded_method, cutoff=cfg.cutoff,
+        ewald_tolerance=cfg.ewald_tolerance, nonbonded_backend=cfg.nonbonded_backend,
+        frozen_cull_skin=cfg.frozen_cull_skin, sweep_row_group=cfg.sweep_row_group, device="cpu",
     )
     x, _, box = sim.state
+    x = x[:n_replicas]
     e_k, f_k = sim.force_md(x, box, None)
-    e_p, f_p = make_force_fn(efn_cpu)(x.cpu(), box.cpu(), None)
+    xc, bc = x.cpu(), box.cpu()
+    e_p, f_p = make_force_fn(efn_cpu)(xc, bc, None)
     e_k, f_k, e_p, f_p = (t.double().cpu().numpy() for t in (e_k, f_k, e_p, f_p))
-    q = np.asarray(frozen.nonbonded.charge, np.float64)
+    q = np.asarray(system.nonbonded.charge, np.float64)
     e_self = units.ONE_4PI_EPS0 * efn_cpu.nonbonded.alpha / math.sqrt(math.pi) * float((q * q).sum())
     e_tol = E_REL * np.abs(e_p) + E_ABS + 4.0 * float(np.finfo(np.float32).eps) * e_self
+    f_tol = F_REL * (float(np.abs(f_p).max()) + 1.0)
+    raw = ""
+    if raw_anchor:
+        e_raw, f_raw = efn_cpu.nonbonded.pair_sum(xc, bc, 1.0, 1.0, 1.0)
+        e_raw, f_raw = e_raw.double().abs().numpy(), float(f_raw.abs().max())
+        e_tol += RAW_REL * e_raw
+        f_tol += RAW_REL * f_raw
+        raw = f", raw pair sum |E| {e_raw.max():.4e} max|F| {f_raw:.4e}"
     e_err = np.abs(e_k - e_p)
     f_err = float(np.abs(f_k - f_p).max())
-    f_tol = F_REL * (float(np.abs(f_p).max()) + 1.0)
     phase(
         "check",
-        f"final states, MD energy on the card vs the CPU path: E {e_k[0]:.3f} vs {e_p[0]:.3f}, "
-        f"max|dE| {e_err.max():.3e} (tol {float(e_tol.min()):.3e}, Ewald self term {e_self:.4e}), "
+        f"{label} final state, MD energy on the card vs the CPU path: E {e_k[0]:.3f} vs {e_p[0]:.3f}, "
+        f"max|dE| {e_err.max():.3e} (tol {e_tol.min():.3e}, Ewald self term {e_self:.4e}{raw}), "
         f"max|dF| {f_err:.3e} (tol {f_tol:.3e})",
     )
     if not (np.all(np.isfinite(e_k)) and np.all(e_err <= e_tol) and f_err < f_tol):
-        raise RuntimeError("the card's MD energy disagrees with the CPU path")
+        raise RuntimeError(f"{label}: the card's MD energy disagrees with the CPU path")
+
+
+def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
+    """Phases 2-8 on ``device``; returns the kernels' JSON entries."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    sources = ["sweep_kernel", "cells_kernel"]
+    build.build_all(sources)
+    phase("build", f"{', '.join(sources)} built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for src in sources:
+        for line in build.build_logs.get(src, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                phase("build", f"{src}: {line.strip()}")
+
+    # --- systems -------------------------------------------------------------
+    t0 = time.perf_counter()
+    frozen, x0, sim = build_slice(device, n_atoms, cutoff)
+    info = {k: v[0].shape_info for k, v in sums_of(sim, "sweep").items()}
+    phase(
+        "system",
+        f"frozen: {frozen.n_atoms} atoms, {int((frozen.masses > 0).sum())} mobile; "
+        + "; ".join(
+            f"{k}: {v['nr']} rows x {v['nc']} culled cols, {v['n_blocks']} blocks"
+            + (f", {v['n_groups']} groups" if v["n_groups"] else "")
+            for k, v in info.items()
+        )
+        + f" (built in {time.perf_counter() - t0:.1f} s)",
+    )
+    t0 = time.perf_counter()
+    unfrozen, xu0, sim_c = build_unfrozen(device, "pcells", R_MAIN, NSTEPS, n_atoms, cutoff)
+    _, _, sim_p = build_unfrozen(device, "pallas", R_PALLAS, NSTEPS_PALLAS, n_atoms, cutoff)
+    cells_main = sim_c.energy_md.nonbonded.pair_sum
+    box_u = torch.as_tensor(np.asarray(unfrozen.box), dtype=torch.float32, device=device)
+    ci = cells_main.shape_info
+    pinfo = {k: v[0].shape_info for k, v in sums_of(sim_p, "pair").items()}
+    phase(
+        "system",
+        f"unfrozen: {unfrozen.n_atoms} atoms, all mobile, box {float(box_u[0, 0]):.4f} nm; K3 grid "
+        f"{ci['grid']}, cap {ci['cap']}, mean occupancy {ci['mean_occupancy']:.1f}, max occupancy "
+        f"{cells_main.max_occupancy(torch.as_tensor(xu0, dtype=torch.float32, device=device)[None], box_u)}, "
+        f"~{ci['pair_slots']} pair slots per replica; "
+        + "; ".join(f"{k}: {v['nr']} rows x {v['nc']} cols, {v['n_blocks']} blocks" for k, v in pinfo.items())
+        + f" (built in {time.perf_counter() - t0:.1f} s)",
+    )
+
+    # --- kernels against their plain versions --------------------------------
+    rng = np.random.default_rng(0)
+    box_f = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=device)
+    mobile = np.asarray(frozen.masses) > 0
+    xs_f = {R: perturbed(x0, mobile, R, rng, device) for R in (1, R_MAIN)}
+    lam = {"main": (1.0, 1.0, 1.0), "e0": (1.0, 1.0, 1.0), "ea": (0.4, 0.4, 0.4)}
+    sweep_sums = sums_of(sim, "sweep")
+    kres = check_kernels(
+        [(k, v[0], lam[k.split("_")[1]]) for k, v in sweep_sums.items()], xs_f, box_f, (50, 5)
+    )
+    everyone = np.ones(unfrozen.n_atoms, bool)
+    xs_u = {R: perturbed(xu0, everyone, R, rng, device) for R in (1, R_MAIN)}
+    cells_sums, pair_sums = sums_of(sim_c, "cells"), sums_of(sim_p, "pair")
+    kres.update(
+        check_kernels(
+            [(k, v[0], lam[k.split("_")[1]]) for k, v in {**cells_sums, **pair_sums}.items()],
+            xs_u, box_u, (20, 3),
+        )
+    )
+    x8 = xs_u[R_MAIN]
+    compare(
+        f"pair_main vs cells_main R={R_MAIN}",
+        *pair_sums["pair_main"][0].kernel(x8, box_u, 1.0, 1.0, 1.0), *cells_main.kernel(x8, box_u, 1.0, 1.0, 1.0),
+    )
+    check_poison(cells_main, xu0, box_u, device)
+
+    # --- the three paths -----------------------------------------------------
+    every = [v for sums in (sweep_sums, cells_sums, pair_sums) for v in sums.values()]
+    main_res, _ = run_path(sim, x0, sweep_sums, every, N_MIN_FROZEN, N_ITER, "main", card)
+    unf_res, xu_min = run_path(sim_c, xu0, cells_sums, every, N_MIN_UNFROZEN, N_ITER, "unfrozen", card)
+    pal_res, _ = run_path(sim_p, xu_min, pair_sums, every, 0, 1, "pallas", card)
+    check_against_cpu(sim, frozen, "frozen")
+    check_against_cpu(sim_c, unfrozen, "unfrozen", raw_anchor=True, n_replicas=1)
+
+    launches = {**main_res["launches"], **unf_res["launches"], **pal_res["launches"]}
+    kernels = [
+        {
+            "name": k,
+            "route": "cuda",
+            "source": KERNELS[k.split("_")[0]][0],
+            "replaces": KERNELS[k.split("_")[0]][1],
+            "launches": launches[k],
+            "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"],
+            "plain_ms": v["plain_ms"],
+        }
+        for k, v in kres.items()
+    ]
+    return kernels
 
 
 def main():
@@ -266,60 +490,14 @@ def main():
         print("chip_smoke: CUDA is not available; this check needs a GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from blues_tpu_torch.kernels import build
+    import blues_tpu_torch  # noqa: F401  (fails, before any output, outside a checkout)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
     phase("device", f"{name} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-
-    t0 = time.perf_counter()
-    build.load_library("sweep_kernel")
-    phase("build", f"sweep_kernel built in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_logs.get("sweep_kernel", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            phase("build", line.strip())
-
-    t0 = time.perf_counter()
-    frozen, x0, sim = build_slice(device)
-    info = {k: ps.shape_info for k, ps in sweeps_of(sim).items()}
-    phase(
-        "system",
-        f"{frozen.n_atoms} atoms, {int((frozen.masses > 0).sum())} mobile; "
-        + "; ".join(
-            f"{k}: {v['nr']} rows x {v['nc']} culled cols, {v['n_blocks']} blocks"
-            + (f", {v['n_groups']} groups" if v["n_groups"] else "")
-            for k, v in info.items()
-        )
-        + f" (built in {time.perf_counter() - t0:.1f} s)",
-    )
-
-    kres = check_kernels(sim, frozen, x0, device)
-    main_res = run_main_path(sim, x0, card)
-    phase(
-        "main",
-        f"R={R_MAIN} x {N_ITER} iterations on {card}: acceptance {main_res['acceptance']:.3f}, "
-        f"work medians {['%.3f' % w for w in main_res['work_median']]} kJ/mol, "
-        f"md rollbacks {main_res['md_failed']}, aggregate switching steps/s "
-        f"{main_res['sps']:.1f}, minimise {main_res['t_min']:.1f} s, iterations "
-        f"{main_res['t_iter']:.1f} s, launches {main_res['launches']}",
-    )
-    check_against_cpu(sim, frozen)
-    kernels = [
-        {
-            "name": f"sweep_{k.lower()}",
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES,
-            "launches": main_res["launches"][k],
-            "max_abs_err": v["max_abs_err"],
-            "ms": v["ms"],
-            "plain_ms": v["plain_ms"],
-        }
-        for k, v in kres.items()
-    ]
+    kernels = smoke(torch.device("cuda", 0), card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -27,7 +27,6 @@ from blues_tpu.integrators import langevin as jl
 from blues_tpu.integrators import ncmc as jn
 from blues_tpu.integrators.schedules import build_ncmc_schedule as j_schedule
 from blues_tpu.ligands import toluene_system
-from blues_tpu.moves.base import Move as JMove
 from blues_tpu.potentials import energy as je
 from blues_tpu.potentials import pme as jpme
 from blues_tpu_torch.core.convert import system_from_reference
@@ -36,14 +35,14 @@ from blues_tpu_torch.integrators import constraints as tc
 from blues_tpu_torch.integrators import langevin as tl
 from blues_tpu_torch.integrators import ncmc as tn
 from blues_tpu_torch.integrators.schedules import build_ncmc_schedule as t_schedule
-from blues_tpu_torch.moves.base import Move as TMove
 from blues_tpu_torch.potentials import energy as te
 from blues_tpu_torch.simulation.compact import build_mobile_compaction
 
 from _torch_helpers import KW, F64Jnp
+from _torch_moves import JFixedRotation, TFixedRotation
+from _torch_moves import ZeroNoise as _ZeroNoise
 
 F64 = torch.float64
-ROT = np.array([[0.36, 0.48, -0.8], [-0.8, 0.6, 0.0], [0.48, 0.64, 0.6]])  # proper rotation
 
 
 @pytest.fixture(autouse=True)
@@ -69,39 +68,6 @@ def sys_():
     inv_m = np.where(mobile, 1.0 / np.maximum(frozen.masses, 1e-30), 0.0)
     v = np.sqrt(2.494 * inv_m)[:, None] * rng.standard_normal(x.shape)
     return dict(jax=frozen, port=system_from_reference(frozen), x=x, v=v, lig=li, rng=rng)
-
-
-class JFixedRotation(JMove):
-    def __init__(self, idx, masses):
-        self.idx, self.m = np.asarray(idx, np.int64), np.asarray(masses)[idx]
-
-    def propose(self, key, x, box, aux):
-        lig = x[self.idx]
-        m = jnp.asarray(self.m, x.dtype)[:, None]
-        com = jnp.sum(lig * m, 0) / jnp.sum(m)
-        return x.at[self.idx].set((lig - com) @ jnp.asarray(ROT, x.dtype) + com), aux
-
-
-class TFixedRotation(TMove):
-    def __init__(self, idx, masses):
-        self.idx, self.m = np.asarray(idx, np.int64), np.asarray(masses)[idx]
-
-    def propose(self, source, x, box, aux):
-        i = torch.as_tensor(self.idx)
-        lig = x[:, i]
-        m = torch.as_tensor(self.m, dtype=x.dtype)[:, None]
-        com = (lig * m).sum(1, keepdim=True) / m.sum()
-        return x.index_copy(1, i, (lig - com) @ torch.as_tensor(ROT, dtype=x.dtype) + com), aux
-
-    def remap(self, mapping, masses_m):
-        out = TFixedRotation.__new__(TFixedRotation)
-        out.idx, out.m = mapping[self.idx], self.m
-        return out
-
-
-class _ZeroNoise:
-    def normal(self, shape, dtype, device):
-        return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def test_constraints_match(sys_):

@@ -1,4 +1,5 @@
-"""The CUDA sweep kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the sweep kernel (K1 and its K2 configuration) and the cells kernel (K3).
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -10,12 +11,23 @@ Tolerances are the sweep tests' own: energy 5e-5*|E| + 1e-2, forces
 2e-5*(max|F| + 1).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from _torch_sweep_case import LAM, port_ea, port_main
+from blues_tpu_torch.potentials.features import build_pair_features
+from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
+from blues_tpu_torch.potentials.pcells import CellsPairSum
 
 pytestmark = pytest.mark.gpu
+
+#: a 700-atom synthetic box, 2.9 nm, cutoff 0.9 nm: a 3x3x3 cell grid
+CELLS_COMMON = dict(
+    method="PME", cutoff=0.9, alpha_ewald=3.2, k_rf=0.0, c_rf=0.0,
+    annihilate_sterics=False, softcore_alpha=0.5, periodic=True,
+)
+CELLS_L, CELLS_N = 2.9, 700
 
 
 def _cuda():
@@ -48,3 +60,70 @@ def test_kernel_refuses_float64():
     with pytest.raises(TypeError):
         ps(xs.double(), box.double(), *LAM)
     assert ps.launches == 0
+
+
+def _cells_case(dev, rows=None, seed=0):
+    """Features of the synthetic box (rows: None, 'subset' or 'e0', the
+    non-alchemical rows with alchemical charge and epsilon zeroed) and R = 2
+    position sets on ``dev``."""
+    rng = np.random.default_rng(seed)
+    n = CELLS_N
+    x = rng.uniform(0.0, CELLS_L, (2, n, 3))
+    q = rng.normal(0.0, 0.3, n)
+    sig, eps = rng.uniform(0.25, 0.35, n), rng.uniform(0.1, 0.8, n)
+    alch = np.zeros(n)
+    alch[:8] = 1.0
+    if rows == "e0":
+        feats = build_pair_features(q * (1 - alch), sig, eps * (1 - alch), np.zeros(n), np.where(alch == 0)[0])
+    else:
+        sub = None if rows is None else np.sort(rng.choice(n, 90, replace=False))
+        feats = build_pair_features(q, sig, eps, alch, sub)
+    box = torch.eye(3, device=dev) * CELLS_L
+    return feats, torch.as_tensor(x, dtype=torch.float32, device=dev), box
+
+
+@pytest.mark.parametrize("rows", [None, "subset", "e0"])
+def test_cells_kernel_matches_plain(rows):
+    dev = _cuda()
+    feats, xs, box = _cells_case(dev, rows)
+    ps = CellsPairSum(feats, box0=np.eye(3) * CELLS_L, device=dev, **CELLS_COMMON)
+    ek, fk = ps(xs, box, *LAM)  # a CUDA tensor takes the kernel
+    torch.cuda.synchronize()
+    assert ps.launches == 1
+    _assert_close(ek, fk, *ps.plain(xs, box, *LAM))
+    for r in range(xs.shape[0]):
+        e1, f1 = ps.kernel(xs[r : r + 1], box, *LAM)
+        _assert_close(e1, f1, ek[r : r + 1], fk[r : r + 1])
+    if rows == "e0":
+        assert torch.all(fk[:, :8] == 0.0)
+
+
+def test_cells_kernel_poisons_an_overflowing_bin():
+    dev = _cuda()
+    feats, xs, box = _cells_case(dev, seed=1)
+    ps = CellsPairSum(feats, box0=np.eye(3) * CELLS_L, device=dev, **CELLS_COMMON)
+    xs = xs.clone()
+    # 200 atoms into the first cell (cap 128): replica 1 only
+    xs[1, :200] = 0.1 + 0.8 * torch.rand((200, 3), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    ek, fk = ps.kernel(xs, box, *LAM)
+    torch.cuda.synchronize()
+    assert torch.isfinite(ek[0]) and torch.isfinite(fk[0]).all()
+    assert not torch.isfinite(ek[1]) and not torch.isfinite(fk[1]).any()
+
+
+@pytest.mark.parametrize("cols", ["all", "subset"])
+def test_pair_kernel_matches_plain_and_cells(cols):
+    """K2 on the card against its plain version and, over every column,
+    against K3 (two kernels over the same pair space)."""
+    dev = _cuda()
+    feats, xs, box = _cells_case(dev, seed=2)
+    col_idx = None if cols == "all" else np.arange(8, CELLS_N)
+    ps = PallasPairSum(feats, col_idx=col_idx, device=dev, **CELLS_COMMON)
+    assert ps.shape_info["col_storage"] == (CELLS_N if col_idx is None else len(col_idx))
+    ek, fk = ps(xs, box, *LAM)
+    torch.cuda.synchronize()
+    assert ps.launches == 1
+    _assert_close(ek, fk, *ps.plain(xs, box, *LAM))
+    if col_idx is None:
+        cells = CellsPairSum(feats, box0=np.eye(3) * CELLS_L, device=dev, **CELLS_COMMON)
+        _assert_close(ek, fk, *cells.kernel(xs, box, *LAM))
