@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from .. import units
+from .device import DEFAULT_DEVICE
 
 
 class KahanAccumulator:
@@ -35,7 +36,7 @@ class KahanAccumulator:
 
 
 def maxwell_boltzmann_velocities(source, masses, temperature: float, n_replicas: int,
-                                 dtype=torch.float32, device="cpu"):
+                                 dtype=torch.float32, device=DEFAULT_DEVICE):
     """(R, N, 3) velocities from the Maxwell-Boltzmann distribution; frozen
     (zero-mass) atoms get zero velocity."""
     masses = np.asarray(masses, np.float64)

@@ -9,139 +9,136 @@
 // each (cell, neighbour) pair carrying a static lattice shift, in box
 // lengths, that IS the minimum image (>= 3 cells per dimension). Validity is
 // gid_i != gid_j and r^2 < rc^2, with no exclusion mask (the rest term
-// subtracts the excluded pairs); r^2 is clamped at 1e-6.
+// subtracts the excluded pairs); r^2 is clamped at 1e-6. With a row subset,
+// a row's F and E are multiplied by its in_rows.
 //
-// Binning stays outside the kernel (blues_tpu_torch/potentials/pcells.py,
-// torch ops): positions wrapped, a cell id per atom, a stable sort by cell,
-// per-cell counts and starts. The kernel reads only real atoms: the TPU
-// kernel's (cap x cap) padded tiles become loops over each cell's real count,
-// about half the pair slots at the 22k-atom toluene box.
+// Before the sum, per call, three kernels of this source and a torch sort
+// build the layout (plain versions in blues_tpu_torch/potentials/pcells.py
+// and clusters.py): cells_key_kernel bins the wrapped positions into the JAX
+// grid and keys them along a snake over each cell's 2 x 2 xy quarters; after
+// a stable torch.sort the shared layout kernel (cluster_layout.cuh) packs
+// each cell's atoms into clusters of 32, takes their bounding boxes and
+// decides the poison (a bin over cap, a shrunken box) from the bin counts;
+// the prune kernel gives each cluster the list of clusters of its 27
+// neighbour cells, with the neighbour index k of their shift, whose boxes
+// come within the cutoff. The wrapper poisons E and every F to NaN; every
+// atom is still written once here.
 //
-// What bounds it: an fp32 ALU/SFU-bound pair kernel (rsqrtf, __expf, the A&S
-// erfc of pair_math.cuh, as in the sweep kernel); device memory traffic is a
-// few MB per call. Its only locality is the shared-memory staging of each
-// neighbour cell; wgmma, TMA and half-shell (Newton) visits are later work.
-//
-// Design: grid (cell, replica), CELL_THREADS threads, one per row slot of
-// the home cell (a loop covers a cell above CELL_THREADS atoms, so every
-// atom is written even when the bin overflows; the wrapper then poisons the
-// result). For each of the 27 neighbours the block stages that cell's real
-// atoms, shifted by their image, into shared memory in tiles of TILE; every
-// thread accumulates its row's F and E in registers and writes them once,
-// at its atom's index. No float atomics, so the result is deterministic.
+// What bounds it and how the pair math is spent only inside the cutoff:
+// cluster_pairs.cuh. Grid (cluster / WARPS, replica), one cluster per warp,
+// WARPS warps per block: small blocks balance the ragged lists across the
+// SMs (the TPU-shaped design had one 256-thread block per cell, with 30 % of
+// its lanes idle); registers (__launch_bounds__ asks for 12 blocks, 24
+// warps) and 18 KB of shared memory per block set the resident warps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pair_math.cuh"
+#include "cluster_layout.cuh"
+#include "cluster_pairs.cuh"
 
-using namespace pair_math;
+using namespace cluster_pairs;
 
 namespace {
 
-constexpr int CELL_THREADS = 256;
-constexpr int TILE = 256;
-constexpr int N_NBR = 27;
+// K3's sort keys, one thread per atom: (cell << SUBKEY_BITS) | snake key,
+// the cell of the wrapped position in the (nc0, nc1, nc2) grid (clipped as
+// the JAX code clips it) and the in-cell snake of pcells.snake_key. The
+// plain version is CellsPairSum.key_plain, rounded alike.
+__global__ void cells_key_kernel(const float* __restrict__ x,  // (R*n, 3)
+                                 const float* __restrict__ L,  // (3,)
+                                 int64_t* __restrict__ key,    // (R*n,)
+                                 int total, int nc0, int nc1, int nc2) {
+  constexpr int SUB = cluster_layout::SUBKEY_BITS;
+  constexpr int ZL = 1 << (SUB - 2);  // z levels of the snake
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int nc[3] = {nc0, nc1, nc2};
+  long long ci[3];
+  float f[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float l = L[d];
+    const float g = __fmul_rn(__fdiv_rn(cluster_layout::wrap1(x[(size_t)i * 3 + d], l), l),
+                              (float)nc[d]);
+    ci[d] = min(max((long long)floorf(g), 0LL), (long long)(nc[d] - 1));
+    f[d] = __fsub_rn(g, (float)ci[d]);
+  }
+  const long long cid = (ci[0] * nc1 + ci[1]) * nc2 + ci[2];
+  const int qy = f[1] >= 0.5f;
+  const int quarter = f[0] >= 0.5f ? 3 - qy : qy;
+  const int z = (int)fminf(fmaxf(__fmul_rn(f[2], (float)ZL), 0.0f), (float)(ZL - 1));
+  key[i] = (cid << SUB) | (quarter * ZL + ((quarter & 1) ? ZL - 1 - z : z));
+}
 
-// per-atom feature slots, shared with pcells.py
-constexpr int F_QSTD = 0, F_QALCH = 1, F_SIG = 2, F_EPS = 3, F_ALCH = 4,
-              F_INROWS = 5, F_GID = 6;
+__global__ void __launch_bounds__(WARPS * CL, MIN_BLOCKS)
+    cells_kernel(Args a, PairConsts c) {
+  __shared__ WarpStage stage[WARPS];
+  row_cluster<IMG_SHIFT>(a, c, stage[threadIdx.x >> 5]);
+}
 
-// params: [lam_s, f_na, f_aa, Lx, Ly, Lz]
-__global__ void __launch_bounds__(CELL_THREADS)
-    cells_kernel(const float* __restrict__ xw,        // (R, n, 3) wrapped
-                 const float* __restrict__ feat,      // (n, 8)
-                 const int64_t* __restrict__ order,   // (R, n) ids by cell
-                 const int64_t* __restrict__ starts,  // (R, nc)
-                 const int64_t* __restrict__ counts,  // (R, nc)
-                 const int* __restrict__ table,       // (nc, 27)
-                 const float* __restrict__ shifts,    // (nc, 27, 3)
-                 const float* __restrict__ params,
-                 float* __restrict__ out,  // (R, n, 4): F, E per atom
-                 int n, int nc, int mask_rows, PairConsts c) {
-  __shared__ float s_x[TILE], s_y[TILE], s_z[TILE];
-  __shared__ float s_qs[TILE], s_qa[TILE], s_sig[TILE], s_eps[TILE],
-      s_al[TILE], s_in[TILE], s_gid[TILE];
-
-  const int cell = blockIdx.x;
+// The prune: one warp per cluster scans its candidates, the first q_max
+// clusters of each of its 27 neighbour cells (candidate t = k * q_max + q),
+// 32 at a time, and keeps those whose bounding boxes, the neighbour's moved
+// by its static shift, come within the cutoff. Entries are cluster * 32 + k.
+// Its plain version is CellsPairSum.prune_plain (potentials/pcells.py).
+__global__ void __launch_bounds__(WARPS * CL)
+    cells_prune_kernel(const float* __restrict__ centre,   // (R, C, 3)
+                       const float* __restrict__ half,     // (R, C, 3)
+                       const bool* __restrict__ live,      // (R, C)
+                       const int64_t* __restrict__ cl_cell,  // (R, C)
+                       const int64_t* __restrict__ ncl,    // (R, nc + 1)
+                       const int64_t* __restrict__ start,  // (R, nc + 1)
+                       const int64_t* __restrict__ table,  // (nc + 1, 27)
+                       const float* __restrict__ shifts,   // (nc + 1, 27, 3)
+                       const float* __restrict__ L,        // (3,)
+                       int* __restrict__ list,             // (R, C, width)
+                       int* __restrict__ count,            // (R, C)
+                       int C, int nc, int q_max, int width, float thr) {
+  const int lane = threadIdx.x & (CL - 1);
+  const int g = blockIdx.x * WARPS + (threadIdx.x >> 5);
   const int rep = blockIdx.y;
-  const float lam_s = params[0], f_na = params[1], f_aa = params[2];
-  const float L[3] = {params[3], params[4], params[5]};
-  const int64_t* ord = order + (size_t)rep * n;
-  const float* xr = xw + (size_t)rep * n * 3;
-  const int64_t h0 = starts[(size_t)rep * nc + cell];
-  const int hn = (int)counts[(size_t)rep * nc + cell];
-
-  for (int base = 0; base < hn; base += CELL_THREADS) {
-    const int slot = base + threadIdx.x;
-    const bool live = slot < hn;
-    const int64_t id = live ? ord[h0 + slot] : 0;
-    const float xi = xr[id * 3 + 0], yi = xr[id * 3 + 1], zi = xr[id * 3 + 2];
-    const float* fi = feat + id * 8;
-    const float qs_i = fi[F_QSTD], qa_i = fi[F_QALCH], sig_i = fi[F_SIG],
-                eps_i = fi[F_EPS], al_i = fi[F_ALCH], in_i = fi[F_INROWS],
-                gid_i = fi[F_GID];
-    float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;
-
-    for (int k = 0; k < N_NBR; ++k) {
-      const int nb = table[cell * N_NBR + k];
-      if (nb >= nc) continue;  // duplicate wrapped neighbour (tiny grids)
-      const float* sh = shifts + ((size_t)cell * N_NBR + k) * 3;
-      // unfused, as pcells.py rounds them (see dist2 in pair_math.cuh)
-      const float sx = __fmul_rn(sh[0], L[0]), sy = __fmul_rn(sh[1], L[1]),
-                  sz = __fmul_rn(sh[2], L[2]);
-      const int64_t j0 = starts[(size_t)rep * nc + nb];
-      const int jn = (int)counts[(size_t)rep * nc + nb];
-      for (int t0 = 0; t0 < jn; t0 += TILE) {
-        const int m = min(TILE, jn - t0);
-        __syncthreads();  // the previous tile is consumed
-        for (int j = threadIdx.x; j < m; j += CELL_THREADS) {
-          const int64_t jd = ord[j0 + t0 + j];
-          s_x[j] = __fadd_rn(xr[jd * 3 + 0], sx);
-          s_y[j] = __fadd_rn(xr[jd * 3 + 1], sy);
-          s_z[j] = __fadd_rn(xr[jd * 3 + 2], sz);
-          const float* fj = feat + jd * 8;
-          s_qs[j] = fj[F_QSTD];
-          s_qa[j] = fj[F_QALCH];
-          s_sig[j] = fj[F_SIG];
-          s_eps[j] = fj[F_EPS];
-          s_al[j] = fj[F_ALCH];
-          s_in[j] = fj[F_INROWS];
-          s_gid[j] = fj[F_GID];
-        }
-        __syncthreads();
-        if (!live) continue;
-        for (int j = 0; j < m; ++j) {
-          if (s_gid[j] == gid_i) continue;
-          const float dx = xi - s_x[j];
-          const float dy = yi - s_y[j];
-          const float dz = zi - s_z[j];
-          float r2 = dist2(dx, dy, dz);
-          if (!(r2 < c.cutoff2)) continue;
-          r2 = fmaxf(r2, 1e-6f);
-          const float aa = al_i * s_al[j];
-          const float na = al_i + s_al[j] - 2.0f * aa;
-          float e, g;
-          pair_ef(r2, 0.5f * (sig_i + s_sig[j]), sqrtf(eps_i * s_eps[j]),
-                  qs_i * s_qs[j], qs_i * s_qa[j] + qa_i * s_qs[j],
-                  qa_i * s_qa[j], na + c.ann * aa, lam_s, f_na, f_aa, c, e, g);
-          const float w = 1.0f - 0.5f * in_i * s_in[j];
-          fx -= g * dx;
-          fy -= g * dy;
-          fz -= g * dz;
-          en += w * e;
+  if (g >= C) return;
+  const size_t ra = (size_t)rep * C + g;
+  int n = 0;
+  if (live[ra]) {
+    const int cell = (int)cl_cell[ra];
+    float a[3], h[3], l[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      a[d] = centre[ra * 3 + d];
+      h[d] = half[ra * 3 + d];
+      l[d] = L[d];
+    }
+    const int64_t* ncl_r = ncl + (size_t)rep * (nc + 1);
+    const int64_t* start_r = start + (size_t)rep * (nc + 1);
+    int* out = list + ra * width;
+    const int n_cand = N_NBR * q_max;
+    for (int t0 = 0; t0 < n_cand; t0 += CL) {
+      const int t = t0 + lane;
+      bool keep = false;
+      int value = 0;
+      if (t < n_cand) {
+        const int k = t / q_max, q = t - k * q_max;
+        const int nb = (int)table[cell * N_NBR + k];
+        if (q < ncl_r[nb]) {
+          const int cand = (int)start_r[nb] + q;
+          const size_t rb = (size_t)rep * C + cand;
+          const float* sh = shifts + ((size_t)cell * N_NBR + k) * 3;
+          float gap[3];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float cbd = __fadd_rn(centre[rb * 3 + d], __fmul_rn(sh[d], l[d]));
+            gap[d] = box_gap1(__fsub_rn(a[d], cbd), h[d], half[rb * 3 + d]);
+          }
+          keep = sum_sq(gap[0], gap[1], gap[2]) < thr;
+          value = cand * CL + k;
         }
       }
-    }
-    if (live) {
-      const float keep = mask_rows ? in_i : 1.0f;
-      float* o = out + ((size_t)rep * n + id) * 4;
-      o[0] = fx * keep;
-      o[1] = fy * keep;
-      o[2] = fz * keep;
-      o[3] = en * keep;
+      append(keep, value, lane, out, n, width - 1);
     }
   }
+  if (lane == 0) count[ra] = n;
 }
 
 }  // namespace
@@ -149,23 +146,57 @@ __global__ void __launch_bounds__(CELL_THREADS)
 extern "C" {
 
 // returns cudaGetLastError() after the launch
-int cells_launch(const float* xw, const float* feat, const int64_t* order,
-                 const int64_t* starts, const int64_t* counts,
-                 const int* table, const float* shifts, const float* params,
-                 float* out, int R, int n, int nc, int mask_rows, int method,
+int cells_launch(const float* xs, const int64_t* ids, const float* feat,
+                 const int* list, const int* count, const int64_t* cl_cell,
+                 const float* shifts, const float* params, float* out, int R,
+                 int n, int n_clusters, int width, int mask_rows, int method,
                  float cutoff, float alpha_ewald, float k_rf, float c_rf,
                  float ann, float softcore_alpha, int has_switch,
                  float switch_distance, int alch_coulomb, float ke,
                  void* stream) {
-  if (R <= 0 || n <= 0 || nc <= 0) return (int)cudaErrorInvalidValue;
+  if (R <= 0 || n <= 0 || n_clusters <= 0 || width <= 0)
+    return (int)cudaErrorInvalidValue;
   const PairConsts c =
       make_consts(method, cutoff, 1, alpha_ewald, k_rf, c_rf, ann,
                   softcore_alpha, 0, has_switch, switch_distance,
                   alch_coulomb, ke);
-  cells_kernel<<<dim3(nc, R), CELL_THREADS, 0, (cudaStream_t)stream>>>(
-      xw, feat, order, starts, counts, table, shifts, params, out, n, nc,
-      mask_rows, c);
+  Args a{xs,      ids,    xs,     ids, feat,       list,       count,
+         cl_cell, shifts, params, out, n,          n_clusters, n_clusters,
+         width,   mask_rows};
+  const dim3 grid((n_clusters + WARPS - 1) / WARPS, R);
+  cells_kernel<<<grid, WARPS * CL, 0, (cudaStream_t)stream>>>(a, c);
+  return (int)cudaGetLastError();
+}
+
+// returns cudaGetLastError() after the launch
+int cells_prune_launch(const float* centre, const float* half,
+                       const bool* live, const int64_t* cl_cell,
+                       const int64_t* ncl, const int64_t* start,
+                       const int64_t* table, const float* shifts,
+                       const float* L, int* list, int* count, int R, int C,
+                       int nc, int q_max, int width, float thr,
+                       void* stream) {
+  if (R <= 0 || C <= 0 || nc <= 0 || q_max <= 0 || width < N_NBR * q_max + 1)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((C + WARPS - 1) / WARPS, R);
+  cells_prune_kernel<<<grid, WARPS * CL, 0, (cudaStream_t)stream>>>(
+      centre, half, live, cl_cell, ncl, start, table, shifts, L, list, count,
+      C, nc, q_max, width, thr);
+  return (int)cudaGetLastError();
+}
+
+// returns cudaGetLastError() after the launch
+int cells_key_launch(const float* x, const float* L, int64_t* key, int R,
+                     int n, int nc0, int nc1, int nc2, void* stream) {
+  if (R <= 0 || n <= 0 || nc0 <= 0 || nc1 <= 0 || nc2 <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int total = R * n, threads = 256;
+  cells_key_kernel<<<(total + threads - 1) / threads, threads, 0,
+                     (cudaStream_t)stream>>>(x, L, key, total, nc0, nc1, nc2);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+
+// returns cudaGetLastError() after the launch
+CLUSTER_LAYOUT_ENTRY(cells_layout_launch)

@@ -1,20 +1,15 @@
 // Row x column pair sweep (softcore LJ + Ewald-erfc / reaction-field /
 // plain Coulomb) for NVIDIA Hopper, sm_90a.
 //
-// Replaces two TPU Pallas kernels, which compute the same pair math over
-// different layouts:
-//   * K1, blues_tpu/potentials/pallas/sweep_kernel.py (_make_kernel,
-//     launched by make_sweep_pair_sum): the culled frozen sweep;
-//   * K2, blues_tpu/potentials/pallas/pair_kernel.py (_make_kernel,
-//     launched by make_pallas_pair_sum): active rows x all (or a subset of)
-//     columns, min-image on, no exclusion mask, no groups.
-// Both run on the host-built layout of blues_tpu_torch/potentials/sweep.py
-// (K2 is a configuration of it, potentials/pair_kernel.py): rows are packed
-// in blocks of up to 32 row slots, and each block reads the range
-// [col_range[2b], col_range[2b + 1]) of the column storage. Blocks of one
-// Morton group with an exclusion mask own private ranges (the exclusion
-// bits are per row slot); unmasked blocks of one group share one range, so
-// K2's hundreds of blocks read a single copy of the columns.
+// Replaces the TPU Pallas kernel K1, blues_tpu/potentials/pallas/
+// sweep_kernel.py (_make_kernel, launched by make_sweep_pair_sum): the
+// culled frozen sweep, on the host-built layout of
+// blues_tpu_torch/potentials/sweep.py: rows are packed in blocks of up to 32
+// row slots, and each block reads the range [col_range[2b], col_range[2b +
+// 1]) of the column storage. Blocks of one Morton group with an exclusion
+// mask own private ranges (the exclusion bits are per row slot); unmasked
+// blocks of one group share one range. (K2, the all-pairs sum, has its own
+// kernel: pair_kernel.cu.)
 //
 // What bounds it: this is an fp32 pair kernel whose work per pair is SFU and
 // ALU arithmetic (one rsqrtf, one __expf, one reciprocal, ~60 FMAs); device
@@ -24,7 +19,7 @@
 // block's columns over several SMs are later work.
 //
 // Design:
-//   * sweep_rows_kernel (MAIN and E0 instances, and K2): grid (row block,
+//   * sweep_rows_kernel (MAIN and E0 instances): grid (row block,
 //     replica), 256 threads. Each of the 8 warps owns 4 row slots; the block
 //     streams its real column range through shared memory in tiles of 256
 //     columns (no padding tiles), lanes stride over the tile, and each row's

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import Constraints
 
 NEWTON_ITERS = 6
@@ -276,7 +277,7 @@ def _make_settle_fns(st, device):
     return settle_positions, settle_velocities
 
 
-def make_constraint_fns(constraints: Constraints, masses, device="cpu", use_settle: bool = True):
+def make_constraint_fns(constraints: Constraints, masses, device=DEFAULT_DEVICE, use_settle: bool = True):
     """(constrain_positions(x_new, x_ref), constrain_velocities(v, x));
     identities when nothing is constrained."""
     ident_x, ident_v = (lambda x_new, x_ref: x_new), (lambda v, x: v)
@@ -285,7 +286,7 @@ def make_constraint_fns(constraints: Constraints, masses, device="cpu", use_sett
     cl = _build_clusters(constraints, masses, use_settle=use_settle)
     if cl is None:
         return ident_x, ident_v
-    device = torch.device(device)
+    device = resolve_device(device)
     st = cl["settle"]
     settle_pos, settle_vel = _make_settle_fns(st, device) if st is not None else (None, None)
     if cl["n_clusters"] == 0:

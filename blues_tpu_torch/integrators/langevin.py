@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import units
+from ..core.device import DEFAULT_DEVICE, resolve_device
 
 
 class LangevinParams(NamedTuple):
@@ -35,7 +36,7 @@ class BAOABMachinery:
         self._invm = invm
         self._sigma = np.sqrt(units.kT(params.temperature) * invm)
         self._cache = {}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.constrain_x, self.constrain_v = constrain_x, constrain_v
         self.source = source
 
@@ -71,11 +72,11 @@ class BAOABMachinery:
         return self.constrain_v(ah * v + bh * self._t("sigma", v.dtype) * noise, x)
 
 
-def make_baoab_machinery(masses, params, constrain_x, constrain_v, source, device="cpu"):
+def make_baoab_machinery(masses, params, constrain_x, constrain_v, source, device=DEFAULT_DEVICE):
     return BAOABMachinery(masses, params, constrain_x, constrain_v, source, device)
 
 
-def make_md_step(force_fn: Callable, masses, params, constrain_x, constrain_v, source, device="cpu"):
+def make_md_step(force_fn: Callable, masses, params, constrain_x, constrain_v, source, device=DEFAULT_DEVICE):
     """One BAOAB MD step with force caching (one force eval per step):
     step(x, v, f, box) -> (x, v, f, e)."""
     m = make_baoab_machinery(masses, params, constrain_x, constrain_v, source, device)

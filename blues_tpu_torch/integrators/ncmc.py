@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import units
+from ..core.device import DEFAULT_DEVICE
 from ..core.state import KahanAccumulator
 from .langevin import LangevinParams, make_baoab_machinery
 from .schedules import NCMCSchedule
@@ -65,7 +66,7 @@ def make_ncmc_protocol(
     move=None,
     splitting: str = "H V R O R V H",
     lambda_split: bool = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ):
     """Build protocol_fn(x, v, box) -> NCMCResult for (R, n, 3) x and v.
 

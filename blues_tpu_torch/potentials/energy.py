@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE
 from ..core.system import System
 from .bonded import BondedTerms
 from .nonbonded import PME, make_nonbonded_energy
@@ -84,7 +85,7 @@ def make_energy_fn(
     frozen_cull_skin: float = 0.45,
     frozen_cull_cage_margin: float = 1.0,
     sweep_row_group: Optional[int] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> EnergyFunction:
     """Build energy_fn(x, box=None, globals_=None) -> (R,) kJ/mol."""
     return EnergyFunction(

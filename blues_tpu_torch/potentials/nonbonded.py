@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import units
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import AlchemicalRegion, NonbondedParams
 from .features import build_pair_features
 from .geometry import distance, periodic_displacement
@@ -298,7 +299,7 @@ class NonbondedEnergy:
         bonds_for_cull,
         sweep_row_group,
         backend: str = "sweep",
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ):
         if alchemical_pme_treatment not in ("direct-space", "coulomb"):
             raise ValueError(
@@ -313,7 +314,7 @@ class NonbondedEnergy:
                 raise ValueError("the port supports orthorhombic boxes only")
         if switch_distance is not None and not (0.0 < switch_distance < cutoff):
             raise ValueError(f"switch_distance {switch_distance} must lie in (0, cutoff={cutoff})")
-        self.device = dev = torch.device(device)
+        self.device = dev = resolve_device(device)
         self.backend = backend
         n = nb.charge.shape[0]
         self.n_atoms = n
@@ -495,7 +496,7 @@ class NonbondedEnergy:
         if self.backend == "pcells":
             self.pair_sum = CellsPairSum(feats, box0=self.box0, name="cells_main", **common)
         else:
-            self.pair_sum = PallasPairSum(feats, name="pair_main", **common)
+            self.pair_sum = PallasPairSum(feats, box0=self.box0, name="pair_main", **common)
 
         excl = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
         exc_idx = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
@@ -522,7 +523,7 @@ class NonbondedEnergy:
                 self.pair_sum0 = CellsPairSum(feats0, box0=self.box0, name="cells_e0", **common)
             else:
                 feats0 = build_pair_features(charges, sigmas, epsilons, np.zeros(n, bool), cols_na)
-                self.pair_sum0 = PallasPairSum(feats0, col_idx=cols_na, name="pair_e0", **common)
+                self.pair_sum0 = PallasPairSum(feats0, col_idx=cols_na, box0=self.box0, name="pair_e0", **common)
         na_excl_mask = self._split_lists(
             alch_atoms_np, cols_na, excl, exc_idx, None, np.zeros(len(excl), bool)
         )
@@ -901,7 +902,7 @@ def make_nonbonded_energy(
     frozen_cull_cage_margin: float = 1.0,
     bonds_for_cull=None,
     sweep_row_group: Optional[int] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> NonbondedEnergy:
     """``backend``: 'sweep' (frozen systems), 'pcells' or 'pallas' (systems
     without frozen atoms), or 'auto': 'sweep' for a mostly-frozen system.

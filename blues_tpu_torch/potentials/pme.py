@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import units
+from ..core.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclass(frozen=True)
@@ -83,11 +84,11 @@ class PMEReciprocal:
     grid, precomputed once; only ``spread_subset`` atoms are spread per call
     (requires the build box, NVT)."""
 
-    def __init__(self, params: PMEParams, base_grid=None, spread_subset=None, device="cpu"):
+    def __init__(self, params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE):
         self.params = params
         Kx, Ky, Kz = params.grid
         self.K = (Kx, Ky, Kz)
-        dev = torch.device(device)
+        dev = resolve_device(device)
         kz_half = Kz // 2 + 1
         mult = np.full(kz_half, 2.0)
         mult[0] = 1.0
@@ -179,7 +180,7 @@ class PMEReciprocal:
         return self.energy_from_grid(self.spread_grid(positions, charges, box), box)
 
 
-def make_pme_reciprocal(params: PMEParams, base_grid=None, spread_subset=None, device="cpu"):
+def make_pme_reciprocal(params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE):
     return PMEReciprocal(params, base_grid, spread_subset, device)
 
 

@@ -19,8 +19,6 @@ a contiguous range ``col_range[b]`` of packed column storage, so no padding
 columns exist; the blocks of one group share one range, except under an
 exclusion mask, whose build-time bits are per (row slot, column storage
 position) and so need each block's own copy of its columns.
-The same layout with min-image on, no mask and no groups is the K2
-configuration (``potentials/pair_kernel.py``).
 The EA instance (``col_forces``) is a single block of up to 128 rows.
 
 ``SweepPairSum.__call__(x, box, lam_s, f_na, f_aa)`` returns ((R,) energy,
@@ -39,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import units
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from .pairs import pair_energy_force
 
 ROWS_PER_BLOCK = 32
@@ -141,7 +140,7 @@ class SweepPairSum:
         col_forces: bool = False,
         col_force_keep=None,
         groups=None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         name: str = "sweep",
     ):
         rows_np = np.asarray(row_gid, np.int64)
@@ -255,7 +254,7 @@ class SweepPairSum:
 
         self.name = name
         self.launches = 0
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_atoms = int(n_atoms)
         self.col_forces = bool(col_forces)
         self.method = method
@@ -344,9 +343,10 @@ class SweepPairSum:
         return lam, blen
 
     # ------------------------------------------------------------------
-    def plain(self, x, box, lam_s, f_na, f_aa):
+    def plain(self, x, box, lam_s, f_na, f_aa, count_only=False):
         """The same sum with PyTorch tensor ops, in the dtype of ``x`` (f32 or
-        f64), block by block."""
+        f64), block by block; with ``count_only`` the number of pairs it
+        keeps (inside the cutoff, not masked) over all replicas."""
         dt = x.dtype
         calc = torch.float32 if dt == torch.float32 else torch.float64
         (ls, fna, faa), blen = self._lambdas(lam_s, f_na, f_aa, box, calc, x.device)
@@ -362,6 +362,7 @@ class SweepPairSum:
         outc = x.new_zeros((R, self.S, 4), dtype=calc) if self.col_forces else None
         tr = self.tr
         budget = PLAIN_CHUNK_ELEMS[x.device.type == "cuda"]
+        n_in = 0
         b = 0
         while b < self.n_blocks:
             c0, c1 = (int(v) for v in self._col_range_np[b])
@@ -390,6 +391,9 @@ class SweepPairSum:
                 valid = valid & ~self._excl_blocks[bb][None]
             if use_cutoff:
                 valid = valid & (r2 < self.cutoff * self.cutoff)
+            if count_only:
+                n_in += int(valid.sum())
+                continue
             r2 = torch.clamp(r2, min=1e-6)
             qs_i, qs_j = fi[..., F_QSTD], fj[..., F_QSTD]
             qa_i, qa_j = fi[..., F_QALCH], fj[..., F_QALCH]
@@ -419,7 +423,14 @@ class SweepPairSum:
             out[:, r, 3] = (w * e).sum(2)
             if outc is not None:
                 outc[:, c0:c1, :3] = gdx.sum(1)
+        if count_only:
+            return n_in
         return self._scatter(out, outc, dt)
+
+    def pair_counts(self, x, box):
+        """Slots the kernel visits and pairs it keeps at positions ``x``, per
+        replica."""
+        return self.shape_info["compute_slots"], self.plain(x, box, 1.0, 1.0, 1.0, count_only=True) / x.shape[0]
 
     # ------------------------------------------------------------------
     def kernel(self, x, box, lam_s, f_na, f_aa):

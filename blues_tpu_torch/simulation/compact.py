@@ -16,6 +16,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import Constraints, System
 
 
@@ -55,7 +56,7 @@ class MobileCompaction(NamedTuple):
 
 
 def build_mobile_compaction(
-    system: System, efn: Callable, ffn: Callable, move=None, device="cpu"
+    system: System, efn: Callable, ffn: Callable, move=None, device=DEFAULT_DEVICE
 ) -> Optional[MobileCompaction]:
     """The compacted-dynamics adapters, or None when ineligible (no frozen
     reference frame, a constraint straddling the frozen boundary, or a
@@ -87,7 +88,7 @@ def build_mobile_compaction(
         if move_m is None:
             return None
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     x_frozen = torch.as_tensor(np.asarray(system.frozen_ref_positions), dtype=torch.float32, device=dev)
     mob_t = torch.as_tensor(mob, device=dev)
 

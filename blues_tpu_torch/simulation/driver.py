@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import units
+from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.rng import TorchRandomSource
 from ..core.state import maxwell_boltzmann_velocities
 from ..core.system import System
@@ -115,11 +116,11 @@ def _check_slice(cfg: SimulationConfig, move):
 class BLUESSimulation:
     """Drives iterations of [NCMC protocol -> accept/reject -> MD]."""
 
-    def __init__(self, system: System, move, config: SimulationConfig, device="cpu",
+    def __init__(self, system: System, move, config: SimulationConfig, device=DEFAULT_DEVICE,
                  dtype=torch.float32):
         _check_slice(config, move)
         self.system, self.move, self.cfg = system, move, config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         ncmc = calculate_ncmc_steps(config.nstepsNC, config.nprop, config.propLambda)
         self.nstepsNC = ncmc["nstepsNC"]

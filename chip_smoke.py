@@ -8,20 +8,28 @@ Run from the repository root with no arguments:
 Phases (each prints its own line; any failure exits non-zero):
 
   1. device: the card's name and power limit; CUDA is required;
-  2. build: both CUDA sources (csrc/sweep_kernel.cu, csrc/cells_kernel.cu),
-     one nvcc each, started together, with ptxas' register and
-     shared-memory report;
+  2. build: the three CUDA sources (csrc/sweep_kernel.cu, csrc/pair_kernel.cu,
+     csrc/cells_kernel.cu), one nvcc each, started together, with ptxas'
+     register and shared-memory report;
   3. system: the frozen 22,341-atom toluene + TIP3P slice (HMR 3.024 Da,
      freeze radius 0.5 nm with mobile waters, PME 1.0 nm, sweep row groups
      of 32), and the same box with every atom mobile on backends 'pcells'
-     and 'pallas';
+     and 'pallas', with the pair slots that K2 and K3 visit and the pairs
+     inside the cutoff at R = 8;
   4. kernels: every kernel instance against its plain PyTorch version at
      R = 1 and R = 8 on perturbed positions, with the sweep tests'
      tolerances (energy 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1)), and its
-     time at R = 8: the sweep kernel K1 (MAIN, E0, EA) on the frozen slice;
-     the cells kernel K3 (MAIN, E0) and the sweep kernel's K2 configuration
-     (MAIN, E0) on the unfrozen box; then K2 MAIN against K3 MAIN, and the
-     K3 NaN poison of an overflowing bin;
+     time at R = 8 beside its bound (the pairs inside the cutoff times
+     PAIR_FLOPS over the fp32 peak, or its bytes over the memory rate,
+     whichever is larger): the sweep kernel K1 (MAIN, E0, EA) on the frozen
+     slice; the cells kernel K3 (MAIN, E0) and the pair kernel K2 (MAIN,
+     E0) on the unfrozen box, with the time of the pair kernel alone on a
+     prebuilt layout beside the whole call; the three layout kernels of
+     each (key, layout, prune), whose keys, clusters, bounding boxes and
+     lists must equal their plain versions' bit for bit; then K2 MAIN
+     against K3 MAIN, K2 MAIN with its list cut to 8 entries (the
+     row clusters that keep more walk every column cluster), and the K3 NaN
+     poison of an overflowing bin;
   5. main: FIRE, then BLUESSimulation on the frozen slice, R = 8, nstepsNC =
      nstepsMD = 50, 3 iterations;
   6. unfrozen: FIRE (200 steps), then BLUESSimulation on the unfrozen box
@@ -36,10 +44,30 @@ Each of the three paths (5-7) must launch its kernels: every count is set
 to 0 just before the path and read just after. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
+
+Two measurements that are not part of the check:
+
+    python3 chip_smoke.py --ab OTHER_ROOT
+
+times K2 and K3 (MAIN, E0) at R = 8 on the unfrozen box, then the 'pcells'
+path (nstepsNC = nstepsMD = 50) and the 'pallas' path (10 and 10) end to
+end (FIRE 50 steps, 1 iteration at R = 8: NCMC micro-step and MD step),
+in four processes, this checkout, OTHER_ROOT, OTHER_ROOT, this
+checkout (each process builds the box and the kernels with its own
+checkout's code, through that checkout's chip_smoke.py), for comparing two
+commits on one card;
+
+    python3 chip_smoke.py --profile
+
+runs one unfrozen 'pcells' iteration at R = 8 under torch.profiler with
+nvidia-smi sampling the SM clock beside it, and reports the K3 time per
+launch there against CUDA events back to back, the device's busy share, and
+the device launches that one K2 and one K3 wrapper call make.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -62,8 +90,16 @@ RAW_REL = 2e-6
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
     "cells": ("blues_tpu_torch/csrc/cells_kernel.cu", "blues_tpu/potentials/pallas/cells_kernel.py:309"),
-    "pair": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/pair_kernel.py:239"),
+    "pair": ("blues_tpu_torch/csrc/pair_kernel.cu", "blues_tpu/potentials/pallas/pair_kernel.py:239"),
 }
+SOURCES = ["sweep_kernel", "pair_kernel", "cells_kernel"]
+#: fp32 operations per pair inside the cutoff: pair_ef of csrc/pair_math.cuh
+#: on the PME path and its inputs (FMA = 2; rsqrt, exp and two reciprocals
+#: counted once each), as a roofline bound counts them
+PAIR_FLOPS = 90
+#: NVIDIA H100 SXM data-sheet peaks at 700 W: fp32 outside the tensor cores,
+#: and HBM3 bandwidth
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def phase(name, msg):
@@ -159,6 +195,26 @@ def time_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def bound_of(ps, x, box):
+    """The least time the card could take for one call at positions ``x``:
+    the larger of the pairs inside the cutoff times PAIR_FLOPS over the fp32
+    peak and the bytes (positions and features read once, F and E written
+    once) over the memory rate. Returns a dict with the pair counts."""
+    R = x.shape[0]
+    visited, n_in = ps.pair_counts(x, box)
+    info = ps.shape_info
+    if "n_rows" in info:  # K3
+        n_read, n_out = info["n_atoms"], info["n_rows"]
+    else:  # K1, K2: rows and columns
+        n_read, n_out = max(info["nr"], info["nc"]) + (info["nr"] if "n_blocks" in info else 0), info["nr"]
+    t_ops = R * n_in * PAIR_FLOPS / PEAK_FP32 * 1e3
+    t_bytes = (R * (n_read * 12 + n_out * 16) + n_read * 24) / PEAK_BYTES * 1e3
+    return dict(
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        visited_slots=visited, in_cutoff_pairs=n_in,
+    )
+
+
 def compare(label, ek, fk, ep, fp):
     """Kernel (ek, fk) against reference (ep, fp) at the sweep tests'
     tolerances; returns (max|dE|, max|dF|), raises when they disagree."""
@@ -195,10 +251,116 @@ def perturbed(x0, movable, R, rng, device):
     return torch.as_tensor(xs, device=device)
 
 
+#: the layout kernels of K2 and K3, each with its own launch count
+#: (``<step>_launches``) beside the pair kernel's ``launches``
+LAYOUT_STEPS = ("key", "layout", "prune")
+
+
+def step_name(name, step):
+    """('cells_main', 'prune') -> 'cells_prune_main': a layout kernel of an
+    instance."""
+    kind, part = name.split("_", 1)
+    return f"{kind}_{step}_{part}"
+
+
+def check_layout(name, ps, xs, box, reps):
+    """The key and layout kernels of K2 or K3 (``ps``) against their plain
+    versions on the same positions at every R of ``xs``, for each laid-out
+    atom set (K2 E0: rows and columns): the same keys, then from the same
+    sorted keys the same clusters, bounding boxes, bin tables and poison,
+    bit for bit. Returns both kernels' results, with the times of one
+    launch (the rows) and the bound (bytes) at R = R_MAIN."""
+    import torch
+
+    res = {step_name(name, s): dict(max_abs_err=0.0) for s in ("key", "layout")}
+    for R, x in xs.items():
+        L = ps.box_lengths(box, torch.float32)
+        for side in ps.sides:
+            kk, kp = ps.key_kernel(x, L, side), ps.key_plain(x, L, side)
+            skey, order = torch.sort(kk, dim=1, stable=True)
+            (bk, ik), (bp, ip) = ps.binned(skey, order, x, L, side, kernel=True), ps.binned(skey, order, x, L, side)
+            torch.cuda.synchronize()
+            n_key = int((kk != kp).sum())
+            n_lay = sum(int((a != b).sum()) for a, b in zip((*bk.clusters, *bk[1:]), (*bp.clusters, *bp[1:])))
+            if ip is not None:
+                n_lay += int((ik != ip).sum())
+            phase(
+                "kernels",
+                f"{name} layout R={R} side {side}: {kk.numel()} keys ({n_key} differ), {bk.clusters.n_clusters} "
+                f"clusters of {int(bk.clusters.live[0].sum())} live in replica 0 ({n_lay} layout elements differ)",
+            )
+            if n_key or n_lay:
+                raise RuntimeError(f"{name}: the key or layout kernel disagrees with its plain version")
+        if R == R_MAIN:
+            m, C, nb = kk.shape[1], bk.clusters.n_clusters, bk.counts.shape[1]
+            # keys: positions in, keys out (K2 also reads its atom ids);
+            # layout: sorted keys, order and positions in, 32 slots of id and
+            # position, the boxes and the bin tables out
+            key_bytes = R * m * (12 + 8) + (0 if hasattr(ps, "cap") else m * 8)
+            lay_bytes = R * (m * 28 + C * 32 * 20 + C * 33 + nb * 40) + m * 8
+            for step, fk, fp, nbytes in (
+                ("key", lambda: ps.key_kernel(x, L, 0), lambda: ps.key_plain(x, L, 0), key_bytes),
+                ("layout", lambda: ps.binned(skey, order, x, L, 0, kernel=True),
+                 lambda: ps.binned(skey, order, x, L, 0), lay_bytes),
+            ):
+                r = res[step_name(name, step)]
+                r.update(ms=time_ms(fk, reps[0]), plain_ms=time_ms(fp, reps[1]))
+                r.update(bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+                phase(
+                    "kernels",
+                    f"{step_name(name, step)} R={R}: kernel {r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} "
+                    f"ms; bound {r['bound_ms']:.4f} ms (bytes), {100 * r['bound_ms'] / r['ms']:.2f} % of bound",
+                )
+    return res
+
+
+def check_prune(name, ps, xs, box, reps):
+    """The prune kernel of K2 or K3 (``ps``) against its torch version on the
+    same clusters at every R of ``xs``: the same count and the same entries
+    for every row cluster. Returns its results with the times and the bound
+    (bytes: the clusters' boxes read once, the list written once) at
+    R = R_MAIN."""
+    import torch
+
+    res = dict(max_abs_err=0.0)
+    for R, x in xs.items():
+        lay = ps.clusters(x, box, torch.float32, kernel=True)
+        lk, ck = ps.prune_kernel(lay)
+        lp, cp = ps.prune_plain(lay)
+        torch.cuda.synchronize()
+        W = lp.shape[-1] - 1
+        used = torch.arange(W, device=lp.device) < cp[..., None]
+        n_bad = int((ck != cp).sum()) + int(((lk[..., :W] != lp[..., :W]) & used).sum())
+        phase(
+            "kernels",
+            f"{step_name(name, 'prune')} R={R}: {int(cp.sum())} entries over {cp.numel()} row clusters, "
+            f"at most {int(cp.max())} per row cluster in a list of {W} ({int((cp > W).sum())} overflow), "
+            f"{n_bad} differ from the torch prune",
+        )
+        if n_bad:
+            raise RuntimeError(f"{step_name(name, 'prune')}: the prune kernel disagrees with the torch prune")
+        if R == R_MAIN:
+            res["ms"] = time_ms(lambda: ps.prune_kernel(lay), reps[0])
+            res["plain_ms"] = time_ms(lambda: ps.prune_plain(lay), reps[1])
+            C = lay.rows.n_clusters
+            n_bytes = R * (2 * (C + lay.cols.n_clusters) * 12 + C * 5 + 4 * int(cp.sum()))
+            res.update(bound_ms=n_bytes / PEAK_BYTES * 1e3, bound_by="bytes")
+            phase(
+                "kernels",
+                f"{step_name(name, 'prune')} R={R}: kernel {res['ms']:.4f} ms/call, torch prune "
+                f"{res['plain_ms']:.4f} ms/call; bound {res['bound_ms']:.4f} ms (bytes), "
+                f"{100 * res['bound_ms'] / res['ms']:.2f} % of bound",
+            )
+    return res
+
+
 def check_kernels(instances, xs, box, reps):
     """Each (name, pair sum, lambdas) kernel against its plain version at
     every R of ``xs`` ({R: positions}); returns {name: results} with the
-    times at R = R_MAIN (``reps`` = kernel and plain repetitions)."""
+    times and the bound at R = R_MAIN (``reps`` = kernel and plain
+    repetitions). For K2 and K3 the torch-side layout is also timed alone."""
+    import torch
+
     results = {}
     for name, ps, lam in instances:
         res = dict(max_abs_err=0.0, max_e_err=0.0)
@@ -209,8 +371,23 @@ def check_kernels(instances, xs, box, reps):
             if R == R_MAIN:
                 res["ms"] = time_ms(lambda: ps.kernel(x, box, *lam), reps[0])
                 res["plain_ms"] = time_ms(lambda: ps.plain(x, box, *lam), reps[1])
-                phase("kernels", f"{name} R={R}: kernel {res['ms']:.4f} ms/call, plain {res['plain_ms']:.4f} ms/call")
+                res.update(bound_of(ps, x, box))
+                layout = ""
+                if hasattr(ps, "launch"):
+                    lay = ps.layout(x, box, torch.float32, kernel=True)
+                    res["kernel_only_ms"] = time_ms(lambda: ps.launch(lay, *lam), reps[0])
+                    layout = f" (the pair kernel alone, on a prebuilt layout, {res['kernel_only_ms']:.4f})"
+                phase(
+                    "kernels",
+                    f"{name} R={R}: kernel {res['ms']:.4f} ms/call{layout}, plain {res['plain_ms']:.4f} ms/call; "
+                    f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: {res['in_cutoff_pairs']:.0f} pairs inside "
+                    f"the cutoff per replica x {PAIR_FLOPS} flop), {100 * res['bound_ms'] / res['ms']:.2f} % of bound; "
+                    f"{res['visited_slots']:.0f} slots visited per replica",
+                )
         results[name] = res
+        if hasattr(ps, "prune_kernel"):
+            results.update(check_layout(name, ps, xs, box, reps))
+            results[step_name(name, "prune")] = check_prune(name, ps, xs, box, reps)
     return results
 
 
@@ -251,6 +428,9 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     for instances in every:
         for ps in instances:
             ps.launches = 0
+            for step in LAYOUT_STEPS:
+                if hasattr(ps, f"{step}_launches"):
+                    setattr(ps, f"{step}_launches", 0)
     sim.initialize(x0, seed=2026)
     t0 = time.perf_counter()
     if n_min:
@@ -287,6 +467,13 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     torch.cuda.synchronize()
     t_iter = time.perf_counter() - t0
     launches = {k: sum(ps.launches for ps in v) for k, v in counted.items()}
+    for step in LAYOUT_STEPS:
+        launches.update(
+            {
+                step_name(k, step): sum(getattr(ps, f"{step}_launches") for ps in v)
+                for k, v in counted.items() if hasattr(v[0], f"{step}_launches")
+            }
+        )
 
     R = sim.cfg.n_replicas
     work = np.stack([s.protocol_work.cpu().numpy() for s in stats])
@@ -393,10 +580,9 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     from blues_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    sources = ["sweep_kernel", "cells_kernel"]
-    build.build_all(sources)
-    phase("build", f"{', '.join(sources)} built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
-    for src in sources:
+    build.build_all(SOURCES)
+    phase("build", f"{', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for src in SOURCES:
         for line in build.build_logs.get(src, "").splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 phase("build", f"{src}: {line.strip()}")
@@ -420,31 +606,33 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     _, _, sim_p = build_unfrozen(device, "pallas", R_PALLAS, NSTEPS_PALLAS, n_atoms, cutoff)
     cells_main = sim_c.energy_md.nonbonded.pair_sum
     box_u = torch.as_tensor(np.asarray(unfrozen.box), dtype=torch.float32, device=device)
+    rng = np.random.default_rng(0)
+    box_f = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=device)
+    mobile = np.asarray(frozen.masses) > 0
+    xs_f = {R: perturbed(x0, mobile, R, rng, device) for R in (1, R_MAIN)}
+    everyone = np.ones(unfrozen.n_atoms, bool)
+    xs_u = {R: perturbed(xu0, everyone, R, rng, device) for R in (1, R_MAIN)}
+    cells_sums, pair_sums = sums_of(sim_c, "cells"), sums_of(sim_p, "pair")
     ci = cells_main.shape_info
-    pinfo = {k: v[0].shape_info for k, v in sums_of(sim_p, "pair").items()}
+    slots = {k: v[0].pair_counts(xs_u[R_MAIN], box_u) for k, v in {**cells_sums, **pair_sums}.items()}
     phase(
         "system",
         f"unfrozen: {unfrozen.n_atoms} atoms, all mobile, box {float(box_u[0, 0]):.4f} nm; K3 grid "
         f"{ci['grid']}, cap {ci['cap']}, mean occupancy {ci['mean_occupancy']:.1f}, max occupancy "
         f"{cells_main.max_occupancy(torch.as_tensor(xu0, dtype=torch.float32, device=device)[None], box_u)}, "
-        f"~{ci['pair_slots']} pair slots per replica; "
-        + "; ".join(f"{k}: {v['nr']} rows x {v['nc']} cols, {v['n_blocks']} blocks" for k, v in pinfo.items())
-        + f" (built in {time.perf_counter() - t0:.1f} s)",
+        f"{ci['clusters']} cluster slots; K2 columns {pair_sums['pair_main'][0].shape_info['columns'][0]}; "
+        "per replica at R = 8, slots visited / pairs inside the cutoff: "
+        + "; ".join(f"{k} {v:.0f} / {n:.0f} ({v / n:.2f}x)" for k, (v, n) in slots.items())
+        + f"; the all-pairs sweep visited {pair_sums['pair_main'][0].shape_info['all_pairs_slots']} "
+        f"(built in {time.perf_counter() - t0:.1f} s)",
     )
 
     # --- kernels against their plain versions --------------------------------
-    rng = np.random.default_rng(0)
-    box_f = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=device)
-    mobile = np.asarray(frozen.masses) > 0
-    xs_f = {R: perturbed(x0, mobile, R, rng, device) for R in (1, R_MAIN)}
     lam = {"main": (1.0, 1.0, 1.0), "e0": (1.0, 1.0, 1.0), "ea": (0.4, 0.4, 0.4)}
     sweep_sums = sums_of(sim, "sweep")
     kres = check_kernels(
         [(k, v[0], lam[k.split("_")[1]]) for k, v in sweep_sums.items()], xs_f, box_f, (50, 5)
     )
-    everyone = np.ones(unfrozen.n_atoms, bool)
-    xs_u = {R: perturbed(xu0, everyone, R, rng, device) for R in (1, R_MAIN)}
-    cells_sums, pair_sums = sums_of(sim_c, "cells"), sums_of(sim_p, "pair")
     kres.update(
         check_kernels(
             [(k, v[0], lam[k.split("_")[1]]) for k, v in {**cells_sums, **pair_sums}.items()],
@@ -452,10 +640,17 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
         )
     )
     x8 = xs_u[R_MAIN]
+    pair_main = pair_sums["pair_main"][0]
     compare(
         f"pair_main vs cells_main R={R_MAIN}",
-        *pair_sums["pair_main"][0].kernel(x8, box_u, 1.0, 1.0, 1.0), *cells_main.kernel(x8, box_u, 1.0, 1.0, 1.0),
+        *pair_main.kernel(x8, box_u, 1.0, 1.0, 1.0), *cells_main.kernel(x8, box_u, 1.0, 1.0, 1.0),
     )
+    width, pair_main.list_width = pair_main.list_width, 8
+    try:
+        compare(f"pair_main with an 8-entry list R={R_MAIN}", *pair_main.kernel(x8, box_u, 1.0, 1.0, 1.0),
+                *pair_main.plain(x8, box_u, 1.0, 1.0, 1.0))
+    finally:
+        pair_main.list_width = width
     check_poison(cells_main, xu0, box_u, device)
 
     # --- the three paths -----------------------------------------------------
@@ -477,18 +672,182 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
             "max_abs_err": v["max_abs_err"],
             "ms": v["ms"],
             "plain_ms": v["plain_ms"],
+            "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes this sum
         }
         for k, v in kres.items()
     ]
     return kernels
 
 
-def main():
+def time_unfrozen_kernels(root, reps=20):
+    """{name: ms} of K2 and K3 (MAIN, E0) at R = R_MAIN on the unfrozen box
+    and of the 'pcells' and 'pallas' steps, built by the checkout at
+    ``root`` with its own code (its chip_smoke.py and package), so an
+    earlier commit's kernels are timed as they were."""
+    import importlib.util
+
+    import numpy as np
     import torch
 
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke_at_root", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    import blues_tpu_torch
+
+    if not os.path.abspath(blues_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"blues_tpu_torch came from {blues_tpu_torch.__file__}, not {root}")
+    dev = torch.device("cuda", 0)
+    unfrozen, xu0, sim_c = mod.build_unfrozen(dev, "pcells", R_MAIN, NSTEPS)
+    _, _, sim_p = mod.build_unfrozen(dev, "pallas", R_MAIN, NSTEPS_PALLAS)
+    box = torch.as_tensor(np.asarray(unfrozen.box), dtype=torch.float32, device=dev)
+    x = mod.perturbed(xu0, np.ones(unfrozen.n_atoms, bool), R_MAIN, np.random.default_rng(0), dev)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for kind, sim in (("cells", sim_c), ("pair", sim_p)):
+        for part, ps in (("main", sim.energy_md.nonbonded.pair_sum), ("e0", sim.energy_alch.nonbonded.pair_sum0)):
+            out[f"{kind}_{part}"] = mod.time_ms(lambda: ps.kernel(x, box, 1.0, 1.0, 1.0), reps)
+        # the pair kernel's own device time per launch (the call's largest
+        # kernel), under torch.profiler over back-to-back calls
+        ps = sim.energy_md.nonbonded.pair_sum
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                ps.kernel(x, box, 1.0, 1.0, 1.0)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        top = max(device, key=lambda e: e.device_time_total)
+        out[f"{kind}_main_kernel_profiled"] = top.device_time_total / 1e3 / top.count
+        out[f"{kind}_main_launches_per_call"] = sum(e.count for e in device) / 10
+    for backend, kind, sim in (("pcells", "cells", sim_c), ("pallas", "pair", sim_p)):
+        counted = mod.sums_of(sim, kind)
+        with open(os.devnull, "w") as quiet:
+            stdout, sys.stdout = sys.stdout, quiet
+            try:
+                res, _ = mod.run_path(sim, xu0, counted, list(counted.values()), 50, 1, "ab", "")
+            finally:
+                sys.stdout = stdout
+        out[f"{backend}_micro_step"], out[f"{backend}_md_step"] = res["micro_ms"], res["md_ms"]
+    return out
+
+
+def ab(other, card):
+    """K2 and K3 of this checkout and of ``other`` in alternating processes
+    (this, other, other, this), each timing at R = R_MAIN (times in ms,
+    launches per call as counts)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for label, root in (("this", here), ("other", other), ("other", other), ("this", here)):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-unfrozen-kernels", root],
+            capture_output=True, text=True, timeout=900,
+        )
+        if out.returncode != 0:
+            raise RuntimeError(f"timing {root} failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        ms = json.loads(out.stdout.strip().splitlines()[-1])
+        runs.append((label, ms))
+        phase("ab", f"{label} ({root}) on {card}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    for k in runs[0][1]:
+        a = [ms[k] for lab, ms in runs if lab == "this"]
+        b = [ms[k] for lab, ms in runs if lab == "other"]
+        phase("ab", f"{k}: this {a} vs other {b}: other / this = {sum(b) / sum(a):.2f}")
+    return runs
+
+
+def profile_unfrozen(card):
+    """One unfrozen 'pcells' iteration at R = R_MAIN under torch.profiler,
+    with the SM clock sampled beside it, and the device launches of one K2
+    and one K3 wrapper call."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    build_all_sources()
+    unfrozen, xu0, sim_c = build_unfrozen(dev, "pcells", R_MAIN, NSTEPS)
+    _, _, sim_p = build_unfrozen(dev, "pallas", R_MAIN, NSTEPS_PALLAS)
+    sim_c.initialize(xu0, seed=2026)
+    sim_c.minimize(100)
+    sim_c.run_iteration()  # warm-up
+    cells = [sim_c.energy_md.nonbonded.pair_sum, sim_c.energy_alch.nonbonded.pair_sum0]
+    x, _, box = sim_c.state
+    events = {ps.name: time_ms(lambda: ps.kernel(x, box, 1.0, 1.0, 1.0), 20) for ps in cells}
+
+    def device_kernels(prof):
+        return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    sampler = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim_c.run_iteration()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sampler.terminate()
+        samples = sampler.communicate(timeout=30)[0]
+    clocks = [float(v.split(",")[0]) for v in samples.strip().splitlines() if v.strip()]
+    kern = device_kernels(prof)
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    k3 = [e for e in kern if "cells_kernel" in e.key]
+    k3_ms = sum(e.device_time_total for e in k3) / 1e3
+    k3_n = sum(e.count for e in k3)
+    phase(
+        "profile",
+        f"one pcells iteration at R={R_MAIN} on {card}: wall {wall:.3f} s under the profiler, device time "
+        f"{busy:.1f} ms in {sum(e.count for e in kern)} device launches (busy {100 * busy / (1e3 * wall):.1f} %); "
+        f"K3 {k3_ms:.2f} ms in {k3_n} launches = {k3_ms / max(k3_n, 1):.4f} ms each, against CUDA events back "
+        f"to back {', '.join(f'{k} {v:.4f} ms' for k, v in events.items())} (wrapper calls); SM clock over "
+        f"{len(clocks)} samples: min {min(clocks, default=float('nan')):.0f}, median "
+        f"{float(np.median(clocks)) if clocks else float('nan'):.0f}, max {max(clocks, default=float('nan')):.0f} MHz",
+    )
+    for ps in (cells[0], sim_p.energy_md.nonbonded.pair_sum):
+        ps.kernel(x, box, 1.0, 1.0, 1.0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ps.kernel(x, box, 1.0, 1.0, 1.0)
+            torch.cuda.synchronize()
+        kern = device_kernels(prof)
+        phase(
+            "profile",
+            f"{ps.name}: one wrapper call makes {sum(e.count for e in kern)} device launches, "
+            f"{sum(e.device_time_total for e in kern):.1f} us of device time; the largest: "
+            + ", ".join(
+                f"{e.key[:48]} x{e.count} {e.device_time_total:.1f} us"
+                for e in sorted(kern, key=lambda e: -e.device_time_total)[:8]
+            ),
+        )
+
+
+def build_all_sources():
+    from blues_tpu_torch.kernels import build
+
+    build.build_all(SOURCES)
+
+
+def main(argv=None):
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab", metavar="OTHER_ROOT", help="time K2 and K3 against another checkout")
+    ap.add_argument("--profile", action="store_true", help="profile one unfrozen iteration")
+    ap.add_argument("--time-unfrozen-kernels", metavar="ROOT", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU", file=sys.stderr)
         return 2
+    if args.time_unfrozen_kernels:
+        print(json.dumps(time_unfrozen_kernels(args.time_unfrozen_kernels)), flush=True)
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import blues_tpu_torch  # noqa: F401  (fails, before any output, outside a checkout)
 
@@ -497,6 +856,13 @@ def main():
     name = torch.cuda.get_device_name(0)
     card = card_line()
     phase("device", f"{name} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.ab or args.profile:
+        if args.ab:
+            ab(args.ab, card)
+        if args.profile:
+            profile_unfrozen(card)
+        print(card, flush=True)
+        return 0
     kernels = smoke(torch.device("cuda", 0), card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,6 +8,10 @@ import torch
 # (a 9 s test took 180 s), so the port's tests run its CPU ops on one thread
 torch.set_num_threads(1)
 
+#: the device every port builder in these tests is given: the builders
+#: default to the card, and the parity tests run on the CPU
+DEVICE = torch.device("cpu")
+
 #: the small frozen test system's energy settings: PME at a 0.65 nm cutoff,
 #: a cage margin small enough that column culling engages at 2,500 atoms
 KW = dict(

@@ -22,11 +22,13 @@ import torch
 from blues_tpu.potentials import cells as jcells
 from blues_tpu.potentials import tiled as jtiled
 from blues_tpu.potentials.pallas.cells_kernel import make_pallas_cells_pair_sum
+from _torch_cluster_case import as_torch, build, density_box
 from blues_tpu_torch.potentials import cells as tcells
+from blues_tpu_torch.potentials import clusters as tcl
 from blues_tpu_torch.potentials import features as tfeat
 from blues_tpu_torch.potentials.pcells import CellsPairSum
 
-import _torch_helpers  # noqa: F401  (one intra-op thread per worker)
+from _torch_helpers import DEVICE  # (and one intra-op thread per worker)
 
 COMMON = dict(
     method="PME", cutoff=0.9, alpha_ewald=3.2, k_rf=0.0, c_rf=0.0,
@@ -50,7 +52,7 @@ def _synthetic_box(n=700, L=2.9, seed=0, n_alch=8):
 def _both(q, sig, eps, alch, box, rows=None):
     fj = jtiled.build_pair_features(q, sig, eps, alch, rows)
     ft = tfeat.build_pair_features(q, sig, eps, alch, rows)
-    return jax.jit(make_pallas_cells_pair_sum(fj, box0=box, **COMMON)), CellsPairSum(ft, box0=box, **COMMON)
+    return jax.jit(make_pallas_cells_pair_sum(fj, box0=box, **COMMON)), CellsPairSum(ft, box0=box, **COMMON, device=DEVICE)
 
 
 _SHARED = {}
@@ -146,7 +148,7 @@ def test_e0_features_zero_the_alchemical_atoms():
 
 def test_replica_batch_equals_single_calls_and_f64():
     x, q, sig, eps, alch, box = _synthetic_box(n=400, seed=3)
-    tps = CellsPairSum(tfeat.build_pair_features(q, sig, eps, alch), box0=box, **COMMON)
+    tps = CellsPairSum(tfeat.build_pair_features(q, sig, eps, alch), box0=box, **COMMON, device=DEVICE)
     xb = torch.as_tensor(np.stack([x, x + 0.01, np.roll(x, 5, axis=0)]), dtype=torch.float32)
     bt = torch.as_tensor(box, dtype=torch.float32)
     eb, fb = tps(xb, bt, *LAM)
@@ -162,7 +164,7 @@ def test_replica_batch_equals_single_calls_and_f64():
 
 def test_autograd_gradient_is_minus_force():
     x, q, sig, eps, alch, box = _synthetic_box(n=400, seed=4)
-    tps = CellsPairSum(tfeat.build_pair_features(q, sig, eps, alch), box0=box, **COMMON)
+    tps = CellsPairSum(tfeat.build_pair_features(q, sig, eps, alch), box0=box, **COMMON, device=DEVICE)
     xs = torch.as_tensor(np.stack([x, x + 0.02]), dtype=torch.float32)
     bt = torch.as_tensor(box, dtype=torch.float32)
     xg = xs.clone().requires_grad_(True)
@@ -212,15 +214,98 @@ def test_build_refuses_small_grids_and_triclinic():
     _, q, sig, eps, alch, _ = _synthetic_box(n=100, L=1.5, seed=7)
     feats = tfeat.build_pair_features(q, sig, eps, alch)
     with pytest.raises(ValueError, match="too small"):
-        CellsPairSum(feats, box0=np.diag([1.5, 1.5, 1.5]), **COMMON)
+        CellsPairSum(feats, box0=np.diag([1.5, 1.5, 1.5]), **COMMON, device=DEVICE)
     tri = np.array([[3.0, 0, 0], [1.4, 3.0, 0], [0.2, 0.1, 3.0]])
     with pytest.raises(ValueError, match="orthorhombic"):
-        CellsPairSum(feats, box0=tri, **COMMON)
+        CellsPairSum(feats, box0=tri, **COMMON, device=DEVICE)
 
 
 def test_cpu_wrapper_refuses_the_kernel_path():
     x, q, sig, eps, alch, box = _synthetic_box(n=400, seed=3)
-    tps = CellsPairSum(tfeat.build_pair_features(q, sig, eps, alch), box0=box, **COMMON)
+    tps = CellsPairSum(tfeat.build_pair_features(q, sig, eps, alch), box0=box, **COMMON, device=DEVICE)
     with pytest.raises(ValueError):
         tps.kernel(torch.as_tensor(x, dtype=torch.float32)[None], torch.as_tensor(box), *LAM)
     assert tps.launches == 0
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse_edges"])
+@pytest.mark.parametrize("kind", ["cells", "cells_e0"])
+def test_pruning_keeps_every_pair_inside_the_cutoff(kind, case):
+    """Every pair of distinct atoms with r^2 < rc^2 (float64, minimum image)
+    lies in a visited (cluster, neighbour cluster) of the float32 layout,
+    and the visited entry's static shift is that pair's minimum image."""
+    n, density = (3000, 98.8) if case == "dense" else (500, 20.0)
+    xs, fa, L = density_box(n, density, seed=8, edges=case != "dense")
+    ps = build(kind, fa, L, 0.6, DEVICE)
+    x, box = as_torch(xs, L, DEVICE)
+    lay = ps.layout(x, box, torch.float32)
+    assert not lay.invalid.any()
+    covered = np.zeros((len(xs), n, n), bool)
+    rep, g, ent = tcl.list_entries(lay.lst, lay.count)
+    shift = lay.shift(rep, g, ent).numpy()
+    ids, xw = lay.rows.ids.view(len(xs), -1, 32).numpy(), lay.rows.x.view(len(xs), -1, 32, 3).double().numpy()
+    for r, gi, cj, s_ in zip(rep.tolist(), g.tolist(), (ent >> 5).tolist(), shift):
+        a, b = ids[r, gi], ids[r, cj]
+        d = xw[r, gi][:, None] - (xw[r, cj][None, :] + s_)
+        # with this entry's shift the pair is as near as its minimum image
+        # (to float32 rounding of the wrapped positions)
+        inside = ((d * d).sum(-1) < 0.36 + 1e-4) & (a[:, None] >= 0) & (b[None, :] >= 0)
+        covered[r][a[:, None].repeat(32, 1)[inside], b[None, :].repeat(32, 0)[inside]] = True
+    need = np.zeros_like(covered)
+    for r in range(len(xs)):
+        d = xs[r][:, None] - xs[r][None, :]
+        d -= L * np.round(d / L)
+        need[r] = (d * d).sum(-1) < 0.36
+        need[r][np.arange(n), np.arange(n)] = False
+    assert need.sum() > 0 and not (need & ~covered).any(), int((need & ~covered).sum())
+
+
+def test_order_round_trips_to_atom_ids():
+    """Each atom owns exactly one slot of the per-call cluster order, in its
+    home cell, holding its wrapped position; relabelling the atoms
+    relabels E and F."""
+    xs, fa, L = density_box(1500, 98.8, seed=6, edges=True)
+    ps = build("cells", fa, L, 0.6, DEVICE)
+    x, box = as_torch(xs, L, DEVICE)
+    lay = ps.layout(x, box, torch.float32)
+    cl_cell = lay.binned.cl_bin
+    for r in range(len(xs)):
+        ids = lay.rows.ids[r]
+        live = ids >= 0
+        assert torch.equal(torch.sort(ids[live]).values, torch.arange(1500))
+        xw = x[r] - box.diagonal() * torch.floor(x[r] / box.diagonal())
+        assert torch.equal(lay.rows.x[r][live], xw[ids[live]])
+        cell = (torch.clamp((xw / box.diagonal() * torch.tensor(ps.ncells)).long(), max=ps.ncells[0] - 1)
+                * torch.tensor([ps.ncells[1] * ps.ncells[2], ps.ncells[2], 1])).sum(-1)
+        assert torch.equal(cl_cell[r].repeat_interleave(32)[live], cell[ids[live]])
+    e, f = ps(x, box, *LAM)
+    perm = np.random.default_rng(1).permutation(1500)
+    e2, f2 = build("cells", tuple(a[perm] for a in fa), L, 0.6, DEVICE)(x[:, perm], box, *LAM)
+    assert torch.allclose(e2, e, rtol=1e-5)
+    assert float((f2 - f[:, perm]).abs().max()) < 1e-5 * (float(f.abs().max()) + 1.0)
+
+
+def test_grid_of_2048_cells_or_more():
+    """A sparse 8.2 nm box at cutoff 0.6 nm has 13^3 = 2,197 cells, so the
+    sort keys, (cell << 20) | snake key, pass 2^31: every atom still owns
+    one slot of its own cell's clusters, and E and F equal K2's over the
+    same pairs (the sweep tests' tolerances)."""
+    xs, fa, L = density_box(1500, 1500 / 8.2**3, seed=12)
+    ps = build("cells", fa, L, 0.6, DEVICE)
+    assert ps.n_cells == 13**3
+    x, box = as_torch(xs, L, DEVICE)
+    key = ps.key_plain(x, box.diagonal())
+    assert int(key.max()) >= 2**31
+    lay = ps.layout(x, box, torch.float32)
+    assert not lay.invalid.any()
+    for r in range(len(xs)):
+        ids = lay.rows.ids[r]
+        live = ids >= 0
+        assert torch.equal(torch.sort(ids[live]).values, torch.arange(1500))
+        cell = key[r] >> tcl.SUBKEY_BITS
+        assert torch.equal(lay.binned.cl_bin[r].repeat_interleave(32)[live], cell[ids[live]])
+    e, f = ps(x, box, *LAM)
+    e2, f2 = build("pair", fa, L, 0.6, DEVICE)(x, box, *LAM)
+    assert torch.isfinite(e).all() and float(f.abs().max()) > 0
+    assert torch.all((e - e2).abs() <= 5e-5 * e2.abs() + 1e-2), (e, e2)
+    assert float((f - f2).abs().max()) < 2e-5 * (float(f2.abs().max()) + 1.0)

@@ -24,7 +24,7 @@ from blues_tpu_torch.core.convert import system_from_reference
 from blues_tpu_torch.moves import NullMove, RandomLigandRotationMove
 from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
 
-import _torch_helpers  # noqa: F401  (one intra-op thread per worker)
+from _torch_helpers import DEVICE  # (and one intra-op thread per worker)
 
 CFG = dict(
     nstepsNC=10, nstepsMD=5, dt=0.002, nonbonded_method="PME", cutoff=0.65,
@@ -47,7 +47,7 @@ def frozen():
 def test_driver_runs_and_md_potential_matches_jax(frozen):
     fr, x, li = frozen
     pt = system_from_reference(fr)
-    sim = BLUESSimulation(pt, RandomLigandRotationMove(li, pt.masses), SimulationConfig(**CFG))
+    sim = BLUESSimulation(pt, RandomLigandRotationMove(li, pt.masses), SimulationConfig(**CFG), device=DEVICE)
     sim.initialize(x, seed=3)
     sim.minimize(100)
     for _ in range(2):
@@ -77,7 +77,7 @@ def test_md_rollback_restores_pre_md_state(frozen):
     segment's (non-finite) MD potential, as the JAX driver reports it."""
     fr, x, li = frozen
     pt = system_from_reference(fr)
-    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(CFG, md_fault_injection=1.0)))
+    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(CFG, md_fault_injection=1.0)), device=DEVICE)
     sim.initialize(x, seed=4)
     st = sim.run_iteration()
     assert bool(st.md_failed.all())
@@ -95,4 +95,39 @@ def test_outside_the_slice_raises(frozen, bad):
     fr, x, li = frozen
     pt = system_from_reference(fr)
     with pytest.raises(ValueError):
-        BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(CFG, **bad)))
+        BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(CFG, **bad)), device=DEVICE)
+
+
+def test_builders_default_to_the_card(frozen, monkeypatch):
+    """Every public builder stages on the card unless given a device, and
+    asking for the card without one raises (no fallback to the CPU)."""
+    import inspect
+
+    from blues_tpu_torch.core.device import resolve_device
+    from blues_tpu_torch.core.state import maxwell_boltzmann_velocities
+    from blues_tpu_torch.integrators.constraints import make_constraint_fns
+    from blues_tpu_torch.integrators.langevin import make_baoab_machinery, make_md_step
+    from blues_tpu_torch.integrators.ncmc import make_ncmc_protocol
+    from blues_tpu_torch.potentials.energy import make_energy_fn
+    from blues_tpu_torch.potentials.nonbonded import NonbondedEnergy, make_nonbonded_energy
+    from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
+    from blues_tpu_torch.potentials.pcells import CellsPairSum
+    from blues_tpu_torch.potentials.pme import PMEReciprocal, make_pme_reciprocal
+    from blues_tpu_torch.potentials.sweep import SweepPairSum
+    from blues_tpu_torch.simulation.compact import build_mobile_compaction
+
+    builders = [
+        BLUESSimulation, make_energy_fn, make_ncmc_protocol, make_baoab_machinery, make_md_step,
+        make_constraint_fns, PMEReciprocal, make_pme_reciprocal, build_mobile_compaction,
+        maxwell_boltzmann_velocities, NonbondedEnergy, make_nonbonded_energy, SweepPairSum,
+        PallasPairSum, CellsPairSum,
+    ]
+    for b in builders:
+        assert inspect.signature(b).parameters["device"].default == "cuda", b
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    pt = system_from_reference(frozen[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BLUESSimulation(pt, NullMove(), SimulationConfig(**CFG))
+    assert resolve_device("cpu") == torch.device("cpu")

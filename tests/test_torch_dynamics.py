@@ -38,7 +38,7 @@ from blues_tpu_torch.integrators.schedules import build_ncmc_schedule as t_sched
 from blues_tpu_torch.potentials import energy as te
 from blues_tpu_torch.simulation.compact import build_mobile_compaction
 
-from _torch_helpers import KW, F64Jnp
+from _torch_helpers import DEVICE, KW, F64Jnp
 from _torch_moves import JFixedRotation, TFixedRotation
 from _torch_moves import ZeroNoise as _ZeroNoise
 
@@ -79,7 +79,7 @@ def test_constraints_match(sys_):
         jcx, jcv = map(jax.jit, jc.make_constraint_fns(fr.constraints, fr.masses))
         jx = np.asarray(jcx(jnp.asarray(x_new), jnp.asarray(x)))
         jv = np.asarray(jcv(jnp.asarray(v), jnp.asarray(jx)))
-    tcx, tcv = tc.make_constraint_fns(sys_["port"].constraints, sys_["port"].masses)
+    tcx, tcv = tc.make_constraint_fns(sys_["port"].constraints, sys_["port"].masses, device=DEVICE)
     tx = tcx(torch.as_tensor(x_new)[None], torch.as_tensor(x)[None])
     tv = tcv(torch.as_tensor(v)[None], tx)
     np.testing.assert_allclose(tx[0].numpy(), jx, rtol=0, atol=1e-12)
@@ -108,11 +108,11 @@ def test_baoab_step_matches(sys_):
         noise = np.asarray(jax.random.normal(jax.random.split(key)[1], x.shape, jnp.float64))
         x1, v1, vj = np.asarray(x1), np.asarray(v1), np.asarray(vj)
     pm = sys_["port"].replace(alchemical=None)
-    efn_t = te.make_energy_fn(pm, **KW)
+    efn_t = te.make_energy_fn(pm, **KW, device=DEVICE)
     ffn_t = te.make_force_fn(efn_t)
-    tcx, tcv = tc.make_constraint_fns(pm.constraints, pm.masses)
+    tcx, tcv = tc.make_constraint_fns(pm.constraints, pm.masses, device=DEVICE)
     step_t = tl.make_md_step(ffn_t, pm.masses, tl.LangevinParams(*p), tcx, tcv,
-                             ReplayRandomSource(normals=[noise[None]]))
+                             ReplayRandomSource(normals=[noise[None]]), device=DEVICE)
     xt, bt = torch.as_tensor(x)[None], torch.as_tensor(md.box)
     _, ft = ffn_t(xt, bt)
     x1t, v1t, _, e1t = step_t(xt, torch.as_tensor(vj.copy())[None], ft, bt)
@@ -132,12 +132,12 @@ def _protocols(sys_, n_steps):
             efn, je.make_force_fn(efn), fr.masses, p, cx, cv, sched_j,
             move=JFixedRotation(sys_["lig"], fr.masses), dtype=jnp.float64,
         ))
-    efn_t = te.make_energy_fn(pt, **KW)
-    tcx, tcv = tc.make_constraint_fns(pt.constraints, pt.masses)
+    efn_t = te.make_energy_fn(pt, **KW, device=DEVICE)
+    tcx, tcv = tc.make_constraint_fns(pt.constraints, pt.masses, device=DEVICE)
     move = TFixedRotation(sys_["lig"], pt.masses)
     tprot = tn.make_ncmc_protocol(
         efn_t, te.make_force_fn(efn_t), pt.masses, tl.LangevinParams(*p), tcx, tcv,
-        t_schedule(n_steps), _ZeroNoise(), move=move,
+        t_schedule(n_steps), _ZeroNoise(), move=move, device=DEVICE,
     )
     return jprot, tprot, efn_t, move
 
@@ -161,12 +161,12 @@ def test_ncmc_protocol_matches_jax_f64(sys_):
 def test_compacted_protocol_matches_full(sys_):
     _, tprot, efn_t, move = _protocols(sys_, 4)
     pt = sys_["port"]
-    comp = build_mobile_compaction(pt, efn_t, te.make_force_fn(efn_t), move)
+    comp = build_mobile_compaction(pt, efn_t, te.make_force_fn(efn_t), move, device=DEVICE)
     assert comp is not None and len(comp.mobile_idx) < pt.n_atoms
-    cx, cv = tc.make_constraint_fns(comp.constraints_m, comp.masses_m)
+    cx, cv = tc.make_constraint_fns(comp.constraints_m, comp.masses_m, device=DEVICE)
     prot_m = tn.make_ncmc_protocol(
         comp.efn_m, comp.ffn_m, comp.masses_m, tl.LangevinParams(0.002, 0.0, 300.0), cx, cv,
-        t_schedule(4), _ZeroNoise(), move=comp.move_m,
+        t_schedule(4), _ZeroNoise(), move=comp.move_m, device=DEVICE,
     )
     x = torch.as_tensor(np.repeat(sys_["x"][None], 2, axis=0))
     x[1] += 1e-3 * torch.as_tensor(pt.masses > 0)[:, None]

@@ -33,7 +33,7 @@ from blues_tpu_torch.core.convert import system_from_reference
 from blues_tpu_torch.potentials import energy as te
 from blues_tpu_torch.potentials import pme as tpme
 
-from _torch_helpers import KW, F64Jnp
+from _torch_helpers import DEVICE, KW, F64Jnp
 
 LAMS = [None, {"lambda_sterics": 0.4, "lambda_electrostatics": 0.4}]
 
@@ -54,8 +54,8 @@ def sys_():
     port = system_from_reference(frozen)
     return dict(
         jax=frozen, port=port, x=xp, box=np.asarray(frozen.box),
-        p_alch=te.make_energy_fn(port, **KW),
-        p_md=te.make_energy_fn(port.replace(alchemical=None), **KW),
+        p_alch=te.make_energy_fn(port, **KW, device=DEVICE),
+        p_md=te.make_energy_fn(port.replace(alchemical=None), **KW, device=DEVICE),
     )
 
 
@@ -173,6 +173,6 @@ def test_pme_reciprocal_matches_f64(sys_, _jax_pme_f64):
         e_j = float(jax.jit(fn)(jnp.asarray(x), jnp.asarray(q), jnp.asarray(fr.box)))
     base_t = tpme.precompute_spread_grid(params, x[fro], q[fro], fr.box)
     np.testing.assert_allclose(base_t, np.asarray(base), rtol=1e-6, atol=1e-6)
-    rec = tpme.make_pme_reciprocal(params, base_grid=base_t, spread_subset=mob)
+    rec = tpme.make_pme_reciprocal(params, base_grid=base_t, spread_subset=mob, device=DEVICE)
     e_t = float(rec(torch.as_tensor(x)[None], torch.as_tensor(q), torch.as_tensor(fr.box))[0])
     assert abs(e_t - e_j) <= 1e-8 * abs(e_j), (e_t, e_j)

@@ -1,5 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the sweep kernel (K1 and its K2 configuration) and the cells kernel (K3).
+the sweep kernel (K1), the pair kernel (K2) and the cells kernel (K3); K2
+against K3 over the same pair space; K2 and K3 at water density (6,000
+atoms, cutoff 1.0 nm, atoms on the box edge and unwrapped) at R = 1 and 8,
+deterministic from call to call, with their key, layout and prune kernels
+equal to their plain versions bit for bit; K2 with a list too short for
+its row clusters.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -15,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cluster_case import as_torch, build, density_box
 from _torch_sweep_case import LAM, port_ea, port_main
 from blues_tpu_torch.potentials.features import build_pair_features
 from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
@@ -89,7 +95,7 @@ def test_cells_kernel_matches_plain(rows):
     ps = CellsPairSum(feats, box0=np.eye(3) * CELLS_L, device=dev, **CELLS_COMMON)
     ek, fk = ps(xs, box, *LAM)  # a CUDA tensor takes the kernel
     torch.cuda.synchronize()
-    assert ps.launches == 1
+    assert ps.launches == ps.key_launches == ps.layout_launches == ps.prune_launches == 1
     _assert_close(ek, fk, *ps.plain(xs, box, *LAM))
     for r in range(xs.shape[0]):
         e1, f1 = ps.kernel(xs[r : r + 1], box, *LAM)
@@ -119,11 +125,64 @@ def test_pair_kernel_matches_plain_and_cells(cols):
     feats, xs, box = _cells_case(dev, seed=2)
     col_idx = None if cols == "all" else np.arange(8, CELLS_N)
     ps = PallasPairSum(feats, col_idx=col_idx, device=dev, **CELLS_COMMON)
-    assert ps.shape_info["col_storage"] == (CELLS_N if col_idx is None else len(col_idx))
+    assert ps.shape_info["nc"] == (CELLS_N if col_idx is None else len(col_idx))
     ek, fk = ps(xs, box, *LAM)
     torch.cuda.synchronize()
-    assert ps.launches == 1
+    assert ps.launches == ps.prune_launches == 1
+    assert ps.key_launches == ps.layout_launches == (1 if col_idx is None else 2)  # rows, columns
     _assert_close(ek, fk, *ps.plain(xs, box, *LAM))
     if col_idx is None:
         cells = CellsPairSum(feats, box0=np.eye(3) * CELLS_L, device=dev, **CELLS_COMMON)
         _assert_close(ek, fk, *cells.kernel(xs, box, *LAM))
+
+
+@pytest.mark.parametrize("R", [1, 8])
+def test_pruned_kernels_at_water_density(R):
+    """K2 and K3, MAIN and E0, against their plain versions and each other
+    at water density; two calls give the same bits (no float atomics)."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=3, edges=True, replicas=R)
+    x, box = as_torch(xs, L, dev)
+    out = {}
+    for kind in ("pair", "cells", "pair_e0", "cells_e0"):
+        ps = build(kind, fa, L, 1.0, dev)
+        ek, fk = ps(x, box, *LAM)
+        torch.cuda.synchronize()
+        assert ps.launches == 1
+        _assert_close(ek, fk, *ps.plain(x, box, *LAM))
+        e2, f2 = ps.kernel(x, box, *LAM)
+        assert torch.equal(ek, e2) and torch.equal(fk, f2)
+        out[kind] = ek, fk
+        # the key and layout kernels build the plain version's clusters
+        lay = ps.clusters(x, box, torch.float32, kernel=True)
+        lay_p = ps.clusters(x, box, torch.float32)
+        for a, b in ((lay.rows, lay_p.rows), (lay.cols, lay_p.cols)):
+            for t, u in zip(a, b):
+                assert torch.equal(t, u)
+        if lay.binned is not None:
+            for t, u in zip(lay.binned[1:], lay_p.binned[1:]):
+                assert torch.equal(t, u)
+            assert torch.equal(lay.invalid, lay_p.invalid)
+        # the prune kernel keeps exactly the torch prune's entries
+        (lk, ck), (lp, cp) = ps.prune_kernel(lay), ps.prune_plain(lay)
+        used = torch.arange(lp.shape[-1] - 1, device=dev) < cp[..., None]
+        assert torch.equal(ck, cp) and torch.equal(lk[..., :-1][used], lp[..., :-1][used])
+    _assert_close(*out["pair"], *out["cells"])
+    # E0: the same pairs, K3 through zeroed features, K2 through its subset
+    _assert_close(*out["pair_e0"], *out["cells_e0"])
+
+
+def test_pair_kernel_list_overflow():
+    """K2 with an 8-entry list: the row clusters that keep more walk every
+    column cluster, on the card as in the plain version."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=4, edges=True, replicas=2)
+    x, box = as_torch(xs, L, dev)
+    ps = build("pair", fa, L, 1.0, dev)
+    ek, fk = ps(x, box, *LAM)
+    ps.list_width = 8
+    lay = ps.layout(x, box, torch.float32, kernel=True)
+    assert (lay.count > 8).any()
+    e8, f8 = ps(x, box, *LAM)
+    _assert_close(e8, f8, *ps.plain(x, box, *LAM))
+    _assert_close(e8, f8, ek, fk)

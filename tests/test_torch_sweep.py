@@ -23,7 +23,7 @@ from _torch_sweep_case import space as _space
 from blues_tpu.potentials.pallas import sweep_kernel as jsk
 from blues_tpu_torch.potentials import sweep as tsk
 
-import _torch_helpers  # noqa: F401  (one intra-op thread per worker)
+from _torch_helpers import DEVICE  # (and one intra-op thread per worker)
 
 
 def _compare(jps, tps, x, lam=LAM):
@@ -56,7 +56,7 @@ def test_row_sweep_matches_jax(grouped, masked):
             ref_positions=x0, box_lengths=np.full(3, L), cutoff=CUTOFF, group_size=8, excl_mask=em,
         )
     jps = jsk.make_sweep_pair_sum(groups=groups, **kw)
-    tps = tsk.SweepPairSum(groups=groups, **kw)
+    tps = tsk.SweepPairSum(groups=groups, **kw, device=DEVICE)
     if grouped:
         assert tps.shape_info["compute_slots"] < 32 * N
     x = x0.copy()
@@ -74,7 +74,7 @@ def test_e0_like_sweep_matches_jax(masked):
     em = _excl(rng, len(rows0), len(cols), False) if masked else None
     kw = dict(COMMON, row_gid=rows0, col_gid=cols, per_atom=pa0, excl_mask=em, skip_min_image=False)
     x = x0 + 0.003 * rng.standard_normal(x0.shape)
-    _compare(jsk.make_sweep_pair_sum(**kw), tsk.SweepPairSum(**kw), x, (1.0, 1.0, 1.0))
+    _compare(jsk.make_sweep_pair_sum(**kw), tsk.SweepPairSum(**kw, device=DEVICE), x, (1.0, 1.0, 1.0))
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -90,7 +90,7 @@ def test_ea_sweep_with_column_forces_matches_jax(masked):
               col_const_positions=x0[cols], col_mobile_sel=mob_sel, col_mobile_gid=cols[mob_sel],
               col_forces=True, col_force_keep=mob_sel)
     jps = jsk.make_sweep_pair_sum(col_tile=640, **kw)
-    tps = tsk.SweepPairSum(**kw)
+    tps = tsk.SweepPairSum(**kw, device=DEVICE)
     x = x0.copy()
     x[rows] += 0.01 * rng.standard_normal((len(rows), 3))
     _, ft = _compare(jps, tps, x)

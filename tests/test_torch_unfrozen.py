@@ -53,7 +53,7 @@ from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
 from blues_tpu_torch.potentials.pcells import CellsPairSum
 from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
 
-from _torch_helpers import F64Jnp
+from _torch_helpers import DEVICE, F64Jnp
 from _torch_moves import JFixedRotation, TFixedRotation, ZeroNoise
 
 KW = dict(nonbonded_method="PME", cutoff=0.9, ewald_tolerance=5e-4)
@@ -92,7 +92,7 @@ def port_fns(sys_):
     pt = sys_["port"]
     return {
         (be, which): te.make_energy_fn(pt if which == "alch" else pt.replace(alchemical=None),
-                                       nonbonded_backend=be, **KW)
+                                       nonbonded_backend=be, **KW, device=DEVICE)
         for be in BACKENDS for which in ("alch", "md")
     }
 
@@ -174,11 +174,11 @@ def test_ncmc_protocol_matches_jax_f64(sys_, monkeypatch):
         ))
         rj = jprot(jnp.asarray(x), jnp.asarray(v), jnp.asarray(fr.box), jax.random.PRNGKey(0))
         rj = {k: np.asarray(getattr(rj, k)) for k in ("positions", "protocol_work", "e_initial", "e_final")}
-    efn_t = te.make_energy_fn(pt, nonbonded_backend="pcells", **KW)
-    tcx, tcv = tc.make_constraint_fns(pt.constraints, pt.masses)
+    efn_t = te.make_energy_fn(pt, nonbonded_backend="pcells", **KW, device=DEVICE)
+    tcx, tcv = tc.make_constraint_fns(pt.constraints, pt.masses, device=DEVICE)
     tprot = tn.make_ncmc_protocol(
         efn_t, te.make_force_fn(efn_t), pt.masses, tl.LangevinParams(*p), tcx, tcv,
-        t_schedule(4), ZeroNoise(), move=TFixedRotation(sys_["lig"], pt.masses),
+        t_schedule(4), ZeroNoise(), move=TFixedRotation(sys_["lig"], pt.masses), device=DEVICE,
     )
     assert tprot.use_split
     rt = tprot(torch.as_tensor(x)[None], torch.as_tensor(v)[None], torch.as_tensor(fr.box))
@@ -195,7 +195,7 @@ def test_driver_full_iteration_md_potential_matches_jax(sys_):
         nstepsNC=10, nstepsMD=5, dt=0.002, nonbonded_method="PME", cutoff=0.9,
         nonbonded_backend="pcells", n_replicas=2,
     )
-    sim = BLUESSimulation(pt, RandomLigandRotationMove(li, pt.masses), cfg)
+    sim = BLUESSimulation(pt, RandomLigandRotationMove(li, pt.masses), cfg, device=DEVICE)
     assert sim._compact is None  # no frozen atoms: the full-array iteration
     sim.initialize(sys_["x"], seed=3)
     for _ in range(2):
@@ -223,13 +223,13 @@ def test_config_backend_reaches_the_energy(sys_, backend, cls):
     raises naming the ported backends, and frozen_compact=True raises."""
     pt = sys_["port"]
     base = dict(nonbonded_method="PME", cutoff=0.9, n_replicas=1)
-    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(nonbonded_backend=backend, **base))
+    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(nonbonded_backend=backend, **base), device=DEVICE)
     for efn in (sim.energy_md, sim.energy_alch):
         assert efn.nonbonded.backend == backend
         assert isinstance(efn.nonbonded.pair_sum, cls)
     assert isinstance(sim.energy_alch.nonbonded.pair_sum0, cls)
     assert sim.energy_alch.nonbonded.pair_sum.name.endswith("_main")
     with pytest.raises(ValueError, match="pcells"):
-        BLUESSimulation(pt, NullMove(), SimulationConfig(**base))
+        BLUESSimulation(pt, NullMove(), SimulationConfig(**base), device=DEVICE)
     with pytest.raises(ValueError, match="frozen_compact"):
-        BLUESSimulation(pt, NullMove(), SimulationConfig(nonbonded_backend=backend, frozen_compact=True, **base))
+        BLUESSimulation(pt, NullMove(), SimulationConfig(nonbonded_backend=backend, frozen_compact=True, **base), device=DEVICE)
