@@ -22,3 +22,22 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run the port on the CPU"
         )
     return dev
+
+
+_CONSTS: dict = {}
+
+
+def device_const(values, dtype, device):
+    """A cached (len(values),) tensor of Python numbers on ``device``. A
+    fresh ``torch.tensor(..., device=cuda)`` is a blocking host-to-device
+    copy, which synchronises the stream and keeps the host from running
+    ahead of the card; code that runs on every call of a pair sum or an
+    energy takes its small constants (lambdas, grid scales, the NaN of a
+    poison) from here instead."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        if len(_CONSTS) >= 4096:  # a long run's distinct lambda values
+            _CONSTS.clear()
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

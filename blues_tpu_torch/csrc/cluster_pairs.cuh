@@ -1,7 +1,8 @@
 // One warp sums a row cluster (32 row slots, one per lane) against a list of
 // column clusters (32 column slots each): the inner routine of the pair
 // kernels K2 (pair_kernel.cu) and K3 (cells_kernel.cu), NVIDIA Hopper,
-// sm_90a.
+// sm_90a. Its round over staged columns (staged_pairs) also serves K1's
+// rows kernel (sweep_kernel.cu), which stages its own static columns.
 //
 // The layout comes from blues_tpu_torch/potentials/clusters.py (torch ops,
 // per call): compact clusters of 32 atoms and, per row cluster, the packed
@@ -51,6 +52,8 @@ constexpr int N_NBR = 27;       // K3: neighbour cells per home cell
 constexpr int IMG_NONE = 0;   // K2, non-periodic
 constexpr int IMG_MIN = 1;    // K2, periodic: per-pair minimum image
 constexpr int IMG_SHIFT = 2;  // K3: the entry's static shift, at staging
+constexpr int IMG_DIV = 3;    // K1, periodic: d - L rint(d / L), the IEEE
+                              // division of the plain version, for any box
 
 // per-atom feature slots, shared with clusters.py
 constexpr int F_QSTD = 0, F_QALCH = 1, F_SIG = 2, F_EPS = 3, F_ALCH = 4,
@@ -73,12 +76,15 @@ struct Args {
   int n, cr, cc, width, mask_rows;
 };
 
-struct WarpStage {
-  float4 pos[STAGE * CL];  // x, y, z and the atom id's bits
-  float4 q[STAGE * CL];   // q_std, q_alch, sigma, epsilon
-  float2 ai[STAGE * CL];  // alch, in_rows
-  uint8_t idx[STAGE * CL][CL];  // lane-private lists: idx[t][lane]
+// a warp's staged columns of one round (at most 256: the lists hold bytes)
+template <int kCols>
+struct Stage {
+  float4 pos[kCols];  // x, y, z and the atom id's bits
+  float4 q[kCols];    // q_std, q_alch, sigma, epsilon
+  float2 ai[kCols];   // alch, in_rows
+  uint8_t idx[kCols][CL];  // lane-private lists: idx[t][lane]
 };
+using WarpStage = Stage<STAGE * CL>;  // K2, K3
 
 // --- the prune kernels' pieces (pair_kernel.cu, cells_kernel.cu) ---------
 //
@@ -130,6 +136,78 @@ __device__ __forceinline__ void displacement(float xi, float yi, float zi,
     dy = __fsub_rn(dy, __fmul_rn(L[1], rintf(__fmul_rn(dy, iL[1]))));
     dz = __fsub_rn(dz, __fmul_rn(L[2], rintf(__fmul_rn(dz, iL[2]))));
   }
+  if (kImage == IMG_DIV) {
+    dx = wrap1(dx, L[0], 1);
+    dy = wrap1(dy, L[1], 1);
+    dz = wrap1(dz, L[2], 1);
+  }
+}
+
+// a lane's row atom
+struct Row {
+  float x, y, z, qs, qa, sig, eps, al, in;
+  int id;  // atom id; negative: an empty slot, which lists nothing
+};
+
+// One round over the m (a multiple of UNROLL) staged columns of ``s``: the
+// distance phase, then the math phase, adding the row's F and E to fx, fy,
+// fz, en. Shared by K2 and K3 (row_cluster below) and K1's rows kernel
+// (sweep_kernel.cu), whose instances (kSweep) also drop the pairs of the
+// lane's exclusion ``bit`` in the staged words ``ex`` and honour
+// c.use_cutoff (K2 and K3 always cut).
+template <int kImage, bool kSweep, int kCols>
+__device__ __forceinline__ void staged_pairs(
+    const Row& r, int m, Stage<kCols>& s, const uint32_t* ex, uint32_t bit,
+    const float* L, const float* iL, float lam_s, float f_na, float f_aa,
+    const PairConsts& c, float& fx, float& fy, float& fz, float& en) {
+  const int lane = threadIdx.x & (CL - 1);
+
+  // distance phase: this lane's columns inside the cutoff, in order
+  int n_i = 0;
+  if (r.id >= 0) {
+    for (int j0 = 0; j0 < m; j0 += UNROLL) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + u;
+        const float4 p = s.pos[j];
+        float dx, dy, dz;
+        displacement<kImage>(r.x, r.y, r.z, p, L, iL, dx, dy, dz);
+        const int id_j = __float_as_int(p.w);
+        bool in = dist2(dx, dy, dz) < c.cutoff2;
+        if (kSweep) in = (in || !c.use_cutoff) && !(ex[j] & bit);
+        in = in && id_j >= 0 && id_j != r.id;
+        s.idx[n_i][lane] = (uint8_t)j;  // kept only when n_i moves on
+        n_i += in;
+      }
+    }
+  }
+
+  // math phase: pair_ef on the listed pairs only
+  const int n_max = __reduce_max_sync(0xffffffffu, n_i);
+  for (int t = 0; t < n_max; ++t) {
+    if (t < n_i) {
+      const int j = s.idx[t][lane];
+      const float4 p = s.pos[j];
+      float dx, dy, dz;
+      displacement<kImage>(r.x, r.y, r.z, p, L, iL, dx, dy, dz);
+      const float r2 = fmaxf(dist2(dx, dy, dz), 1e-6f);
+      const float4 q = s.q[j];
+      const float2 ai = s.ai[j];
+      const float qs_j = q.x, qa_j = q.y, sig_j = q.z, eps_j = q.w,
+                  al_j = ai.x, in_j = ai.y;
+      const float aa = r.al * al_j;
+      const float na = r.al + al_j - 2.0f * aa;
+      float e, gg;
+      pair_ef(r2, 0.5f * (r.sig + sig_j), sqrtf(r.eps * eps_j), r.qs * qs_j,
+              r.qs * qa_j + r.qa * qs_j, r.qa * qa_j, na + c.ann * aa, lam_s,
+              f_na, f_aa, c, e, gg);
+      const float w = 1.0f - 0.5f * r.in * in_j;
+      fx -= gg * dx;
+      fy -= gg * dy;
+      fz -= gg * dz;
+      en += w * e;
+    }
+  }
 }
 
 template <int kImage>
@@ -144,20 +222,17 @@ __device__ __forceinline__ void row_cluster(const Args& a, const PairConsts& c,
   const float iL[3] = {1.0f / L[0], 1.0f / L[1], 1.0f / L[2]};
 
   const size_t rs = ((size_t)rep * a.cr + g) * CL + lane;
-  const int id_i = (int)a.idr[rs];
-  const bool live = id_i >= 0;
-  const float xi = a.xr[rs * 3 + 0], yi = a.xr[rs * 3 + 1],
-              zi = a.xr[rs * 3 + 2];
-  float qs_i = 0.f, qa_i = 0.f, sig_i = 0.f, eps_i = 0.f, al_i = 0.f,
-        in_i = 0.f;
+  Row r = {a.xr[rs * 3 + 0], a.xr[rs * 3 + 1], a.xr[rs * 3 + 2],
+           0.f, 0.f, 0.f, 0.f, 0.f, 0.f, (int)a.idr[rs]};
+  const bool live = r.id >= 0;
   if (live) {
-    const float* f = a.feat + (size_t)id_i * 8;
-    qs_i = f[F_QSTD];
-    qa_i = f[F_QALCH];
-    sig_i = f[F_SIG];
-    eps_i = f[F_EPS];
-    al_i = f[F_ALCH];
-    in_i = f[F_INROWS];
+    const float* f = a.feat + (size_t)r.id * 8;
+    r.qs = f[F_QSTD];
+    r.qa = f[F_QALCH];
+    r.sig = f[F_SIG];
+    r.eps = f[F_EPS];
+    r.al = f[F_ALCH];
+    r.in = f[F_INROWS];
   }
   float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;
 
@@ -196,58 +271,13 @@ __device__ __forceinline__ void row_cluster(const Args& a, const PairConsts& c,
       s.ai[j] = ok ? make_float2(f[F_ALCH], f[F_INROWS]) : make_float2(0.f, 0.f);
     }
     __syncwarp();
-
-    // distance phase: this lane's columns inside the cutoff, in order
-    int n_i = 0;
-    if (live) {
-      const int m = ns * CL;  // a multiple of UNROLL
-      for (int j0 = 0; j0 < m; j0 += UNROLL) {
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int j = j0 + u;
-          const float4 p = s.pos[j];
-          float dx, dy, dz;
-          displacement<kImage>(xi, yi, zi, p, L, iL, dx, dy, dz);
-          const int id_j = __float_as_int(p.w);
-          const bool in =
-              dist2(dx, dy, dz) < c.cutoff2 && id_j >= 0 && id_j != id_i;
-          s.idx[n_i][lane] = (uint8_t)j;  // kept only when n_i moves on
-          n_i += in;
-        }
-      }
-    }
-
-    // math phase: pair_ef on the listed pairs only
-    const int n_max = __reduce_max_sync(0xffffffffu, n_i);
-    for (int t = 0; t < n_max; ++t) {
-      if (t < n_i) {
-        const int j = s.idx[t][lane];
-        const float4 p = s.pos[j];
-        float dx, dy, dz;
-        displacement<kImage>(xi, yi, zi, p, L, iL, dx, dy, dz);
-        const float r2 = fmaxf(dist2(dx, dy, dz), 1e-6f);
-        const float4 q = s.q[j];
-        const float2 ai = s.ai[j];
-        const float qs_j = q.x, qa_j = q.y, sig_j = q.z, eps_j = q.w,
-                    al_j = ai.x, in_j = ai.y;
-        const float aa = al_i * al_j;
-        const float na = al_i + al_j - 2.0f * aa;
-        float e, gg;
-        pair_ef(r2, 0.5f * (sig_i + sig_j), sqrtf(eps_i * eps_j),
-                qs_i * qs_j, qs_i * qa_j + qa_i * qs_j, qa_i * qa_j,
-                na + c.ann * aa, lam_s, f_na, f_aa, c, e, gg);
-        const float w = 1.0f - 0.5f * in_i * in_j;
-        fx -= gg * dx;
-        fy -= gg * dy;
-        fz -= gg * dz;
-        en += w * e;
-      }
-    }
+    staged_pairs<kImage, false>(r, ns * CL, s, nullptr, 0u, L, iL, lam_s, f_na,
+                                f_aa, c, fx, fy, fz, en);
   }
 
   if (live) {
-    const float keep = a.mask_rows ? in_i : 1.0f;
-    float* o = a.out + ((size_t)rep * a.n + id_i) * 4;
+    const float keep = a.mask_rows ? r.in : 1.0f;
+    float* o = a.out + ((size_t)rep * a.n + r.id) * 4;
     o[0] = fx * keep;
     o[1] = fy * keep;
     o[2] = fz * keep;

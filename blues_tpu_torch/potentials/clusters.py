@@ -52,6 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core.device import device_const
 from .pairs import pair_energy_force
 from .sweep import PLAIN_CHUNK_ELEMS, PairSumFunction
 
@@ -66,24 +67,6 @@ LAY_RAW, LAY_MIN, LAY_WRAP = 0, 1, 2
 #: feature slots of the per-atom feature array (csrc/cluster_pairs.cuh)
 F_QSTD, F_QALCH, F_SIG, F_EPS, F_ALCH, F_INROWS = range(6)
 N_FEAT = 8
-
-
-_CONSTS: dict = {}
-
-
-def device_const(values, dtype, device):
-    """A cached (len(values),) tensor of Python numbers on ``device``. The
-    layout runs on every call of a pair sum; a fresh ``torch.tensor(...,
-    device=cuda)`` there would be a blocking host-to-device copy, which
-    synchronises the stream each call and keeps the host from running
-    ahead of the card."""
-    key = (tuple(values), dtype, torch.device(device))
-    t = _CONSTS.get(key)
-    if t is None:
-        if len(_CONSTS) >= 4096:  # a long run's distinct lambda values
-            _CONSTS.clear()
-        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
-    return t
 
 
 class Clusters(NamedTuple):

@@ -593,6 +593,8 @@ class NonbondedEnergy:
         c["guard_rows"] = rows_np
         c["guard_centers"] = centers
         c["guard_r2"] = (radii + 1e-3) ** 2
+        if self.box0 is not None:
+            c["box0"] = self.box0  # the frozen PME grid's box, for the poison
         self._guard = True
 
         excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
@@ -771,13 +773,8 @@ class NonbondedEnergy:
         q = c("q_eff", dt)
         e = self.recip(x, q, box)
         if self._guard:
-            box0 = torch.as_tensor(self.box0, dtype=dt, device=x.device)
-            mismatch = (box - box0).abs().max() > 1e-5
-            e = torch.where(
-                mismatch,
-                torch.tensor(float("nan"), dtype=dt, device=x.device),
-                torch.zeros((), dtype=dt, device=x.device),
-            ) + e
+            mismatch = (box - c("box0", dt)).abs().max() > 1e-5
+            e = torch.where(mismatch, float("nan"), 0.0).to(dt) + e
         e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
         vol = box[0, 0] * box[1, 1] * box[2, 2]
         e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / vol
@@ -811,11 +808,7 @@ class NonbondedEnergy:
             bl = torch.diagonal(box).to(dt)
             d = d - bl * torch.round(d / bl)
         bad = ((d * d).sum(-1) > c("guard_r2", dt)).any(-1).detach()
-        poison = torch.where(
-            bad,
-            torch.tensor(float("nan"), dtype=dt, device=x.device),
-            torch.zeros((), dtype=dt, device=x.device),
-        )
+        poison = torch.where(bad, float("nan"), 0.0).to(dt)
         return poison * (1.0 + 1e-30 * x.sum((1, 2)))
 
     def energy_rest(self, x, box=None, globals_=None):

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import units
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.device import DEFAULT_DEVICE, device_const, resolve_device
 
 
 @dataclass(frozen=True)
@@ -126,7 +126,7 @@ class PMEReciprocal:
         order = self.params.order
         R, n, _ = positions.shape
         dt = positions.dtype
-        K = torch.tensor([Kx, Ky, Kz], dtype=dt, device=positions.device)
+        K = device_const((Kx, Ky, Kz), dt, positions.device)
         u = positions / torch.diagonal(box).to(dt) * K
         base = torch.floor(u)
         w = u - base

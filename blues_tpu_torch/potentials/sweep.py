@@ -21,12 +21,21 @@ exclusion mask, whose build-time bits are per (row slot, column storage
 position) and so need each block's own copy of its columns.
 The EA instance (``col_forces``) is a single block of up to 128 rows.
 
+For the kernel the same build also cuts every block's range into chunks of
+at most ``CHUNK_COLS`` columns (one thread block each, so a call fills the
+card), packs the column features into two 16-byte vectors per column, and
+gives every column the index of the atom whose position it takes from the
+call's ``x`` (-1 for a frozen column, which keeps its constant), so a call
+is two launches and no tensor op: the pair kernel (which also zeroes the
+force array) and a reduce kernel that sums the chunks' partials in a fixed
+order and writes forces and energy.
+
 ``SweepPairSum.__call__(x, box, lam_s, f_na, f_aa)`` returns ((R,) energy,
 (R, N, 3) forces) for (R, N, 3) positions. On a CUDA tensor it launches the
-hand-written kernel (``csrc/sweep_kernel.cu``) or raises; on a CPU tensor it
-computes the same layout with plain tensor ops (``plain``), in the dtype of
-``x``. ``energy`` wraps it in a ``torch.autograd.Function`` whose backward
-is -F * grad_out, as the JAX custom VJP is.
+hand-written kernels (``csrc/sweep_kernel.cu``) or raises; on a CPU tensor
+it computes the same layout with plain tensor ops (``plain``), in the dtype
+of ``x``. ``energy`` wraps it in a ``torch.autograd.Function`` whose
+backward is -F * grad_out, as the JAX custom VJP is.
 """
 
 from __future__ import annotations
@@ -37,11 +46,18 @@ import numpy as np
 import torch
 
 from .. import units
-from ..core.device import DEFAULT_DEVICE, resolve_device
+from ..core.device import DEFAULT_DEVICE, device_const, resolve_device
 from .pairs import pair_energy_force
 
 ROWS_PER_BLOCK = 32
 MAX_EA_ROWS = 128
+#: columns of a block's range that one thread block of the kernel takes, of
+#: a rows instance and of an EA instance (col_forces): ROW_CHUNK and
+#: COL_CHUNK of csrc/sweep_kernel.cu
+CHUNK_COLS = 512
+EA_CHUNK_COLS = 256
+#: columns a warp of the rows kernel stages (its one round of a chunk)
+ROUND_COLS = 32
 #: feature slots of the row and column feature arrays (csrc/sweep_kernel.cu)
 F_QSTD, F_QALCH, F_SIG, F_EPS, F_ALCH, F_INROWS, F_GID, F_VALID = range(8)
 #: pair elements per step of the plain version, by (on CUDA?): bounds its
@@ -96,6 +112,27 @@ def build_row_groups(
     return groups
 
 
+def deal_order(n, unit, hands):
+    """An order of ``n`` columns that deals them out: the full units of
+    ``unit`` consecutive columns go round-robin into ``hands`` hands, the
+    hands are laid end to end, and a last partial unit stays last.
+
+    Columns come sorted by atom, so neighbours in storage are neighbours in
+    space, and what a warp or a thread block of the kernel takes at a time
+    lies either wholly near the rows (one long serial run of pair math,
+    which the whole launch then waits for) or wholly outside their cutoff.
+    Dealt out, every share holds the range's average of near columns and
+    the warps finish together. The rows kernel deals single columns over
+    its rounds (a lane lists its near columns, so a sparse round costs
+    nothing); the EA kernel deals whole groups of 32 over its chunks (a
+    warp skips a row on one vote when a group's 32 columns are all far, so
+    a group stays compact in space)."""
+    full = n // unit
+    units = np.concatenate([np.arange(h, full, hands) for h in range(max(hands, 1))]) if full else np.zeros(0, np.int64)
+    order = (units[:, None] * unit + np.arange(unit)[None, :]).reshape(-1)
+    return np.concatenate([order, np.arange(full * unit, n)]).astype(np.int64)
+
+
 class PairSumFunction(torch.autograd.Function):
     """E of a pair sum (sweep, pair or cells) with the analytic forces as
     its pullback: backward is -F * grad_out."""
@@ -146,6 +183,8 @@ class SweepPairSum:
         rows_np = np.asarray(row_gid, np.int64)
         cols_np = np.asarray(col_gid, np.int64)
         nr, nc = len(rows_np), len(cols_np)
+        if len(np.unique(rows_np)) != nr or len(np.unique(cols_np)) != nc:
+            raise ValueError("row_gid and col_gid must each name distinct atoms")
         if groups is not None and col_forces:
             raise ValueError("groups and col_forces are mutually exclusive")
         em = None
@@ -159,7 +198,7 @@ class SweepPairSum:
             if nr > MAX_EA_ROWS:
                 raise ValueError(f"col_forces takes at most {MAX_EA_ROWS} rows, got {nr}")
             tr = max(ROWS_PER_BLOCK, -(-nr // ROWS_PER_BLOCK) * ROWS_PER_BLOCK)
-            blocks = [(np.arange(nr), np.arange(nc), 0)]
+            blocks = [(np.arange(nr), deal_order(nc, 32, -(-nc // EA_CHUNK_COLS)), 0)]
         else:
             tr = ROWS_PER_BLOCK
             if groups is not None:
@@ -169,6 +208,7 @@ class SweepPairSum:
                 src = [(np.asarray(r, np.int64), np.asarray(c, np.int64)) for r, c in groups]
             else:
                 src = [(np.arange(nr), np.arange(nc))]
+            src = [(rs, cs[deal_order(len(cs), 1, -(-len(cs) // ROUND_COLS))]) for rs, cs in src]
             blocks = [
                 (rs[lo : lo + tr], cs, k)
                 for k, (rs, cs) in enumerate(src)
@@ -250,10 +290,47 @@ class SweepPairSum:
                 if col_force_keep is not None
                 else np.arange(nc, dtype=np.int64)
             )
-            keep_sel, keep_gid = keep, cols_np[keep]  # one block: storage == local
+            if len(np.unique(keep)) != len(keep):
+                raise ValueError("col_force_keep must name distinct columns")
+            keep_sel, keep_gid = keep, cols_np[keep]
+
+        # --- what the kernel reads beside the above (csrc/sweep_kernel.cu) ---
+        # the atom whose position in x a column takes; -1: the constant
+        col_gid_np = cols_np[occ_col]
+        if self._col_const is None:
+            col_mob = col_gid_np.copy()
+        else:
+            col_mob = np.full(S, -1, np.int64)
+            if self._mob_sel is not None:
+                col_mob[self._mob_sel] = self._mob_gid
+        self._col_mob_np = col_mob
+        self._col_pos_np = np.zeros((S, 4), np.float32)
+        if self._col_const is not None:
+            self._col_pos_np[:, :3] = self._col_const
+        # two 16-byte vectors per column: q_std, q_alch, sigma, epsilon | alch,
+        # in_rows, atom id, mobile index (the integers as their own bits)
+        self._col_q_np = np.ascontiguousarray(col_feat[:, [F_QSTD, F_QALCH, F_SIG, F_EPS]], np.float32)
+        self._col_a_np = np.stack(
+            [
+                col_feat[:, F_ALCH].astype(np.float32).view(np.int32),
+                col_feat[:, F_INROWS].astype(np.float32).view(np.int32),
+                col_gid_np.astype(np.int32),
+                col_mob.astype(np.int32),
+            ],
+            axis=1,
+        )
+        slot_gid = np.where(live, rows_np[sl], -1).astype(np.int32)
+        n_keep = 0 if keep_sel is None else len(keep_sel)
+        keep_pos = keep_store = None
+        if col_forces:  # one block: the storage is a permutation of the columns
+            rank = np.full(nc, -1, np.int32)
+            rank[keep_sel] = np.arange(n_keep, dtype=np.int32)
+            keep_pos = rank[occ_col]  # storage place -> place in the kept list
+            keep_store = np.argsort(occ_col)[keep_sel]  # kept list -> storage place
 
         self.name = name
-        self.launches = 0
+        self.launches = 0  # the pair kernel
+        self.reduce_launches = 0
         self.device = resolve_device(device)
         self.n_atoms = int(n_atoms)
         self.col_forces = bool(col_forces)
@@ -268,6 +345,7 @@ class SweepPairSum:
         self.switch_distance = switch_distance
         self.alch_coulomb = bool(alch_coulomb)
         self.tr, self.n_blocks, self.n_slots, self.S, self.n_words = tr, n_blocks, n_slots, S, n_words
+        self.n_keep = n_keep
         self.shape_info = dict(
             nr=nr, nc=nc, n_blocks=n_blocks, n_slots=n_slots, col_storage=S,
             n_groups=len(groups) if groups is not None else None,
@@ -283,7 +361,6 @@ class SweepPairSum:
         self._live_gid = lt(rows_np[slot_row[live]])
         self._occ_gid = lt(cols_np[occ_col])
         self._col_range_np = col_range
-        self._col_range = torch.as_tensor(col_range, dtype=torch.int32, device=dev).contiguous()
         # float32 features for the kernel and the f32 plain sum; float64 ones
         # (made on first use) keep the f64 plain sum at full precision
         self._feat_np = (row_feat, col_feat)
@@ -299,9 +376,55 @@ class SweepPairSum:
         )
         self._mob_sel_t = None if self._mob_sel is None else lt(self._mob_sel)
         self._mob_gid_t = None if self._mob_gid is None else lt(self._mob_gid)
-        self._keep_sel = None if keep_sel is None else lt(keep_sel)
+        self._keep_store = None if keep_store is None else lt(keep_store)
         self._keep_gid = None if keep_gid is None else lt(keep_gid)
         self._const_cache = {}
+        # the kernel's operands: int32 indices, packed columns, and the
+        # instance description the C side reads (filled field for field)
+        ct = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
+        self._k_slot_gid = ct(slot_gid)
+        self._k_col_pos, self._k_col_q, self._k_col_a = ct(self._col_pos_np), ct(self._col_q_np), ct(self._col_a_np)
+        self._k_keep_pos = ct(keep_pos) if col_forces else None
+        self._k_keep_gid = ct(keep_gid.astype(np.int32)) if col_forces else None
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        self._inst = _Instance(
+            col_pos=ptr(self._k_col_pos), col_q=ptr(self._k_col_q), col_a=ptr(self._k_col_a),
+            excl=ptr(self._excl_bits), row_feat=ptr(self._row_feat), slot_gid=ptr(self._k_slot_gid),
+            keep_pos=ptr(self._k_keep_pos), keep_gid=ptr(self._k_keep_gid),
+            N=self.n_atoms, n_slots=n_slots, tr=tr, W=n_words, n_keep=n_keep, col_forces=int(self.col_forces),
+            method=_METHOD_CODE[method], cutoff=self.cutoff,
+            use_cutoff=int(method in ("PME", "CutoffPeriodic", "CutoffNonPeriodic")),
+            alpha_ewald=self.alpha_ewald, k_rf=self.k_rf, c_rf=self.c_rf, ann=self.ann,
+            softcore_alpha=self.softcore_alpha, wrap=int(self.periodic and not self.skip_min_image),
+            has_switch=int(switch_distance is not None), switch_distance=float(switch_distance or 0.0),
+            alch_coulomb=int(self.alch_coulomb), ke=float(units.ONE_4PI_EPS0),
+        )
+        self._cut_chunks(EA_CHUNK_COLS if col_forces else CHUNK_COLS)
+
+    def _cut_chunks(self, cc):
+        """Cut every block's column range into chunks of at most ``cc``
+        columns, one thread block of the kernel each. The table lists the
+        chunks block by block; the reduce kernel sums a block's chunks
+        [block_chunks[b], block_chunks[b + 1]) in that order. The build cuts
+        at the most the kernel takes (CHUNK_COLS, an EA instance
+        EA_CHUNK_COLS); tests cut smaller, for ragged and tiny chunks."""
+        if not 1 <= cc <= (EA_CHUNK_COLS if self.col_forces else CHUNK_COLS):
+            raise ValueError(f"a chunk of {cc} columns is not one the kernel takes")
+        chunks = [
+            (b, lo, min(lo + cc, int(c1)))
+            for b, (c0, c1) in enumerate(self._col_range_np)
+            for lo in range(int(c0), int(c1), cc)
+        ]
+        self._chunks_np = np.asarray(chunks, np.int32).reshape(-1, 3)
+        self._block_chunks_np = np.searchsorted(
+            self._chunks_np[:, 0], np.arange(self.n_blocks + 1)
+        ).astype(np.int32)
+        self.n_chunks = len(chunks)
+        # at least one element, so that the pointers are never null
+        self._k_chunks = torch.as_tensor(np.vstack([self._chunks_np, np.zeros((1, 3), np.int32)]), device=self.device)
+        self._k_block_chunks = torch.as_tensor(self._block_chunks_np, device=self.device)
+        self._inst.chunks, self._inst.block_chunks = self._k_chunks.data_ptr(), self._k_block_chunks.data_ptr()
+        self._inst.n_chunks = self.n_chunks
 
     # ------------------------------------------------------------------
     def _col_positions(self, x, dtype):
@@ -318,27 +441,29 @@ class SweepPairSum:
             xc[:, self._mob_sel_t] = x[:, self._mob_gid_t].to(dtype)
         return xc
 
-    def _scatter(self, out_rows, out_cols, x_dtype):
-        """Row (and column) results -> ((R,) E, (R, N, 3) F)."""
+    def _scatter(self, out_rows, out_kept, x_dtype):
+        """Row slot results (R, n_slots, 4) and the kept columns' forces
+        (R, n_keep, >= 3) or None -> ((R,) E, (R, N, 3) F)."""
         R = out_rows.shape[0]
         f = out_rows.new_zeros((R, self.n_atoms, 3))
-        f.index_add_(1, self._live_gid, out_rows[:, self._live_slots, :3])
-        if out_cols is not None:
-            f.index_add_(1, self._keep_gid, out_cols[:, self._keep_sel, :3])
-        e = out_rows[:, :, 3].sum(-1)
+        live = out_rows[:, self._live_slots]
+        f.index_add_(1, self._live_gid, live[..., :3])
+        if out_kept is not None:
+            f.index_add_(1, self._keep_gid, out_kept[..., :3])
+        e = live[..., 3].sum(-1)
         return e.to(x_dtype), f.to(x_dtype)
 
     def _lambdas(self, lam_s, f_na, f_aa, box, dtype, device):
         lam = [
             v.to(dtype=dtype, device=device).reshape(())
             if torch.is_tensor(v)
-            else torch.tensor(float(v), dtype=dtype, device=device)
+            else device_const((float(v),), dtype, device).reshape(())
             for v in (lam_s, f_na, f_aa)
         ]
         blen = (
             torch.diagonal(box).to(dtype=dtype, device=device)
             if box is not None
-            else torch.ones(3, dtype=dtype, device=device)
+            else device_const((1.0, 1.0, 1.0), dtype, device)
         )
         return lam, blen
 
@@ -425,7 +550,7 @@ class SweepPairSum:
                 outc[:, c0:c1, :3] = gdx.sum(1)
         if count_only:
             return n_in
-        return self._scatter(out, outc, dt)
+        return self._scatter(out, None if outc is None else outc[:, self._keep_store], dt)
 
     def pair_counts(self, x, box):
         """Slots the kernel visits and pairs it keeps at positions ``x``, per
@@ -433,62 +558,102 @@ class SweepPairSum:
         return self.shape_info["compute_slots"], self.plain(x, box, 1.0, 1.0, 1.0, count_only=True) / x.shape[0]
 
     # ------------------------------------------------------------------
-    def kernel(self, x, box, lam_s, f_na, f_aa):
-        """Launch the CUDA kernel on ``x``'s device (f32 only)."""
+    def operands(self, x, box):
+        """The checked operands of a launch at positions ``x``: the
+        kernels read ``x`` and ``box`` themselves, so these are the two
+        tensors, float32 and contiguous on the sweep's device."""
         if x.device.type != "cuda":
             raise ValueError("the sweep kernel runs on CUDA tensors only")
         if x.dtype != torch.float32:
             raise TypeError(f"the sweep kernel takes float32 positions, got {x.dtype}")
-        if x.dim() != 3 or x.shape[1] != self.n_atoms or x.shape[2] != 3:
+        if x.dim() != 3 or x.shape[0] < 1 or x.shape[1] != self.n_atoms or x.shape[2] != 3:
             raise ValueError(f"positions must be (R, {self.n_atoms}, 3), got {tuple(x.shape)}")
         if x.device != self._row_feat.device:
             raise ValueError(f"positions on {x.device}, sweep staged on {self._row_feat.device}")
-        from ..kernels.build import load_library
+        if box is not None:
+            if tuple(box.shape) != (3, 3):
+                raise ValueError(f"box must be (3, 3), got {tuple(box.shape)}")
+            box = box.detach().to(dtype=torch.float32, device=x.device).contiguous()
+        return x.detach().contiguous(), box
 
-        lib = _bind(load_library("sweep_kernel"))
+    def _scalars(self, lam, device):
+        """Device addresses of the three float32 factors, and what keeps
+        them alive: tensors are read where they are, Python numbers come
+        from ``device_const``'s cache, so nothing is copied per call."""
         f32 = torch.float32
-        (ls, fna, faa), blen = self._lambdas(lam_s, f_na, f_aa, box, f32, x.device)
-        params = torch.cat([torch.stack([ls, fna, faa]), blen]).contiguous()
-        R = x.shape[0]
-        xr = x.index_select(1, self._slot_gid).contiguous()
-        xc = self._col_positions(x, f32).contiguous()
-        for t in (xr, xc, params, self._row_feat, self._col_feat):
-            if not t.is_contiguous() or t.dtype != f32:
-                raise ValueError("sweep kernel operands must be contiguous float32")
-        out = torch.empty((R, self.n_slots, 4), dtype=f32, device=x.device)
-        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-        ex = ctypes.c_void_p(self._excl_bits.data_ptr()) if self._excl_bits is not None else None
-        consts = (
-            _METHOD_CODE[self.method], self.cutoff,
-            int(self.method in ("PME", "CutoffPeriodic", "CutoffNonPeriodic")),
-            self.alpha_ewald, self.k_rf, self.c_rf, self.ann, self.softcore_alpha,
-            int(self.periodic and not self.skip_min_image),
-            int(self.switch_distance is not None),
-            float(self.switch_distance or 0.0), int(self.alch_coulomb),
-            float(units.ONE_4PI_EPS0),
+        if not any(torch.is_tensor(v) for v in lam):
+            t = device_const(tuple(float(v) for v in lam), f32, device)
+            return t, [t.data_ptr() + 4 * k for k in range(3)]
+        held = []
+        for v in lam:
+            if torch.is_tensor(v):
+                if v.numel() != 1:
+                    raise ValueError(f"a lambda factor must be a scalar, got shape {tuple(v.shape)}")
+                held.append(v.detach().to(dtype=f32, device=device))
+            else:
+                held.append(device_const((float(v),), f32, device))
+        return held, [t.data_ptr() for t in held]
+
+    def _launch(self, ops, lam, reduce):
+        """One call into the library: the pair kernel, which writes the row
+        partials, the kept column forces and the zeroed force array, then
+        (``reduce``) the reduce kernel. Returns (E or None, F, partials,
+        kept column forces or None)."""
+        x, box = ops
+        R, dev, f32 = x.shape[0], x.device, torch.float32
+        held, lam = self._scalars(lam, dev)
+        partial = torch.empty((R, max(self.n_chunks, 1), self.tr, 4), dtype=f32, device=dev)
+        outc = torch.empty((R, self.n_keep, 4), dtype=f32, device=dev) if self.col_forces else None
+        f = torch.empty((R, self.n_atoms, 3), dtype=f32, device=dev)
+        e = torch.empty((R,), dtype=f32, device=dev) if reduce else None
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = _lib().sweep_launch(
+            self._inst, x.data_ptr(), *lam, ptr(box), partial.data_ptr(), ptr(outc), f.data_ptr(), ptr(e), R,
+            _stream(x),
         )
-        outc = None
-        if self.col_forces:
-            outc = torch.empty((R, self.S, 4), dtype=f32, device=x.device)
-            n_parts = lib.sweep_cols_n_parts(self.S)
-            partial = torch.empty((R, n_parts, self.n_slots, 4), dtype=f32, device=x.device)
-            err = lib.sweep_cols_launch(
-                xr.data_ptr(), xc.data_ptr(), self._row_feat.data_ptr(),
-                self._col_feat.data_ptr(), ex, self.n_words, params.data_ptr(),
-                out.data_ptr(), outc.data_ptr(), partial.data_ptr(),
-                R, self.n_slots, self.S, *consts, stream,
-            )
-        else:
-            err = lib.sweep_rows_launch(
-                xr.data_ptr(), xc.data_ptr(), self._row_feat.data_ptr(),
-                self._col_feat.data_ptr(), self._col_range.data_ptr(), ex,
-                params.data_ptr(), out.data_ptr(), R, self.n_blocks, self.S,
-                *consts, stream,
-            )
+        del held  # the launches are on the stream: the allocator frees in its order
         if err != 0:
             raise RuntimeError(f"sweep kernel {self.name!r} launch failed: cudaError {err}")
         self.launches += 1
-        return self._scatter(out, outc, x.dtype)
+        self.reduce_launches += int(reduce)
+        return e, f, partial, outc
+
+    def pairs_launch(self, ops, lam_s, f_na, f_aa):
+        """The pair kernel alone on checked operands: ((R, n_chunks, tr, 4)
+        row partials, (R, n_keep, 4) kept column forces or None, the zeroed
+        (R, N, 3) force array)."""
+        _, f, partial, outc = self._launch(ops, (lam_s, f_na, f_aa), reduce=False)
+        return partial, outc, f
+
+    def reduce_launch(self, partial, outc, f):
+        """The reduce kernel alone: the chunks' row partials summed in chunk
+        order and written into ``f`` at the rows' atoms, the kept column
+        forces added at theirs, the (R,) energy. Returns (E, ``f``)."""
+        R = partial.shape[0]
+        e = torch.empty((R,), dtype=torch.float32, device=partial.device)
+        err = _lib().sweep_reduce_launch(
+            self._inst, partial.data_ptr(), None if outc is None else outc.data_ptr(), f.data_ptr(),
+            e.data_ptr(), R, _stream(partial),
+        )
+        if err != 0:
+            raise RuntimeError(f"sweep reduce kernel {self.name!r} launch failed: cudaError {err}")
+        self.reduce_launches += 1
+        return e, f
+
+    def reduce_plain(self, partial, outc):
+        """The reduce kernel's plain version on the same partials."""
+        bc = self._block_chunks_np
+        rows = torch.stack([partial[:, bc[b] : bc[b + 1]].sum(1) for b in range(self.n_blocks)], 1)
+        return self._scatter(rows.reshape(partial.shape[0], self.n_slots, 4), outc, partial.dtype)
+
+    def launch(self, ops, lam_s, f_na, f_aa):
+        """Both kernels on the operands of ``operands``: ((R,) E, (R, N, 3) F)."""
+        return self._launch(ops, (lam_s, f_na, f_aa), reduce=True)[:2]
+
+    def kernel(self, x, box, lam_s, f_na, f_aa):
+        """The CUDA kernels on ``x``'s device (f32 only): two launches, no
+        other device work and no host synchronisation."""
+        return self.launch(self.operands(x, box), lam_s, f_na, f_aa)
 
     # ------------------------------------------------------------------
     def __call__(self, x, box, lam_s, f_na, f_aa):
@@ -505,20 +670,48 @@ class SweepPairSum:
         return PairSumFunction.apply(x, box, self, lam_s, f_na, f_aa)
 
 
-_BOUND = set()
+class _Instance(ctypes.Structure):
+    """``SweepInstance`` of csrc/sweep_kernel.cu, field for field."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in (
+            "col_pos", "col_q", "col_a", "excl", "row_feat", "slot_gid", "chunks", "block_chunks",
+            "keep_pos", "keep_gid",
+        )]
+        + [(k, ctypes.c_int) for k in (
+            "N", "n_slots", "n_chunks", "tr", "W", "n_keep", "col_forces", "method",
+        )]
+        + [("cutoff", ctypes.c_float), ("use_cutoff", ctypes.c_int)]
+        + [(k, ctypes.c_float) for k in ("alpha_ewald", "k_rf", "c_rf", "ann", "softcore_alpha")]
+        + [("wrap", ctypes.c_int), ("has_switch", ctypes.c_int), ("switch_distance", ctypes.c_float)]
+        + [("alch_coulomb", ctypes.c_int), ("ke", ctypes.c_float)]
+    )
 
 
-def _bind(lib):
-    """Declare the C signatures once (pointers and the stream as c_void_p)."""
-    if id(lib) in _BOUND:
-        return lib
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [I, F, I, F, F, F, F, F, I, I, F, I, F, P]
-    lib.sweep_rows_launch.argtypes = [P, P, P, P, P, P, P, P, I, I, I] + tail
-    lib.sweep_rows_launch.restype = I
-    lib.sweep_cols_launch.argtypes = [P, P, P, P, P, I, P, P, P, P, I, I, I] + tail
-    lib.sweep_cols_launch.restype = I
-    lib.sweep_cols_n_parts.argtypes = [I]
-    lib.sweep_cols_n_parts.restype = I
-    _BOUND.add(id(lib))
-    return lib
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+_LIB = None
+
+
+def _lib():
+    """The built library with its C signatures declared (pointers and the
+    stream as c_void_p), loaded once."""
+    global _LIB
+    if _LIB is None:
+        from ..kernels.build import load_library
+
+        lib = load_library("sweep_kernel")
+        P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Instance)
+        lib.sweep_launch.argtypes = [S] + [P] * 9 + [I, P]
+        lib.sweep_reduce_launch.argtypes = [S] + [P] * 4 + [I, P]
+        lib.sweep_empty_launch.argtypes = [P]
+        for fn in (
+            lib.sweep_launch, lib.sweep_reduce_launch, lib.sweep_empty_launch, lib.sweep_row_chunk, lib.sweep_col_chunk,
+        ):
+            fn.restype = I
+        if (lib.sweep_row_chunk(), lib.sweep_col_chunk()) != (CHUNK_COLS, EA_CHUNK_COLS):
+            raise RuntimeError("CHUNK_COLS, EA_CHUNK_COLS differ from ROW_CHUNK, COL_CHUNK of csrc/sweep_kernel.cu")
+        _LIB = lib
+    return _LIB

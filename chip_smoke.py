@@ -21,15 +21,21 @@ Phases (each prints its own line; any failure exits non-zero):
      tolerances (energy 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1)), and its
      time at R = 8 beside its bound (the pairs inside the cutoff times
      PAIR_FLOPS over the fp32 peak, or its bytes over the memory rate,
-     whichever is larger): the sweep kernel K1 (MAIN, E0, EA) on the frozen
-     slice; the cells kernel K3 (MAIN, E0) and the pair kernel K2 (MAIN,
-     E0) on the unfrozen box, with the time of the pair kernel alone on a
-     prebuilt layout beside the whole call; the three layout kernels of
-     each (key, layout, prune), whose keys, clusters, bounding boxes and
-     lists must equal their plain versions' bit for bit; then K2 MAIN
-     against K3 MAIN, K2 MAIN with its list cut to 8 entries (the
-     row clusters that keep more walk every column cluster), and the K3 NaN
-     poison of an overflowing bin;
+     whichever is larger): the sweep kernel K1 (MAIN, E0, EA; MAIN carries
+     an exclusion mask) on the frozen slice, with the time of its two
+     kernels alone on checked operands beside the whole call, the device
+     launches and CUDA runtime calls of one profiled call (a call that
+     copies or synchronises on the host fails), its reduce kernel against a
+     torch sum of the same partials, and two calls bit for bit; K1 on a
+     small periodic pair space with the minimum image on, an exclusion
+     mask, a ragged last chunk and kept column forces; the cells kernel K3
+     (MAIN, E0) and the pair kernel K2 (MAIN, E0) on the unfrozen box, with
+     the time of the pair kernel alone on a prebuilt layout beside the
+     whole call; the three layout kernels of each (key, layout, prune),
+     whose keys, clusters, bounding boxes and lists must equal their plain
+     versions' bit for bit; then K2 MAIN against K3 MAIN, K2 MAIN with its
+     list cut to 8 entries (the row clusters that keep more walk every
+     column cluster), and the K3 NaN poison of an overflowing bin;
   5. main: FIRE, then BLUESSimulation on the frozen slice, R = 8, nstepsNC =
      nstepsMD = 50, 3 iterations;
   6. unfrozen: FIRE (200 steps), then BLUESSimulation on the unfrozen box
@@ -49,16 +55,26 @@ Two measurements that are not part of the check:
 
     python3 chip_smoke.py --ab OTHER_ROOT
 
-times K2 and K3 (MAIN, E0) at R = 8 on the unfrozen box, then the 'pcells'
-path (nstepsNC = nstepsMD = 50) and the 'pallas' path (10 and 10) end to
-end (FIRE 50 steps, 1 iteration at R = 8: NCMC micro-step and MD step),
+times K1 (MAIN, E0, EA: the whole call, the sweep's own kernels under
+torch.profiler, the host's enqueue and the device launches per call) at
+R = 8 on the frozen slice, K2 and K3 (MAIN, E0) on the unfrozen box, then
+the frozen and the 'pcells' path (nstepsNC = nstepsMD = 50) and the
+'pallas' path (10 and 10) end to end (FIRE 50 steps, 1 iteration at R = 8:
+NCMC micro-step and MD step),
 in four processes, this checkout, OTHER_ROOT, OTHER_ROOT, this
 checkout (each process builds the box and the kernels with its own
 checkout's code, through that checkout's chip_smoke.py), for comparing two
 commits on one card;
 
-    python3 chip_smoke.py --profile
+    python3 chip_smoke.py --profile [sweep]
 
+reports an empty kernel's launch time (the card's floor for a launch), the
+device launches, device time and CUDA runtime calls of one K1 call of each
+instance beside its call, kernel-alone and host enqueue times; then
+(unless 'sweep' is given) the
+frozen slice's component times (the energy and force calls, the
+constraints, the three sweeps) with one frozen iteration under
+torch.profiler, and it
 runs one unfrozen 'pcells' iteration at R = 8 under torch.profiler with
 nvidia-smi sampling the SM clock beside it, and reports the K3 time per
 launch there against CUDA events back to back, the device's busy share, and
@@ -251,9 +267,9 @@ def perturbed(x0, movable, R, rng, device):
     return torch.as_tensor(xs, device=device)
 
 
-#: the layout kernels of K2 and K3, each with its own launch count
-#: (``<step>_launches``) beside the pair kernel's ``launches``
-LAYOUT_STEPS = ("key", "layout", "prune")
+#: the layout kernels of K2 and K3 and K1's reduce kernel, each with its own
+#: launch count (``<step>_launches``) beside the pair kernel's ``launches``
+LAYOUT_STEPS = ("key", "layout", "prune", "reduce")
 
 
 def step_name(name, step):
@@ -354,6 +370,103 @@ def check_prune(name, ps, xs, box, reps):
     return res
 
 
+def check_reduce(name, ps, xs, box, lam, reps):
+    """K1's reduce kernel against a torch sum of the same partials (from the
+    pair kernel at every R of ``xs``) at the sweep tests' tolerances, and
+    two calls of the whole sum bit for bit. Returns its results with the
+    times and the bound (bytes: the partials and kept column forces read
+    once, the rows' and kept columns' forces and the energy written once)
+    at R = R_MAIN."""
+    import torch
+
+    label = step_name(name, "reduce")
+    res = dict(max_abs_err=0.0)
+    for R, x in xs.items():
+        ops = ps.operands(x, box)
+        partial, outc, f = ps.pairs_launch(ops, *lam)
+        ek, fk = ps.reduce_launch(partial, outc, f)
+        _, f_err = compare(f"{label} R={R}", ek, fk, *ps.reduce_plain(partial, outc))
+        res["max_abs_err"] = max(res["max_abs_err"], f_err)
+        e2, f2 = ps.kernel(x, box, *lam)
+        if not (torch.equal(ek, e2) and torch.equal(fk, f2)):
+            raise RuntimeError(f"{name} R={R}: two calls on the same input differ")
+        if R == R_MAIN:
+            scratch = torch.zeros_like(f)
+            res["ms"] = time_ms(lambda: ps.reduce_launch(partial, outc, scratch), reps[0])
+            res["plain_ms"] = time_ms(lambda: ps.reduce_plain(partial, outc), reps[1])
+            n_keep = 0 if outc is None else outc.shape[1]
+            n_bytes = partial.numel() * 4 + R * (n_keep * 16 + (ps.shape_info["nr"] + n_keep) * 12 + 4)
+            res.update(bound_ms=n_bytes / PEAK_BYTES * 1e3, bound_by="bytes")
+            phase(
+                "kernels",
+                f"{label} R={R}: kernel {res['ms']:.4f} ms/launch over {partial.shape[1]} chunks, torch sum "
+                f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms (bytes), "
+                f"{100 * res['bound_ms'] / res['ms']:.2f} % of bound; two calls of {name} are identical bit for bit",
+            )
+    return res
+
+
+def check_periodic_sweeps(device):
+    """K1 with the minimum image on and an exclusion mask, on a small
+    periodic pair space (1,728 atoms on a jittered lattice in a 3.2 nm box,
+    cutoff 0.9 nm, rows spread over the whole box so that pairs cross its
+    faces): a rows sweep
+    (1,728 columns: three chunks of 512 and a ragged last one of 192) and an
+    EA sweep with column forces on kept columns, against their plain
+    versions at R = 1 and 3."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.potentials.sweep import SweepPairSum
+
+    side, L, rc = 12, 3.2, 0.9
+    n = side**3
+    rng = np.random.default_rng(11)
+    x0 = (np.indices((side,) * 3).reshape(3, n).T + 0.5 + rng.uniform(-0.1, 0.1, (n, 3))) * (L / side)
+    rows = np.sort(rng.choice(n, 70, replace=False))
+    alch = rows[:9]
+    is_alch = np.isin(np.arange(n), alch)
+    q = rng.uniform(-0.6, 0.6, n)
+    per_atom = dict(
+        q_std=q * ~is_alch, q_alch=q * is_alch, sigma=rng.uniform(0.2, 0.3, n),
+        epsilon=rng.uniform(0.1, 0.6, n), alch=is_alch.astype(float), in_rows=np.isin(np.arange(n), rows).astype(float),
+    )
+    common = dict(
+        n_atoms=n, method="PME", cutoff=rc, alpha_ewald=3.0, k_rf=0.0, c_rf=0.0, annihilate_sterics=False,
+        periodic=True, device=device,
+    )
+    cols = np.arange(n)
+    em = np.zeros((len(rows), n), bool)
+    em[rng.integers(0, len(rows), 300), rng.integers(0, n, 300)] = True
+    em[np.arange(len(rows)), rows] = False
+    cols_na = np.setdiff1d(cols, alch)
+    mob = np.where(np.isin(cols_na, rows))[0]
+    em_a = np.zeros((len(alch), len(cols_na)), bool)
+    em_a[rng.integers(0, len(alch), 60), rng.integers(0, len(cols_na), 60)] = True
+    sweeps = {
+        "periodic rows": SweepPairSum(
+            row_gid=rows, col_gid=cols, per_atom=per_atom, excl_mask=em, col_const_positions=x0,
+            col_mobile_sel=rows, col_mobile_gid=rows, name="periodic_rows", **common,
+        )
+    }
+    sweeps["periodic EA"] = SweepPairSum(
+        row_gid=alch, col_gid=cols_na, per_atom=dict(per_atom, in_rows=np.zeros(n)), excl_mask=em_a,
+        col_const_positions=x0[cols_na], col_mobile_sel=mob, col_mobile_gid=cols_na[mob], col_forces=True,
+        col_force_keep=mob, name="periodic_ea", **common,
+    )
+    box = torch.eye(3, device=device) * L
+    movable = np.isin(np.arange(n), rows)
+    for label, ps in sweeps.items():
+        if ps.skip_min_image or not ps.shape_info["masked_pairs"]:
+            raise RuntimeError(f"{label}: the case must run the minimum image and an exclusion mask")
+        for R in (1, 3):
+            x = perturbed(x0, movable, R, rng, device)
+            compare(
+                f"{label} ({ps.shape_info['masked_pairs']} masked pairs, {ps.n_chunks} chunks) R={R}",
+                *ps.kernel(x, box, 0.4, 0.3, 0.3), *ps.plain(x, box, 0.4, 0.3, 0.3),
+            )
+
+
 def check_kernels(instances, xs, box, reps):
     """Each (name, pair sum, lambdas) kernel against its plain version at
     every R of ``xs`` ({R: positions}); returns {name: results} with the
@@ -372,11 +485,27 @@ def check_kernels(instances, xs, box, reps):
                 res["ms"] = time_ms(lambda: ps.kernel(x, box, *lam), reps[0])
                 res["plain_ms"] = time_ms(lambda: ps.plain(x, box, *lam), reps[1])
                 res.update(bound_of(ps, x, box))
-                layout = ""
-                if hasattr(ps, "launch"):
-                    lay = ps.layout(x, box, torch.float32, kernel=True)
-                    res["kernel_only_ms"] = time_ms(lambda: ps.launch(lay, *lam), reps[0])
-                    layout = f" (the pair kernel alone, on a prebuilt layout, {res['kernel_only_ms']:.4f})"
+                if hasattr(ps, "operands"):  # K1: its two kernels on checked operands
+                    ops = ps.operands(x, box)
+                    n_dev, dev_us, _, runtime = profile_call(lambda: ps.kernel(x, box, *lam))
+                    res.update(device_launches=n_dev, device_us=dev_us)
+                    # (cudaDeviceSynchronize is profile_call's own, around the call)
+                    blocking = [
+                        k for k in runtime
+                        if k != "cudaDeviceSynchronize" and any(w in k for w in ("Memcpy", "Memset", "Synchronize"))
+                    ]
+                    if n_dev != 2 or runtime.get("cudaLaunchKernel") != 2 or blocking:
+                        raise RuntimeError(
+                            f"{name}: a call must be two kernel launches with no copy and no synchronisation, "
+                            f"got {n_dev} device launches and the CUDA runtime calls {runtime}"
+                        )
+                else:  # K2, K3: the pair kernel on a prebuilt layout
+                    ops = ps.layout(x, box, torch.float32, kernel=True)
+                res["kernel_only_ms"] = time_ms(lambda: ps.launch(ops, *lam), reps[0])
+                layout = f" (the kernels alone, on prebuilt operands, {res['kernel_only_ms']:.4f}"
+                if "device_launches" in res:
+                    layout += f"; {res['device_launches']} device launches, {res['device_us']:.1f} us of device time a call"
+                layout += ")"
                 phase(
                     "kernels",
                     f"{name} R={R}: kernel {res['ms']:.4f} ms/call{layout}, plain {res['plain_ms']:.4f} ms/call; "
@@ -385,6 +514,8 @@ def check_kernels(instances, xs, box, reps):
                     f"{res['visited_slots']:.0f} slots visited per replica",
                 )
         results[name] = res
+        if hasattr(ps, "reduce_launch"):
+            results[step_name(name, "reduce")] = check_reduce(name, ps, xs, box, lam, reps)
         if hasattr(ps, "prune_kernel"):
             results.update(check_layout(name, ps, xs, box, reps))
             results[step_name(name, "prune")] = check_prune(name, ps, xs, box, reps)
@@ -577,15 +708,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     import numpy as np
     import torch
 
-    from blues_tpu_torch.kernels import build
-
-    t0 = time.perf_counter()
-    build.build_all(SOURCES)
-    phase("build", f"{', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
-    for src in SOURCES:
-        for line in build.build_logs.get(src, "").splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                phase("build", f"{src}: {line.strip()}")
+    build_all_sources()
 
     # --- systems -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -639,6 +762,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
             xs_u, box_u, (20, 3),
         )
     )
+    check_periodic_sweeps(device)
     x8 = xs_u[R_MAIN]
     pair_main = pair_sums["pair_main"][0]
     compare(
@@ -681,11 +805,14 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     return kernels
 
 
-def time_unfrozen_kernels(root, reps=20):
-    """{name: ms} of K2 and K3 (MAIN, E0) at R = R_MAIN on the unfrozen box
-    and of the 'pcells' and 'pallas' steps, built by the checkout at
-    ``root`` with its own code (its chip_smoke.py and package), so an
-    earlier commit's kernels are timed as they were."""
+def time_kernels(root, reps=20):
+    """{name: number} of the checkout at ``root``, built with its own code
+    (its chip_smoke.py and package), so an earlier commit's kernels are
+    timed as they were: K1 (MAIN, E0, EA) at R = R_MAIN on the frozen slice
+    (the whole call under CUDA events, the sweep's own kernels and the
+    device launches of a call under torch.profiler, the host's time to
+    enqueue a call), K2 and K3 (MAIN, E0) on the unfrozen box, and the
+    micro-step and MD step of the frozen, 'pcells' and 'pallas' paths."""
     import importlib.util
 
     import numpy as np
@@ -701,6 +828,16 @@ def time_unfrozen_kernels(root, reps=20):
     if not os.path.abspath(blues_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError(f"blues_tpu_torch came from {blues_tpu_torch.__file__}, not {root}")
     dev = torch.device("cuda", 0)
+    out = {}
+    frozen, x0, sim_f = mod.build_slice(dev)
+    box_f = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=dev)
+    xf = mod.perturbed(x0, np.asarray(frozen.masses) > 0, R_MAIN, np.random.default_rng(0), dev)
+    for name, r in sweep_call_times(sim_f, xf, box_f).items():
+        out[f"{name}_call"] = r["call_ms"]
+        out[f"{name}_kernels_profiled"] = r["sweep_kernels_us"] / 1e3
+        out[f"{name}_host_enqueue"] = r["host_ms"]
+        out[f"{name}_launches_per_call"] = r["launches"]
+
     unfrozen, xu0, sim_c = mod.build_unfrozen(dev, "pcells", R_MAIN, NSTEPS)
     _, _, sim_p = mod.build_unfrozen(dev, "pallas", R_MAIN, NSTEPS_PALLAS)
     box = torch.as_tensor(np.asarray(unfrozen.box), dtype=torch.float32, device=dev)
@@ -708,7 +845,6 @@ def time_unfrozen_kernels(root, reps=20):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    out = {}
     for kind, sim in (("cells", sim_c), ("pair", sim_p)):
         for part, ps in (("main", sim.energy_md.nonbonded.pair_sum), ("e0", sim.energy_alch.nonbonded.pair_sum0)):
             out[f"{kind}_{part}"] = mod.time_ms(lambda: ps.kernel(x, box, 1.0, 1.0, 1.0), reps)
@@ -723,12 +859,14 @@ def time_unfrozen_kernels(root, reps=20):
         top = max(device, key=lambda e: e.device_time_total)
         out[f"{kind}_main_kernel_profiled"] = top.device_time_total / 1e3 / top.count
         out[f"{kind}_main_launches_per_call"] = sum(e.count for e in device) / 10
-    for backend, kind, sim in (("pcells", "cells", sim_c), ("pallas", "pair", sim_p)):
+    for backend, kind, sim, start in (
+        ("frozen", "sweep", sim_f, x0), ("pcells", "cells", sim_c, xu0), ("pallas", "pair", sim_p, xu0),
+    ):
         counted = mod.sums_of(sim, kind)
         with open(os.devnull, "w") as quiet:
             stdout, sys.stdout = sys.stdout, quiet
             try:
-                res, _ = mod.run_path(sim, xu0, counted, list(counted.values()), 50, 1, "ab", "")
+                res, _ = mod.run_path(sim, start, counted, list(counted.values()), 50, 1, "ab", "")
             finally:
                 sys.stdout = stdout
         out[f"{backend}_micro_step"], out[f"{backend}_md_step"] = res["micro_ms"], res["md_ms"]
@@ -736,14 +874,14 @@ def time_unfrozen_kernels(root, reps=20):
 
 
 def ab(other, card):
-    """K2 and K3 of this checkout and of ``other`` in alternating processes
-    (this, other, other, this), each timing at R = R_MAIN (times in ms,
-    launches per call as counts)."""
+    """K1, K2, K3 and the three paths' steps of this checkout and of
+    ``other`` in alternating processes (this, other, other, this), each
+    timing at R = R_MAIN (times in ms, launches per call as counts)."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for label, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--time-unfrozen-kernels", root],
+            [sys.executable, os.path.abspath(__file__), "--time-kernels", root],
             capture_output=True, text=True, timeout=900,
         )
         if out.returncode != 0:
@@ -811,42 +949,225 @@ def profile_unfrozen(card):
         f"{float(np.median(clocks)) if clocks else float('nan'):.0f}, max {max(clocks, default=float('nan')):.0f} MHz",
     )
     for ps in (cells[0], sim_p.energy_md.nonbonded.pair_sum):
-        ps.kernel(x, box, 1.0, 1.0, 1.0)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ps.kernel(x, box, 1.0, 1.0, 1.0)
-            torch.cuda.synchronize()
-        kern = device_kernels(prof)
+        n, us, kern, _ = profile_call(lambda: ps.kernel(x, box, 1.0, 1.0, 1.0))
         phase(
             "profile",
-            f"{ps.name}: one wrapper call makes {sum(e.count for e in kern)} device launches, "
-            f"{sum(e.device_time_total for e in kern):.1f} us of device time; the largest: "
-            + ", ".join(
-                f"{e.key[:48]} x{e.count} {e.device_time_total:.1f} us"
-                for e in sorted(kern, key=lambda e: -e.device_time_total)[:8]
-            ),
+            f"{ps.name}: one wrapper call makes {n} device launches, {us:.1f} us of device time; the largest: "
+            + ", ".join(f"{k[:48]} x{c} {t:.1f} us" for k, c, t in kern[:8]),
         )
 
 
+def empty_launch_us(n=2000):
+    """(device, host) microseconds per launch of an empty kernel: back to
+    back on the stream under CUDA events, and on the host's clock for the
+    enqueue alone. The card's practical floor for one launch."""
+    import ctypes
+
+    import torch
+
+    from blues_tpu_torch.potentials import sweep
+
+    lib = sweep._lib()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        if lib.sweep_empty_launch(stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    dev_us = 1e3 * time_ms(launch, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        launch()
+    host_us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return dev_us, host_us
+
+
+def profile_call(fn):
+    """One call of ``fn`` under torch.profiler: (device launches, device
+    microseconds, [(kernel, count, microseconds)], {CUDA runtime call: count}).
+    A profile that recorded no device event (seen once, right after a
+    profile of 300,000 launches) is taken again, and refused the third time:
+    every ``fn`` here launches a kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA), key=lambda e: -e.device_time_total)
+        if kern:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device event in three profiles of a call that launches kernels")
+    runtime = {e.key: e.count for e in avg if e.device_type == DeviceType.CPU and e.key.startswith("cuda")}
+    return (
+        sum(e.count for e in kern), sum(e.device_time_total for e in kern),
+        [(e.key, e.count, e.device_time_total) for e in kern], runtime,
+    )
+
+
+def sweep_call_times(sim, x, box, reps=50):
+    """{instance: numbers} of K1 (MAIN, E0, EA) on positions ``x``: the
+    whole wrapper call and the kernels alone on prebuilt operands (CUDA
+    events, ms), the host's time to enqueue one call (ms), and one
+    profiled call's device launches, device microseconds and kernel list."""
+    import torch
+
+    lam = {"sweep_main": (1.0, 1.0, 1.0), "sweep_e0": (1.0, 1.0, 1.0), "sweep_ea": (0.4, 0.4, 0.4)}
+    out = {}
+    for name, sums in sums_of(sim, "sweep").items():
+        ps, la = sums[0], lam[name]
+        res = dict(call_ms=time_ms(lambda: ps.kernel(x, box, *la), reps))
+        if hasattr(ps, "launch"):
+            ops = ps.operands(x, box)
+            res["kernel_ms"] = time_ms(lambda: ps.launch(ops, *la), reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ps.kernel(x, box, *la)
+        res["host_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        n, us, kern, runtime = profile_call(lambda: ps.kernel(x, box, *la))
+        res.update(launches=n, device_us=us, kernels=kern, runtime=runtime)
+        res["sweep_kernels_us"] = sum(t for k, _, t in kern if "sweep_" in k)
+        out[name] = res
+    return out
+
+
+def profile_sweep(card):
+    """The device launches, device time and CUDA runtime calls of one K1
+    wrapper call (MAIN, E0, EA) at R = R_MAIN on the frozen slice, beside
+    the whole call, the kernels alone and an empty kernel's launch."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    build_all_sources()
+    frozen, x0, sim = build_slice(dev)
+    box = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=dev)
+    x = perturbed(x0, np.asarray(frozen.masses) > 0, R_MAIN, np.random.default_rng(0), dev)
+    dev_us, host_us = empty_launch_us()
+    phase(
+        "profile",
+        f"an empty kernel on {card}: {dev_us:.2f} us per launch back to back on the stream (CUDA events), "
+        f"{host_us:.2f} us of host time to enqueue one",
+    )
+    for name, r in sweep_call_times(sim, x, box).items():
+        alone = f"{r['kernel_ms']:.4f}" if "kernel_ms" in r else "not measured"
+        phase(
+            "profile",
+            f"{name} R={R_MAIN}: call {r['call_ms']:.4f} ms, kernels alone on prebuilt operands {alone} ms "
+            f"(CUDA events), host enqueue {r['host_ms']:.4f} ms/call; one profiled call makes {r['launches']} "
+            f"device launches, {r['device_us']:.1f} us of device time, {r['sweep_kernels_us']:.1f} us of it in the "
+            f"sweep's own kernels: "
+            + ", ".join(f"{k[:40]} x{n} {t:.1f} us" for k, n, t in r["kernels"][:16])
+            + "; CUDA runtime calls: "
+            + ", ".join(f"{k} x{n}" for k, n in sorted(r["runtime"].items())),
+        )
+
+
+def profile_frozen(card):
+    """The frozen slice at R = R_MAIN after FIRE (100 steps) and a warm-up
+    iteration: the components of a micro-step and an MD step under CUDA
+    events (ms per call, back to back), then one iteration under
+    torch.profiler (wall time, device time, device launches, busy share,
+    K1's kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    build_all_sources()
+    _, x0, sim = build_slice(dev)
+    sim.initialize(x0, seed=2026)
+    sim.minimize(100)
+    sim.run_iteration()
+    x, v, box = sim.state
+    xm, vm = sim._gather(x), sim._gather(v)
+    cx, cv = sim._constrain_d
+    g = {"lambda_sterics": 0.4, "lambda_electrostatics": 0.4}
+    nb, alch = sim.energy_md.nonbonded, sim.energy_alch
+    lam = (0.4, 0.4, 0.4)
+    parts = {
+        "force_md": lambda: sim.force_md(x, box, None),
+        "lambda_e0_f0": lambda: alch.lambda_e0_f0(x, box),
+        "lambda_ea_fa": lambda: alch.lambda_ea_fa(x, box, g),
+        "constrain_x": lambda: cx(xm + 1e-4 * vm, xm),
+        "constrain_v": lambda: cv(vm, xm),
+        "energy_rest": lambda: nb.energy_rest(x, box, None),
+        "PME reciprocal terms": lambda: nb._reciprocal(x, box),
+        "cull_guard": lambda: nb.cull_guard(x, box),
+        "bonded": lambda: sim.energy_md.bonded(x),
+        "sweep MAIN": lambda: nb.pair_sum.kernel(x, box, 1.0, 1.0, 1.0),
+        "sweep E0": lambda: alch.nonbonded.pair_sum0.kernel(x, box, 1.0, 1.0, 1.0),
+        "sweep EA": lambda: alch.nonbonded.ea_sweep.kernel(x, box, *lam),
+    }
+    times = {k: time_ms(fn, 20) for k, fn in parts.items()}
+    phase(
+        "profile",
+        f"frozen slice at R={R_MAIN} on {card}, ms per call (CUDA events over 20 calls back to back): "
+        + ", ".join(f"{k} {t:.4f}" for k, t in times.items()),
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.run_iteration()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kern) / 1e3
+    k1 = {
+        name: [e for e in kern if name in e.key] for name in ("sweep_rows_kernel", "sweep_cols_kernel", "sweep_reduce_kernel")
+    }
+    phase(
+        "profile",
+        f"one frozen iteration at R={R_MAIN} ({NSTEPS} + {NSTEPS} steps) on {card}: wall {wall:.3f} s under the "
+        f"profiler, device time {busy:.1f} ms in {sum(e.count for e in kern)} device launches (busy "
+        f"{100 * busy / (1e3 * wall):.1f} %, idle {100 - 100 * busy / (1e3 * wall):.1f} %); K1: "
+        + ", ".join(
+            f"{name} x{sum(e.count for e in es)} {sum(e.device_time_total for e in es) / 1e3:.2f} ms"
+            for name, es in k1.items()
+        ),
+    )
+
+
 def build_all_sources():
+    """Build the three sources (one nvcc each, started together) and print
+    ptxas' registers, shared memory and spills per kernel."""
     from blues_tpu_torch.kernels import build
 
+    t0 = time.perf_counter()
     build.build_all(SOURCES)
+    phase("build", f"{', '.join(SOURCES)} built in {time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    for src in SOURCES:
+        for line in build.build_logs.get(src, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line or "Function properties" in line:
+                phase("build", f"{src}: {line.strip()}")
 
 
 def main(argv=None):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ab", metavar="OTHER_ROOT", help="time K2 and K3 against another checkout")
-    ap.add_argument("--profile", action="store_true", help="profile one unfrozen iteration")
-    ap.add_argument("--time-unfrozen-kernels", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--ab", metavar="OTHER_ROOT", help="time the kernels and steps against another checkout")
+    ap.add_argument(
+        "--profile", nargs="?", const="all", choices=["all", "sweep"],
+        help="profile one K1 call of each instance and (unless 'sweep') one unfrozen iteration",
+    )
+    ap.add_argument("--time-kernels", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU", file=sys.stderr)
         return 2
-    if args.time_unfrozen_kernels:
-        print(json.dumps(time_unfrozen_kernels(args.time_unfrozen_kernels)), flush=True)
+    if args.time_kernels:
+        print(json.dumps(time_kernels(args.time_kernels)), flush=True)
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import blues_tpu_torch  # noqa: F401  (fails, before any output, outside a checkout)
@@ -860,7 +1181,10 @@ def main(argv=None):
         if args.ab:
             ab(args.ab, card)
         if args.profile:
-            profile_unfrozen(card)
+            profile_sweep(card)
+            if args.profile != "sweep":
+                profile_frozen(card)
+                profile_unfrozen(card)
         print(card, flush=True)
         return 0
     kernels = smoke(torch.device("cuda", 0), card)

@@ -47,27 +47,37 @@ def excl(rng, nr, nc, rows_are_cols):
     return em
 
 
-def port_main(masked=True, device="cpu"):
-    """A grouped MAIN-like sweep and R = 2 perturbed position sets."""
+def port_main(masked=True, device="cpu", replicas=2, grouped=True, empty_group=False, chunk_cols=None, **kw):
+    """A MAIN-like sweep (in groups of 16 rows when ``grouped``; with
+    ``empty_group`` the last group has no column at all; its chunk table
+    cut anew at ``chunk_cols`` columns where given) and ``replicas``
+    perturbed position sets. ``kw`` goes to ``SweepPairSum``."""
     rng, x0, rows, per_atom = space(13)
     cols = np.arange(N, dtype=np.int64)
     em = excl(rng, len(rows), N, True) if masked else None
-    groups = tsk.build_row_groups(
-        rows=rows, centers=x0[rows], radii=np.full(len(rows), 0.15), cols=cols, ref_positions=x0,
-        box_lengths=np.full(3, L), cutoff=CUTOFF, group_size=16, excl_mask=em,
-    )
+    groups = None
+    if grouped:
+        groups = tsk.build_row_groups(
+            rows=rows, centers=x0[rows], radii=np.full(len(rows), 0.15), cols=cols, ref_positions=x0,
+            box_lengths=np.full(3, L), cutoff=CUTOFF, group_size=16, excl_mask=em,
+        )
+        if empty_group:
+            groups[-1] = (groups[-1][0], np.zeros(0, np.int64))
     ps = tsk.SweepPairSum(
         row_gid=rows, col_gid=cols, per_atom=per_atom, excl_mask=em, groups=groups,
-        col_const_positions=x0, col_mobile_sel=rows, col_mobile_gid=rows, device=device, **COMMON,
+        col_const_positions=x0, col_mobile_sel=rows, col_mobile_gid=rows, device=device, **dict(COMMON, **kw),
     )
-    xs = np.repeat(x0[None], 2, axis=0)
-    xs[:, rows] += 0.01 * rng.standard_normal((2, len(rows), 3))
+    if chunk_cols is not None:
+        ps._cut_chunks(chunk_cols)
+    xs = np.repeat(x0[None], replicas, axis=0)
+    xs[:, rows] += 0.01 * rng.standard_normal((replicas, len(rows), 3))
     return ps, torch.as_tensor(xs, dtype=torch.float32, device=device), torch.eye(3, device=device) * L
 
 
-def port_ea(masked=True, device="cpu"):
-    """An EA-like sweep (alchemical rows, column reaction forces) and R = 2
-    perturbed position sets."""
+def port_ea(masked=True, device="cpu", replicas=2, chunk_cols=None, **kw):
+    """An EA-like sweep (alchemical rows, column reaction forces on the
+    mobile columns; its chunk table cut anew at ``chunk_cols`` columns
+    where given) and ``replicas`` perturbed position sets."""
     rng, x0, rows, per_atom = space(7)
     cols = np.setdiff1d(np.arange(N), ALCH)
     mob_sel = np.where(np.isin(cols, rows))[0]
@@ -75,8 +85,10 @@ def port_ea(masked=True, device="cpu"):
     ps = tsk.SweepPairSum(
         row_gid=ALCH, col_gid=cols, per_atom=dict(per_atom, in_rows=np.zeros(N)), excl_mask=em,
         col_const_positions=x0[cols], col_mobile_sel=mob_sel, col_mobile_gid=cols[mob_sel],
-        col_forces=True, col_force_keep=mob_sel, device=device, **COMMON,
+        col_forces=True, col_force_keep=mob_sel, device=device, **dict(COMMON, **kw),
     )
-    xs = np.repeat(x0[None], 2, axis=0)
-    xs[:, rows] += 0.01 * rng.standard_normal((2, len(rows), 3))
+    if chunk_cols is not None:
+        ps._cut_chunks(chunk_cols)
+    xs = np.repeat(x0[None], replicas, axis=0)
+    xs[:, rows] += 0.01 * rng.standard_normal((replicas, len(rows), 3))
     return ps, torch.as_tensor(xs, dtype=torch.float32, device=device), torch.eye(3, device=device) * L

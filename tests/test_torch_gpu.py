@@ -1,5 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the sweep kernel (K1), the pair kernel (K2) and the cells kernel (K3); K2
+the sweep kernel (K1: grouped, masked, ungrouped, with and without the
+minimum image, EA with kept column forces, ragged and one-column
+chunks, an empty column range, R = 1 and 8, bit-identical from call to
+call, its reduce kernel against a torch sum of the same partials), the
+pair kernel (K2) and the cells kernel (K3); K2
 against K3 over the same pair space; K2 and K3 at water density (6,000
 atoms, cutoff 1.0 nm, atoms on the box edge and unwrapped) at R = 1 and 8,
 deterministic from call to call, with their key, layout and prune kernels
@@ -54,11 +58,64 @@ def test_kernel_matches_plain(build, masked):
     ps, xs, box = build(masked, device=_cuda())
     ek, fk = ps(xs, box, *LAM)  # a CUDA tensor takes the kernel
     torch.cuda.synchronize()
-    assert ps.launches == 1
+    assert ps.launches == ps.reduce_launches == 1
     _assert_close(ek, fk, *ps.plain(xs, box, *LAM))
     for r in range(xs.shape[0]):  # the replica batch equals single calls
         e1, f1 = ps.kernel(xs[r : r + 1], box, *LAM)
         _assert_close(e1, f1, ek[r : r + 1], fk[r : r + 1])
+
+
+_SWEEP_CASES = {
+    # grouped rows under the minimum image with an exclusion mask
+    "grouped_masked_wrap": (port_main, dict(masked=True)),
+    # the frozen path's mode: no minimum image
+    "grouped_masked_nowrap": (port_main, dict(masked=True, skip_min_image=True)),
+    "ungrouped": (port_main, dict(masked=False, grouped=False)),
+    # 100 does not divide a block's range: a ragged last chunk, a ragged last warp
+    "ragged_chunks": (port_main, dict(masked=True, chunk_cols=100)),
+    "one_column_chunks": (port_main, dict(masked=False, chunk_cols=1)),
+    "empty_range": (port_main, dict(masked=False, empty_group=True)),
+    "ea_keep": (port_ea, dict(masked=True)),
+    "ea_keep_nowrap_ragged": (port_ea, dict(masked=False, skip_min_image=True, chunk_cols=100)),
+}
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("case", sorted(_SWEEP_CASES))
+def test_sweep_kernel_cases(case, R):
+    """K1 against its plain version over its layouts and modes; the reduce
+    kernel against a torch sum of the same partials; two calls on the same
+    input give the same bits (fixed-order sums, no float atomics)."""
+    build, kw = _SWEEP_CASES[case]
+    ps, xs, box = build(device=_cuda(), replicas=R, **kw)
+    ek, fk = ps(xs, box, *LAM)
+    torch.cuda.synchronize()
+    assert ps.launches == ps.reduce_launches == 1
+    _assert_close(ek, fk, *ps.plain(xs, box, *LAM))
+    e2, f2 = ps.kernel(xs, box, *LAM)
+    assert torch.equal(ek, e2) and torch.equal(fk, f2)
+    partial, outc, f = ps.pairs_launch(ps.operands(xs, box), *LAM)
+    _assert_close(*ps.reduce_launch(partial, outc, f), *ps.reduce_plain(partial, outc))
+    if case == "empty_range":
+        rows = ps._k_slot_gid[(ps.n_blocks - 1) * ps.tr :]
+        assert torch.all(fk[:, rows[rows >= 0].long()] == 0.0)
+
+
+def test_sweep_kernel_reads_device_lambdas_and_any_box():
+    """Lambdas as device tensors are read where they are; Python numbers
+    and tensors give the same bits; no box means no minimum image."""
+    dev = _cuda()
+    ps, xs, box = port_main(device=dev)
+    e1, f1 = ps.kernel(xs, box, *LAM)
+    lam = [torch.tensor(v, dtype=torch.float32, device=dev) for v in LAM]
+    e2, f2 = ps.kernel(xs, box, *lam)
+    assert torch.equal(e1, e2) and torch.equal(f1, f2)
+    e3, f3 = ps.kernel(xs, box.double(), LAM[0], lam[1], torch.tensor(LAM[2], dtype=torch.float64))
+    assert torch.equal(e1, e3) and torch.equal(f1, f3)
+    with pytest.raises(ValueError):
+        ps.kernel(xs, box[:2], *LAM)
+    ps, xs, box = port_main(device=dev, skip_min_image=True)
+    _assert_close(*ps.kernel(xs, None, *LAM), *ps.plain(xs, box, *LAM))
 
 
 def test_kernel_refuses_float64():

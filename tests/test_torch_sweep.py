@@ -9,7 +9,9 @@ and without the build-time exclusion mask, and the EA-like sweep with
 column reaction forces. Tolerances are the sweep tests' own: energy
 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1).
 
-The CUDA kernel itself runs only on the card: ``test_torch_gpu.py``.
+The CUDA kernel itself runs only on the card: ``test_torch_gpu.py``. What
+the host builds for it (the chunk table, the packed columns, the per-column
+mobile index, the kept columns' places) is pinned here.
 """
 
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_sweep_case import ALCH, COMMON, CUTOFF, LAM, L, N, port_main
+from _torch_sweep_case import ALCH, COMMON, CUTOFF, LAM, L, N, port_ea, port_main
 from _torch_sweep_case import excl as _excl
 from _torch_sweep_case import space as _space
 from blues_tpu.potentials.pallas import sweep_kernel as jsk
@@ -146,3 +148,203 @@ def test_cpu_wrapper_refuses_the_kernel_path():
     with pytest.raises(ValueError):
         ps.kernel(xs, box, *LAM)
     assert ps.launches == 0
+
+
+# --- the host-side layout of the kernel --------------------------------------
+
+_LAYOUTS = {
+    "grouped_masked": lambda **kw: port_main(True, **kw),
+    "grouped": lambda **kw: port_main(False, **kw),
+    "ungrouped": lambda **kw: port_main(False, grouped=False, **kw),
+    "empty_group": lambda **kw: port_main(False, empty_group=True, **kw),
+    "ea": lambda **kw: port_ea(True, **kw),
+}
+
+
+@pytest.mark.parametrize("chunk_cols", [7, 100, 512])
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_chunks_tile_every_block_range_once(layout, chunk_cols):
+    """Every column of every block's range lies in exactly one chunk; a
+    block's chunks are consecutive in the table, in column order. (512 is
+    the build's own cut; an EA instance takes 256 at most.)"""
+    chunk_cols = min(chunk_cols, tsk.EA_CHUNK_COLS if layout == "ea" else tsk.CHUNK_COLS)
+    ps, _, _ = _LAYOUTS[layout](chunk_cols=chunk_cols)
+    chunks, bc = ps._chunks_np, ps._block_chunks_np
+    assert bc[0] == 0 and bc[-1] == len(chunks) == ps.n_chunks and len(bc) == ps.n_blocks + 1
+    for b, (c0, c1) in enumerate(ps._col_range_np):
+        mine = chunks[bc[b] : bc[b + 1]]
+        assert (mine[:, 0] == b).all()
+        assert ((mine[:, 2] - mine[:, 1]) <= chunk_cols).all() and (mine[:, 2] > mine[:, 1]).all()
+        covered = np.concatenate([np.arange(lo, hi) for _, lo, hi in mine] + [np.zeros(0, np.int64)])
+        np.testing.assert_array_equal(covered, np.arange(c0, c1))
+    if layout == "empty_group":
+        assert bc[-1] == bc[-2]  # the block without columns has no chunk
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_packed_columns_round_trip(layout):
+    """The two 16-byte vectors per column hold col_feat; the int32 row slot
+    ids hold row_feat's id and validity."""
+    ps, _, _ = _LAYOUTS[layout]()
+    row_feat, col_feat = (a.astype(np.float32) for a in ps._feat_np)
+    q, a = ps._col_q_np, ps._col_a_np
+    assert q.dtype == np.float32 and a.dtype == np.int32 and q.shape == a.shape == (ps.S, 4)
+    np.testing.assert_array_equal(q, col_feat[:, [tsk.F_QSTD, tsk.F_QALCH, tsk.F_SIG, tsk.F_EPS]])
+    np.testing.assert_array_equal(a[:, :2].copy().view(np.float32), col_feat[:, [tsk.F_ALCH, tsk.F_INROWS]])
+    np.testing.assert_array_equal(a[:, 2], col_feat[:, tsk.F_GID].astype(np.int32))
+    np.testing.assert_array_equal(a[:, 2], ps._occ_gid.numpy())
+    gid = ps._k_slot_gid.numpy()
+    assert gid.dtype == np.int32
+    np.testing.assert_array_equal(gid >= 0, row_feat[:, tsk.F_VALID] > 0)
+    np.testing.assert_array_equal(gid[gid >= 0], row_feat[gid >= 0, tsk.F_GID].astype(np.int32))
+    np.testing.assert_array_equal(ps._row_feat.numpy(), row_feat)
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_mobile_index_reproduces_column_positions(layout):
+    """A column's position is x at its mobile index, or its constant when
+    the index is -1: exactly what ``_col_positions`` assembles per call."""
+    ps, xs, _ = _LAYOUTS[layout]()
+    mob = torch.as_tensor(ps._col_mob_np)
+    assert int((mob >= 0).sum()) == len(ps._mob_sel) > 0 and int((mob < 0).sum()) > 0
+    const = torch.as_tensor(ps._col_pos_np)[:, :3]
+    packed = torch.where((mob >= 0)[None, :, None], xs[:, mob.clamp(min=0)], const[None])
+    assert torch.equal(packed, ps._col_positions(xs, torch.float32))
+    np.testing.assert_array_equal(ps._col_a_np[:, 3], ps._col_mob_np)
+
+
+def test_mobile_index_without_constants_is_the_column_itself():
+    rng, x0, rows, per_atom = _space(5)
+    cols = np.setdiff1d(np.arange(N), ALCH)
+    ps = tsk.SweepPairSum(**dict(COMMON, row_gid=rows[5:], col_gid=cols, per_atom=per_atom), device=DEVICE)
+    np.testing.assert_array_equal(ps._col_mob_np, cols[tsk.deal_order(len(cols), 1, -(-len(cols) // 32))])  # one shared range
+    xs = torch.as_tensor(x0, dtype=torch.float32)[None]
+    assert torch.equal(xs[:, torch.as_tensor(ps._col_mob_np)], ps._col_positions(xs, torch.float32))
+
+
+def test_ea_row_and_kept_column_owners_are_disjoint():
+    """Each atom of the force array has one owner in the reduce kernel: the
+    EA rows (alchemical) and the kept columns (mobile, non-alchemical)."""
+    ps, _, _ = port_ea()
+    rows = ps._k_slot_gid.numpy()
+    kept = ps._k_keep_gid.numpy()
+    assert len(np.unique(kept)) == len(kept) == ps.n_keep > 0
+    assert not set(rows[rows >= 0]) & set(kept)
+    pos = ps._k_keep_pos.numpy()
+    np.testing.assert_array_equal(np.sort(pos[pos >= 0]), np.arange(ps.n_keep))
+    np.testing.assert_array_equal(ps._col_a_np[pos >= 0, 2][np.argsort(pos[pos >= 0])], kept)
+
+
+@pytest.mark.parametrize("layout", ["grouped_masked", "empty_group", "ea"])
+def test_reduce_plain_sums_each_blocks_chunks(layout):
+    """``reduce_plain`` (what the reduce kernel is held to on the card)
+    against explicit loops over a random set of partials."""
+    ps, _, _ = _LAYOUTS[layout](chunk_cols=100)
+    rng = np.random.default_rng(1)
+    R = 2
+    partial = rng.standard_normal((R, max(ps.n_chunks, 1), ps.tr, 4))
+    outc = rng.standard_normal((R, ps.n_keep, 4)) if ps.col_forces else None
+    f = np.zeros((R, N, 3))
+    e = np.zeros(R)
+    gid = ps._k_slot_gid.numpy()
+    for slot in np.where(gid >= 0)[0]:
+        b, lane = divmod(slot, ps.tr)
+        t = partial[:, ps._block_chunks_np[b] : ps._block_chunks_np[b + 1], lane].sum(1)
+        f[:, gid[slot]] += t[:, :3]
+        e += t[:, 3]
+    if outc is not None:
+        f[:, ps._k_keep_gid.numpy()] += outc[..., :3]
+    et, ft = ps.reduce_plain(torch.as_tensor(partial), None if outc is None else torch.as_tensor(outc))
+    np.testing.assert_allclose(et.numpy(), e, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(ft.numpy(), f, rtol=1e-12, atol=1e-12)
+
+
+def test_sweep_refuses_repeated_atoms_and_columns():
+    rng, x0, rows, per_atom = _space()
+    cols = np.arange(N, dtype=np.int64)
+    kw = dict(COMMON, per_atom=per_atom, device=DEVICE)
+    with pytest.raises(ValueError, match="distinct"):
+        tsk.SweepPairSum(row_gid=np.r_[rows, rows[:1]], col_gid=cols, **kw)
+    with pytest.raises(ValueError, match="distinct"):
+        tsk.SweepPairSum(row_gid=ALCH, col_gid=cols[5:], col_forces=True, col_force_keep=[1, 1], **kw)
+
+
+def test_lambdas_come_from_the_constant_cache():
+    """Python-number lambdas make no new tensor per call: the same cached
+    constants come back, and tensors pass through as they are."""
+    ps, xs, box = port_main(masked=False)
+    a, _ = ps._lambdas(0.25, 0.5, 1.0, box, torch.float32, xs.device)
+    b, _ = ps._lambdas(0.25, 0.5, 1.0, box, torch.float32, xs.device)
+    assert all(u.data_ptr() == v.data_ptr() for u, v in zip(a, b))
+    assert [float(v) for v in a] == [0.25, 0.5, 1.0]
+    lam = torch.tensor(0.25)
+    assert ps._lambdas(lam, 0.5, 1.0, box, torch.float32, xs.device)[0][0].data_ptr() == lam.data_ptr()
+    e1, f1 = ps(xs, box, 0.25, 0.5, 1.0)
+    e2, f2 = ps(xs, box, lam, torch.tensor(0.5), torch.tensor(1.0))
+    assert torch.equal(e1, e2) and torch.equal(f1, f2)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 129, 1000, 7313])
+def test_deal_order_spreads_single_columns_over_every_round(n):
+    """The rows kernel's order: a permutation under which every window of
+    32 storage places (a warp's round), and of 64 or 128, samples the whole
+    range, so near columns do not pile up in one warp's round."""
+    order = tsk.deal_order(n, 1, -(-n // tsk.ROUND_COLS))
+    np.testing.assert_array_equal(np.sort(order), np.arange(n))
+    for width in (tsk.ROUND_COLS, 64, 128):
+        for lo in range(0, n - width + 1, width):
+            window = order[lo : lo + width]
+            near = np.sum(window < n // 8)  # a coherent eighth of the columns
+            assert abs(near - width / 8) <= 4  # a window may straddle two hands
+
+
+@pytest.mark.parametrize("n", [0, 31, 256, 300, 8828])
+def test_deal_order_spreads_whole_groups_over_the_chunks(n):
+    """The EA kernel's order: groups of 32 consecutive columns stay whole and
+    aligned, consecutive groups land in different chunks of 256, and the
+    partial group comes last."""
+    hands = -(-n // tsk.EA_CHUNK_COLS)
+    order = tsk.deal_order(n, 32, hands)
+    np.testing.assert_array_equal(np.sort(order), np.arange(n))
+    full = n // 32
+    groups = order[: full * 32].reshape(full, 32)
+    assert (groups[:, 0] % 32 == 0).all() and (np.diff(groups, axis=1) == 1).all()
+    np.testing.assert_array_equal(order[full * 32 :], np.arange(full * 32, n))
+    if full > hands > 1:  # neighbours in space lie about a chunk apart in storage
+        place = np.empty(full, np.int64)
+        place[groups[:, 0] // 32] = np.arange(full)
+        assert np.abs(np.diff(place)).min() >= full // hands
+
+
+def test_instances_store_their_columns_dealt_out():
+    ps, _, _ = port_main(masked=False, grouped=False)
+    np.testing.assert_array_equal(ps._occ_gid.numpy(), tsk.deal_order(N, 1, -(-N // 32)))
+    ea, _, _ = port_ea()
+    nc = ea.shape_info["nc"]
+    cols = np.setdiff1d(np.arange(N), ALCH)
+    np.testing.assert_array_equal(ea._occ_gid.numpy(), cols[tsk.deal_order(nc, 32, -(-nc // tsk.EA_CHUNK_COLS))])
+    # the kept list finds its columns in the dealt storage, and back
+    store, pos = ea._keep_store.numpy(), ea._k_keep_pos.numpy()
+    np.testing.assert_array_equal(ea._occ_gid.numpy()[store], ea._k_keep_gid.numpy())
+    np.testing.assert_array_equal(pos[store], np.arange(ea.n_keep))
+
+
+def test_instance_description_follows_the_chunk_table():
+    """The description the C side reads names the staged tensors and the
+    current chunk table; no chunk is wider than the kernel takes."""
+    ps, _, _ = port_main()
+    assert ps._inst.chunks == ps._k_chunks.data_ptr() and ps._inst.n_chunks == ps.n_chunks
+    assert (ps._chunks_np[:, 2] - ps._chunks_np[:, 1]).max() <= tsk.CHUNK_COLS
+    ps._cut_chunks(64)
+    assert ps._inst.chunks == ps._k_chunks.data_ptr() and ps._inst.n_chunks == ps.n_chunks == len(ps._chunks_np)
+    with pytest.raises(ValueError):
+        ps._cut_chunks(tsk.CHUNK_COLS + 1)
+    assert (ps._inst.N, ps._inst.n_slots, ps._inst.tr, ps._inst.W) == (N, ps.n_slots, 32, 1)
+    assert ps._inst.wrap == 1 and ps._inst.use_cutoff == 1 and ps._inst.col_forces == 0
+    assert ps._inst.cutoff == pytest.approx(CUTOFF) and ps._inst.excl == ps._excl_bits.data_ptr()
+    ea, _, _ = port_ea()
+    assert tsk.EA_CHUNK_COLS == (ea._chunks_np[:, 2] - ea._chunks_np[:, 1]).max()
+    assert ea._inst.col_forces == 1 and ea._inst.n_keep == ea.n_keep and ea._inst.keep_gid == ea._k_keep_gid.data_ptr()
+    for cc in (0, tsk.EA_CHUNK_COLS + 1):
+        with pytest.raises(ValueError):
+            ea._cut_chunks(cc)
