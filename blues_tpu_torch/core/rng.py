@@ -1,11 +1,18 @@
 """The one source of random draws on the port's path.
 
 Every draw of the NCMC path (Langevin noise, Maxwell-Boltzmann velocities,
-the Metropolis uniform, the ligand rotation) goes through a source with
-the methods ``normal``, ``uniform`` and ``rotation``. ``TorchRandomSource``
-wraps a ``torch.Generator``; ``ReplayRandomSource`` hands out given numpy
-arrays in order, so a test can feed the JAX package and the port the same
-numbers (JAX threefry and torch Philox streams cannot be matched).
+the Metropolis uniform, the moves' choices) goes through a source with the
+methods ``normal`` and ``uniform``, and the kinds built on them:
+``rotation`` (a uniform random rotation per replica), ``randint`` (a
+bounded integer per replica: a dart target, a sidechain bond),
+``categorical`` (an index per replica under per-replica weights: the water
+to swap, the move an engine runs) and ``bernoulli`` (a CombinationMove's
+direction). ``TorchRandomSource`` wraps a ``torch.Generator``;
+``ReplayRandomSource`` hands out given numpy arrays in order, so a test can
+feed the JAX package and the port the same numbers (JAX threefry and torch
+Philox streams cannot be matched). The integer and Boolean kinds are
+functions of one uniform per replica, so a test replays a JAX choice as a
+uniform inside the chosen index's bin.
 """
 
 from __future__ import annotations
@@ -16,7 +23,36 @@ import torch
 from ..potentials.geometry import rotation_from_uniform
 
 
-class TorchRandomSource:
+class RandomSource:
+    """The draw kinds built on ``uniform``; a subclass provides ``normal``
+    and ``uniform``."""
+
+    def rotation(self, n, dtype, device):
+        """(n, 3, 3) independent uniform random rotations."""
+        return rotation_from_uniform(self.uniform((n, 3), dtype, device))
+
+    def randint(self, low: int, high: int, n, device):
+        """(n,) int64 uniform on [low, high): floor of a float64 uniform."""
+        u = self.uniform((n,), torch.float64, device)
+        k = torch.floor(u * (high - low)).long()
+        return torch.clamp(k, max=high - low - 1) + low
+
+    def categorical(self, weights):
+        """(R,) int64: per row of the (R, K) non-negative ``weights``, index
+        k with probability weights[r, k] / sum(weights[r]), by inverting the
+        cumulative weights at one float64 uniform per row. A row of zeros
+        gives K - 1."""
+        w = weights.to(torch.float64)
+        cdf = torch.cumsum(w, -1)
+        t = self.uniform((w.shape[0],), torch.float64, w.device)[:, None] * cdf[:, -1:]
+        return torch.clamp((cdf <= t).sum(-1), max=w.shape[-1] - 1)
+
+    def bernoulli(self, p: float, n, device):
+        """(n,) bool, True with probability ``p``."""
+        return self.uniform((n,), torch.float64, device) < p
+
+
+class TorchRandomSource(RandomSource):
     """Draws from a ``torch.Generator`` on the generator's device."""
 
     def __init__(self, generator: torch.Generator):
@@ -28,14 +64,12 @@ class TorchRandomSource:
     def uniform(self, shape, dtype, device):
         return torch.rand(shape, generator=self.generator, dtype=dtype, device=device)
 
-    def rotation(self, n, dtype, device):
-        """(n, 3, 3) independent uniform random rotations."""
-        return rotation_from_uniform(self.uniform((n, 3), dtype, device))
 
-
-class ReplayRandomSource:
+class ReplayRandomSource(RandomSource):
     """Hands out the given arrays in order, one queue per kind; each call
-    must ask for exactly the shape of the next array."""
+    must ask for exactly the shape of the next array. ``randint``,
+    ``categorical`` and ``bernoulli`` take their uniforms from the uniform
+    queue."""
 
     def __init__(self, normals=(), uniforms=(), rotations=()):
         self._queues = {

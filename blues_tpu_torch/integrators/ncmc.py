@@ -37,6 +37,7 @@ class NCMCResult(NamedTuple):
     e_initial: torch.Tensor  # (R,) alchemical potential at protocol start
     e_final: torch.Tensor  # (R,) alchemical potential at protocol end
     mid_work: torch.Tensor  # (R,) work accumulated up to and including the move
+    move_aux: object = None  # the move's per-replica aux at protocol end (e.g. an engine's "selected")
 
 
 def _parse_splitting(splitting: str, dt: float):
@@ -203,6 +204,7 @@ def make_ncmc_protocol(
             e_initial=e_initial,
             e_final=e_final,
             mid_work=mid_w,
+            move_aux=aux,
         )
 
     protocol_fn.use_split = use_split

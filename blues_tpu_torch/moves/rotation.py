@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..potentials.geometry import center_of_mass
+from ..potentials.geometry import center_of_mass, matvec_rows
 from .base import Move
 
 
@@ -35,8 +35,7 @@ class RandomLigandRotationMove(Move):
         lig = x.index_select(1, idx)
         com = center_of_mass(lig, self.masses)[:, None, :]
         rot = source.rotation(x.shape[0], x.dtype, x.device)
-        # (lig - com) @ rot written out, so no TF32 matmul can round it
-        new_lig = ((lig - com)[..., :, None] * rot[:, None]).sum(-2) + com
+        new_lig = matvec_rows(lig - com, rot.transpose(-1, -2)) + com  # (lig - com) @ rot
         return x.index_copy(1, idx, new_lig), aux
 
     def remap(self, mapping, masses_m):

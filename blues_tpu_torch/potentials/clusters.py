@@ -186,7 +186,8 @@ def column_key_plain(x, ids_t, grid, L=None):
         u = (xs - lo) / torch.clamp(xs.amax(1, keepdim=True) - lo, min=1e-6)
     top = device_const((nx - 1, ny - 1, (1 << SUBKEY_BITS) - 1), u.dtype, u.device)
     scale = device_const((nx, ny, 1 << SUBKEY_BITS), u.dtype, u.device)
-    q = torch.minimum(torch.clamp(u * scale, min=0.0), top).long()
+    # a NaN position keys as 0, as the kernel's fmaxf(NaN, 0) does
+    q = torch.minimum(torch.clamp(torch.nan_to_num(u * scale, nan=0.0), min=0.0), top).long()
     return ((q[..., 0] * ny + q[..., 1]) << SUBKEY_BITS) | q[..., 2]
 
 
@@ -246,7 +247,8 @@ def pair_list_sum(
     hold atoms, the ids differ and r^2 < rc^2; its energy is weighted by
     1 - 0.5*in_rows_i*in_rows_j, and with ``keep_rows`` a row's E and F are
     multiplied by its in_rows. Returns ((R,) E, (R, n_atoms, 3) F), or with
-    ``count_only`` the (visited slots, in-cutoff pairs) over all replicas."""
+    ``count_only`` the (visited slots, in-cutoff pairs) over all replicas,
+    the pairs of ``keep_rows``'s masked rows not counted."""
     dt, dev = rows.x.dtype, rows.x.device
     R = rows.x.shape[0]
     rep, g, ent = list_entries(lst, count, None if shift is not None else cols.n_clusters)
@@ -272,6 +274,8 @@ def pair_list_sum(
         a, b = id_i[:, :, None], id_j[:, None, :]
         valid = (a >= 0) & (b >= 0) & (a != b) & (r2 < rc2)
         if count_only:
+            if keep_rows:  # a masked row's pairs are not part of the sum
+                valid = valid & (feat[id_i.clamp(min=0), F_INROWS] > 0)[:, :, None]
             n_in += int(valid.sum())
             continue
         e_, i_, j_ = valid.nonzero().unbind(1)

@@ -9,16 +9,21 @@ of alchemical systems:
   * 'sweep' (frozen production systems): the pair space is statically
     culled to permanent reach balls around the mobile rows, summed by the
     sweep kernel K1 (``potentials/sweep.py``) for MAIN, E0 and EA, with a
-    cull guard, a frozen-background PME grid and filtered lists;
-  * 'pcells' (no frozen atoms): the cell-list kernel K3
-    (``potentials/pcells.py``) for MAIN and E0, full lists, PME over every
-    atom, and a dense alchemical x non-alchemical block for Ea;
-  * 'pallas' (no frozen atoms): the same with the all-pairs kernel K2
-    (``potentials/pair_kernel.py``).
+    cull guard, a frozen-background PME grid and filtered lists; where
+    culling is off (a teleporting move) or does not engage, the backend
+    resolves to 'pallas', as in the JAX package;
+  * 'pcells': the cell-list kernel K3 (``potentials/pcells.py``) for MAIN
+    and E0, every atom binned (frozen rows masked on a frozen system);
+  * 'pallas': the all-pairs kernel K2 (``potentials/pair_kernel.py``) over
+    the rows (every atom, or the mobile ones) x every column (or the culled
+    ones on a frozen system).
 
-Positions are (R, N, 3); every energy is (R,). Other backends, the 'exact'
-PME treatment, triclinic boxes, frozen systems where culling does not
-engage and frozen systems on 'pcells'/'pallas' raise ``ValueError``.
+Off the EA sweep, Ea is a dense alchemical x non-alchemical block. Frozen
+systems on every backend share the frozen-background PME grid and the
+filtered lists (``_build_frozen``); systems without frozen atoms take full
+lists and PME over every atom (``_build_unfrozen``). Positions are (R, N,
+3); every energy is (R,). Other backends, the 'exact' PME treatment and
+triclinic boxes raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -276,8 +281,10 @@ class NonbondedEnergy:
 
     The rest terms (exclusion and exception lists, PME reciprocal/self/
     plasma, dispersion) are shared by every backend; only the pair sums
-    differ: ``_build_sweep`` for frozen systems, ``_build_unfrozen`` for the
-    cells (K3) and pair (K2) kernels on systems where every atom moves."""
+    differ. ``_build_frozen`` builds them for frozen systems (every
+    backend), ``_build_unfrozen`` for systems where every atom moves (K3 or
+    K2). ``backend`` is the resolved backend: 'sweep' falls back to
+    'pallas' where it has no culled columns."""
 
     def __init__(
         self,
@@ -370,33 +377,30 @@ class NonbondedEnergy:
         self.pair_sum0 = self.ea_sweep = None
         self.has_split = False
         self.cull_info = self.cull_bounds = None
-        self._guard = False
+        self._guard = False  # the cull guard (frozen systems with culled columns)
+        self._frozen_grid = False  # the frozen-background PME grid's box poison
+        self._ea_const = False  # the dense Ea block bakes frozen columns
         self.excl_ff_const = 0.0
 
         m = np.asarray(masses) if masses is not None else np.ones(n)
         frozen = bool((m <= 0).any())
-        if backend == "sweep":
-            if not frozen or frozen_ref_positions is None:
-                raise ValueError(
-                    "the sweep backend needs frozen atoms with reference positions "
-                    "(freeze_radius); unfrozen systems take backend 'pcells' or 'pallas'"
-                )
-            self._build_sweep(
-                nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
-                bonds_for_cull, sweep_row_group,
-            )
-        elif backend in ("pcells", "pallas"):
-            if frozen:
-                raise ValueError(
-                    f"backend {backend!r} on a system with frozen atoms is not ported "
-                    "(the sweep backend's no-cull fallback); frozen systems take 'sweep'"
-                )
-            self._build_unfrozen(nb)
-        else:
+        if backend not in ("sweep", "pcells", "pallas"):
             raise ValueError(
                 f"nonbonded backend {backend!r} is not ported; the port has 'sweep', "
                 "'pcells' and 'pallas'"
             )
+        if frozen or backend == "sweep":
+            if not frozen or frozen_ref_positions is None:
+                raise ValueError(
+                    f"backend {backend!r} on this system needs frozen atoms with reference positions "
+                    "(freeze_radius); unfrozen systems take backend 'pcells' or 'pallas'"
+                )
+            self._build_frozen(
+                nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
+                bonds_for_cull, sweep_row_group,
+            )
+        else:
+            self._build_unfrozen(nb)
 
     # ------------------------------------------------------------------
     def _pair_params(self, pairs):
@@ -527,47 +531,34 @@ class NonbondedEnergy:
         na_excl_mask = self._split_lists(
             alch_atoms_np, cols_na, excl, exc_idx, None, np.zeros(len(excl), bool)
         )
-        # the dense alchemical x non-alchemical block of Ea (plain tensor
-        # ops, forces from autograd)
-        c["ea_rows"] = alch_atoms_np
-        c["ea_cols"] = cols_na
-        c["ea_sig"] = 0.5 * (sigmas[alch_atoms_np][:, None] + sigmas[cols_na][None, :])
-        c["ea_eps"] = np.sqrt(epsilons[alch_atoms_np][:, None] * epsilons[cols_na][None, :])
-        c["ea_qq"] = charges[alch_atoms_np][:, None] * self._q_std[cols_na][None, :]
-        c["ea_keep"] = ~na_excl_mask
+        self._stage_ea_block(alch_atoms_np, cols_na, na_excl_mask)
+
+    def _stage_ea_block(self, rows, cols, excl_mask, x0=None, in_rows=None):
+        """The dense alchemical x non-alchemical block of Ea (plain tensor
+        ops, forces from autograd). On a frozen system (``x0``, ``in_rows``)
+        the frozen columns' positions are build-time constants and only the
+        mobile columns are gathered, so no force reaches a frozen column."""
+        c, sig, eps = self.c, self._sigmas, self._epsilons
+        c["ea_rows"] = rows
+        c["ea_cols"] = cols
+        c["ea_sig"] = 0.5 * (sig[rows][:, None] + sig[cols][None, :])
+        c["ea_eps"] = np.sqrt(eps[rows][:, None] * eps[cols][None, :])
+        c["ea_qq"] = self._charges[rows][:, None] * self._q_std[cols][None, :]
+        c["ea_keep"] = ~excl_mask
+        self._ea_const = x0 is not None and not in_rows[cols].all()
+        if self._ea_const:
+            msel = np.where(in_rows[cols])[0]
+            c["ea_xconst"] = x0[cols]
+            c["ea_msel"] = msel
+            c["ea_mgid"] = cols[msel]
 
     # ------------------------------------------------------------------
-    def _build_sweep(
-        self, nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
-        bonds_for_cull, sweep_row_group,
-    ):
-        """The frozen production path: culled columns, the cull guard, the
-        frozen-background PME grid, the sweep kernel (K1) for MAIN, E0 and
-        EA."""
-        dev, n, common, alchemical = self.device, self.n_atoms, self.common, self.alchemical
-        charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
-        method, cutoff, periodic, alpha = self.method, self.cutoff, self.periodic, self.alpha
-        in_rows_np = (np.asarray(masses) > 0) | is_alch
-        active_rows = np.where(in_rows_np)[0].astype(np.int64)
-        x0 = np.asarray(frozen_ref_positions, np.float64)
-
-        self.recip = None
-        if method == PME:
-            fro_idx = np.where(~in_rows_np)[0]
-            base_grid = precompute_spread_grid(self.pme_params, x0[fro_idx], charges[fro_idx], self.box0)
-            self.recip = make_pme_reciprocal(
-                self.pme_params, base_grid=base_grid, spread_subset=active_rows, device=dev
-            )
-
-        # --- static column culling (permanent reach balls) -------------------
-        if frozen_cull_skin is None or frozen_cull_skin <= 0:
-            raise ValueError("the sweep backend needs column culling (frozen_cull_skin > 0)")
-        skin = float(frozen_cull_skin)
-        Lnp = np.diag(self.box0) if (periodic and self.box0 is not None) else None
-        rows_np = active_rows
-        centers, radii = _cull_balls(
-            rows_np, x0, Lnp, bonds_for_cull, masses, skin, frozen_cull_cage_margin, n
-        )
+    def _cull_columns(self, rows_np, x0, Lnp, bonds_for_cull, masses, skin, cage_margin):
+        """Static column culling (permanent reach balls around the mobile
+        rows): (col_idx, centers, radii) when it engages (at most 75% of the
+        atoms in reach), else None."""
+        n, cutoff = self.n_atoms, self.cutoff
+        centers, radii = _cull_balls(rows_np, x0, Lnp, bonds_for_cull, masses, skin, cage_margin, n)
         colmask = np.zeros(n, bool)
         for lo in range(0, len(rows_np), 512):
             d = x0[:, None, :] - centers[None, lo : lo + 512, :]
@@ -577,45 +568,96 @@ class NonbondedEnergy:
             colmask |= ((d * d).sum(-1) <= reach * reach).any(1)
         colmask[rows_np] = True
         if colmask.mean() > 0.75:
-            raise ValueError(
-                "column culling does not engage for this system (more than 75% of atoms "
-                "in reach); the sweep's no-cull fallback to the pair kernel is not ported"
-            )
-        col_idx = np.where(colmask)[0].astype(np.int64)
-        self.cull_bounds = (rows_np.copy(), centers.copy(), radii.copy())
-        self.cull_info = (len(col_idx), n)
-        noimg = _no_image_geometry(x0, col_idx, rows_np, centers, radii, Lnp, cutoff) if Lnp is not None else None
-        col_const = x0[col_idx] + (noimg[0] if noimg is not None else 0.0)
-        col_msel = np.where(in_rows_np[col_idx])[0]
-        col_mgid = col_idx[col_msel]
+            return None
+        return np.where(colmask)[0].astype(np.int64), centers, radii
 
+    def _build_frozen(
+        self, nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
+        bonds_for_cull, sweep_row_group,
+    ):
+        """Frozen systems: the mobile-or-alchemical atoms are the rows, the
+        frozen-background PME grid, exclusion and exception lists filtered
+        to mobile-involving pairs, and the pair sums of the backend:
+
+          * 'sweep' with column culling engaged: K1 for MAIN, E0 and EA, the
+            cull guard, build-time exclusion masking;
+          * 'sweep' when culling is off (``frozen_cull_skin`` None or 0, as
+            a teleporting move sets it) or does not engage: resolved to
+            'pallas', the JAX package's own fallback;
+          * 'pallas': K2 over the rows x the culled columns (every atom
+            without culling), with the cull guard when culling engages;
+          * 'pcells': K3 over every atom with the frozen rows masked, no
+            culling.
+
+        Off the EA sweep, Ea is the dense alchemical x non-alchemical block
+        with the frozen columns baked as constants."""
+        dev, n, common, alchemical = self.device, self.n_atoms, self.common, self.alchemical
+        charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
+        method, cutoff, periodic, alpha = self.method, self.cutoff, self.periodic, self.alpha
+        in_rows_np = (np.asarray(masses) > 0) | is_alch
+        active_rows = np.where(in_rows_np)[0].astype(np.int64)
+        rows_np = active_rows
+        x0 = np.asarray(frozen_ref_positions, np.float64)
         c = self.c
-        c["guard_rows"] = rows_np
-        c["guard_centers"] = centers
-        c["guard_r2"] = (radii + 1e-3) ** 2
-        if self.box0 is not None:
-            c["box0"] = self.box0  # the frozen PME grid's box, for the poison
-        self._guard = True
 
-        excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
-        excl_mask_np, excl_prefiltered = _excl_mask(excl_all, n, rows_np, col_idx)
-
-        per_atom_main = dict(
-            q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas,
-            epsilon=epsilons, alch=is_alch.astype(np.float64), in_rows=in_rows_np.astype(np.float64),
-        )
-        groups_main = None
-        if sweep_row_group:
-            groups_main = build_row_groups(
-                rows=rows_np, centers=centers, radii=radii, cols=col_idx, ref_positions=x0,
-                box_lengths=Lnp, cutoff=cutoff, group_size=sweep_row_group, excl_mask=excl_mask_np,
+        self.recip = None
+        if method == PME:
+            fro_idx = np.where(~in_rows_np)[0]
+            base_grid = precompute_spread_grid(self.pme_params, x0[fro_idx], charges[fro_idx], self.box0)
+            self.recip = make_pme_reciprocal(
+                self.pme_params, base_grid=base_grid, spread_subset=active_rows, device=dev
             )
-        self.pair_sum = SweepPairSum(
-            row_gid=rows_np, col_gid=col_idx, per_atom=per_atom_main, n_atoms=n,
-            excl_mask=excl_mask_np, col_const_positions=col_const, col_mobile_sel=col_msel,
-            col_mobile_gid=col_mgid, skip_min_image=noimg is not None, groups=groups_main,
-            name="MAIN", **common,
-        )
+            c["box0"] = self.box0  # the frozen PME grid's box, for the poison
+            self._frozen_grid = True
+
+        # --- static column culling (permanent reach balls) -------------------
+        Lnp = np.diag(self.box0) if (periodic and self.box0 is not None) else None
+        culled = None
+        if self.backend in ("sweep", "pallas") and frozen_cull_skin is not None and frozen_cull_skin > 0:
+            culled = self._cull_columns(
+                rows_np, x0, Lnp, bonds_for_cull, masses, float(frozen_cull_skin), frozen_cull_cage_margin
+            )
+        if self.backend == "sweep" and culled is None:
+            self.backend = "pallas"  # no culled columns to sweep: the pair kernel
+        col_idx = noimg = col_const = None
+        if culled is not None:
+            col_idx, centers, radii = culled
+            self.cull_bounds = (rows_np.copy(), centers.copy(), radii.copy())
+            self.cull_info = (len(col_idx), n)
+            c["guard_rows"] = rows_np
+            c["guard_centers"] = centers
+            c["guard_r2"] = (radii + 1e-3) ** 2
+            self._guard = True
+        sweep = self.backend == "sweep"
+        excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
+        excl_prefiltered = np.zeros(len(excl_all), bool)
+        if sweep:
+            noimg = _no_image_geometry(x0, col_idx, rows_np, centers, radii, Lnp, cutoff) if Lnp is not None else None
+            col_const = x0[col_idx] + (noimg[0] if noimg is not None else 0.0)
+            col_msel = np.where(in_rows_np[col_idx])[0]
+            excl_mask_np, excl_prefiltered = _excl_mask(excl_all, n, rows_np, col_idx)
+            per_atom_main = dict(
+                q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas,
+                epsilon=epsilons, alch=is_alch.astype(np.float64), in_rows=in_rows_np.astype(np.float64),
+            )
+            groups_main = None
+            if sweep_row_group:
+                groups_main = build_row_groups(
+                    rows=rows_np, centers=centers, radii=radii, cols=col_idx, ref_positions=x0,
+                    box_lengths=Lnp, cutoff=cutoff, group_size=sweep_row_group, excl_mask=excl_mask_np,
+                )
+            self.pair_sum = SweepPairSum(
+                row_gid=rows_np, col_gid=col_idx, per_atom=per_atom_main, n_atoms=n,
+                excl_mask=excl_mask_np, col_const_positions=col_const, col_mobile_sel=col_msel,
+                col_mobile_gid=col_idx[col_msel], skip_min_image=noimg is not None, groups=groups_main,
+                name="MAIN", **common,
+            )
+        else:
+            feats = build_pair_features(charges, sigmas, epsilons, is_alch, active_rows)
+            if self.backend == "pcells":
+                self.pair_sum = CellsPairSum(feats, box0=self.box0, name="cells_main", **common)
+            else:
+                self.pair_sum = PallasPairSum(feats, col_idx=col_idx, box0=self.box0, name="pair_main", **common)
 
         # --- exclusion / exception lists, filtered to mobile-involving -------
         exc_idx_all = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
@@ -638,11 +680,10 @@ class NonbondedEnergy:
                     units.ONE_4PI_EPS0 * np.sum(qqff * _erf(alpha * rff) / rff)
                 )
 
-        # full path: subtract the excluded pairs the kernel included (those
+        # full path: subtract the excluded pairs the pair sum included (those
         # not masked at build time), add all live exceptions; the PME erf
         # correction covers every live exclusion
-        x_included = (in_rows_np[excl[:, 0]] | in_rows_np[excl[:, 1]]) & ~x_pref
-        self._stage_pairs("xsub", excl[x_included])
+        self._stage_pairs("xsub", excl[~x_pref])
         self._stage_exc("exc", exc_idx, np.ones(len(exc_idx), bool), live_e)
         c["erf_idx"] = excl
 
@@ -652,18 +693,14 @@ class NonbondedEnergy:
             if (alchemical is not None and len(alchemical.atoms))
             else np.zeros(0, np.int64)
         )
-        if not len(alch_atoms_np):
+        # the JAX package's split bound: larger regions run unsplit
+        if not (0 < len(alch_atoms_np) <= 512):
             return
-        if len(alch_atoms_np) > 128:
-            raise ValueError(
-                "the port's EA sweep takes at most 128 alchemical atoms; the dense "
-                "NA block for larger frozen regions is not ported"
-            )
-        alch_set = set(alch_atoms_np.tolist())
-        cols_na = np.asarray([cc for cc in col_idx if cc not in alch_set], np.int64)
-        rows0 = np.asarray([r for r in rows_np if r not in alch_set], np.int64)
+        cols_full = col_idx if col_idx is not None else np.arange(n, dtype=np.int64)
+        cols_na = cols_full[~is_alch[cols_full]]
+        rows0 = rows_np[~is_alch[rows_np]]
         pref0_live = np.zeros(len(excl), bool)
-        if len(rows0):
+        if len(rows0) and sweep:
             sel0c = np.searchsorted(col_idx, cols_na)
             col_msel0 = np.where(in_rows_np[cols_na])[0]
             excl_mask0, pref0_live = _excl_mask(excl, n, rows0, cols_na)
@@ -689,22 +726,32 @@ class NonbondedEnergy:
                 col_mobile_sel=col_msel0, col_mobile_gid=cols_na[col_msel0],
                 skip_min_image=noimg is not None, groups=groups0, name="E0", **common,
             )
-        if not len(cols_na):
-            raise ValueError("the EA sweep needs non-alchemical columns")
+        elif len(rows0) and self.backend == "pcells":
+            # alchemical charge and epsilon zeroed: their pairs are exactly 0
+            feats0 = build_pair_features(
+                charges * (1.0 - is_alch), sigmas, epsilons * (1.0 - is_alch), np.zeros(n, bool), rows0,
+            )
+            self.pair_sum0 = CellsPairSum(feats0, box0=self.box0, name="cells_e0", **common)
+        elif len(rows0):
+            feats0 = build_pair_features(charges, sigmas, epsilons, np.zeros(n, bool), rows0)
+            self.pair_sum0 = PallasPairSum(feats0, col_idx=cols_na, box0=self.box0, name="pair_e0", **common)
         na_excl_mask = self._split_lists(alch_atoms_np, cols_na, excl, exc_idx, live_e, pref0_live)
-        selc = np.searchsorted(col_idx, cols_na)
-        mob_sel_cols = np.where(in_rows_np[cols_na])[0]
-        per_atom_ea = dict(
-            q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas, epsilon=epsilons,
-            alch=is_alch.astype(np.float64), in_rows=np.zeros(n),
-        )
-        self.ea_sweep = SweepPairSum(
-            row_gid=alch_atoms_np, col_gid=cols_na, per_atom=per_atom_ea, n_atoms=n,
-            excl_mask=na_excl_mask if na_excl_mask.any() else None,
-            col_const_positions=col_const[selc], col_mobile_sel=mob_sel_cols,
-            col_mobile_gid=cols_na[mob_sel_cols], col_forces=True, col_force_keep=mob_sel_cols,
-            skip_min_image=noimg is not None, name="EA", **common,
-        )
+        if sweep and len(cols_na) and len(alch_atoms_np) <= 128:
+            selc = np.searchsorted(col_idx, cols_na)
+            mob_sel_cols = np.where(in_rows_np[cols_na])[0]
+            per_atom_ea = dict(
+                q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas, epsilon=epsilons,
+                alch=is_alch.astype(np.float64), in_rows=np.zeros(n),
+            )
+            self.ea_sweep = SweepPairSum(
+                row_gid=alch_atoms_np, col_gid=cols_na, per_atom=per_atom_ea, n_atoms=n,
+                excl_mask=na_excl_mask if na_excl_mask.any() else None,
+                col_const_positions=col_const[selc], col_mobile_sel=mob_sel_cols,
+                col_mobile_gid=cols_na[mob_sel_cols], col_forces=True, col_force_keep=mob_sel_cols,
+                skip_min_image=noimg is not None, name="EA", **common,
+            )
+        else:
+            self._stage_ea_block(alch_atoms_np, cols_na, na_excl_mask, x0, in_rows_np)
 
     # ------------------------------------------------------------------
     def pair_factors(self, globals_, dtype, device):
@@ -772,7 +819,7 @@ class NonbondedEnergy:
         ke, alpha = units.ONE_4PI_EPS0, self.alpha
         q = c("q_eff", dt)
         e = self.recip(x, q, box)
-        if self._guard:
+        if self._frozen_grid:
             mismatch = (box - c("box0", dt)).abs().max() > 1e-5
             e = torch.where(mismatch, float("nan"), 0.0).to(dt) + e
         e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
@@ -797,7 +844,7 @@ class NonbondedEnergy:
 
     def cull_guard(self, x, box):
         """NaN in energy AND forces when a row leaves its reach ball; zero
-        otherwise (and for unfrozen systems, which have no guard). The
+        otherwise (and where no columns are culled: no guard). The
         1e-30*sum(x) factor carries the poison into autograd forces, so MD
         (which reads forces only) trips its rollback."""
         if not self._guard:
@@ -834,10 +881,17 @@ class NonbondedEnergy:
         return e + self._tail(x, box)
 
     def _ea_block(self, x, box, lam_s, lam_e, f_aa):
-        """The dense alchemical x non-alchemical block (unfrozen systems):
-        plain tensor ops, build-time exclusion mask, forces from autograd."""
+        """The dense alchemical x non-alchemical block: plain tensor ops,
+        build-time exclusion mask, forces from autograd; frozen columns are
+        constants (``_stage_ea_block``)."""
         c, dt = self.c, x.dtype
-        dr = x[:, c("ea_rows"), None, :] - x[:, None, c("ea_cols"), :]
+        if self._ea_const:
+            xc = c("ea_xconst", dt).expand(x.shape[0], -1, -1)
+            if len(c("ea_msel")):
+                xc = xc.index_copy(1, c("ea_msel"), x.index_select(1, c("ea_mgid")))
+        else:
+            xc = x.index_select(1, c("ea_cols"))
+        dr = x.index_select(1, c("ea_rows"))[:, :, None, :] - xc[:, None, :, :]
         if self.periodic and box is not None:
             dr = periodic_displacement(dr, box)
         r2 = (dr * dr).sum(-1)
@@ -852,7 +906,7 @@ class NonbondedEnergy:
 
     def lambda_ea(self, x, box=None, globals_=None):
         """Alchemical part Ea(x, lambda): the alchemical x non-alchemical
-        block (the EA sweep on frozen systems, dense otherwise), the
+        block (the EA sweep with culled columns, dense otherwise), the
         intra-alchemical pairs and the alchemical-involving exceptions."""
         c, dt = self.c, x.dtype
         lam_s, lam_e, f_aa = self.pair_factors(globals_, dt, x.device)
@@ -897,8 +951,9 @@ def make_nonbonded_energy(
     sweep_row_group: Optional[int] = None,
     device=DEFAULT_DEVICE,
 ) -> NonbondedEnergy:
-    """``backend``: 'sweep' (frozen systems), 'pcells' or 'pallas' (systems
-    without frozen atoms), or 'auto': 'sweep' for a mostly-frozen system.
+    """``backend``: 'sweep' (frozen systems; 'pallas' where no columns are
+    culled), 'pcells' or 'pallas' (any system), or 'auto': 'sweep' for a
+    mostly-frozen system.
     The JAX package's 'auto' picks its XLA 'cells' backend for a
     mostly-mobile one, which is not ported, so the port raises there."""
     if backend == "auto":

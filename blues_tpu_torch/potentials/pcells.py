@@ -59,7 +59,8 @@ def snake_key(f):
     in the first and third quarter and falling in the others."""
     qy = (f[..., 1] >= 0.5).int()
     quarter = torch.where(f[..., 0] >= 0.5, 3 - qy, qy)
-    z = torch.clamp(f[..., 2] * _Z_LEVELS, 0.0, _Z_LEVELS - 1).int()
+    # a NaN position keys as z level 0, as the kernel's fmaxf(NaN, 0) does
+    z = torch.clamp(torch.nan_to_num(f[..., 2] * _Z_LEVELS, nan=0.0), 0.0, _Z_LEVELS - 1).int()
     return quarter * _Z_LEVELS + torch.where(quarter % 2 == 1, _Z_LEVELS - 1 - z, z)
 
 

@@ -59,8 +59,10 @@ def build_mobile_compaction(
     system: System, efn: Callable, ffn: Callable, move=None, device=DEFAULT_DEVICE
 ) -> Optional[MobileCompaction]:
     """The compacted-dynamics adapters, or None when ineligible (no frozen
-    reference frame, a constraint straddling the frozen boundary, or a
-    move whose atoms cannot be remapped)."""
+    reference frame, a constraint straddling the frozen boundary, a
+    teleporting move, or a move whose atoms cannot be remapped: each move's
+    ``remap``, which an engine or a combination applies to its sub-moves
+    and a sidechain move refuses when a rotating atom is frozen)."""
     masses = np.asarray(system.masses)
     if system.frozen_ref_positions is None or not (masses <= 0).any():
         return None
@@ -84,6 +86,8 @@ def build_mobile_compaction(
     masses_m = masses[mob]
     move_m = None
     if move is not None:
+        if move.teleports:
+            return None
         move_m = move.remap(mapping, masses_m)
         if move_m is None:
             return None

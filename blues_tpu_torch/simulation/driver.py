@@ -5,20 +5,25 @@ monolithic NCMC protocol with the lambda split, the alchemical correction
 and Metropolis test, Maxwell-Boltzmann velocity resampling, and
 ``nstepsMD`` BAOAB steps with a rollback when MD ends non-finite. On a
 frozen production system the dynamics runs on the compacted mobile state
-(``compact.py``); on a system without frozen atoms (backends 'pcells' and
-'pallas') it runs on the full state, as the JAX driver's ``iteration``.
-``frozen_compact='auto'`` takes the compact iteration where it is eligible.
-Positions are (R, N, 3); the JAX package's ``vmap`` over replicas is the
-leading dimension here.
+(``compact.py``); otherwise (no frozen atoms, a teleporting move, a
+sidechain move that turns a frozen atom, ``frozen_compact=False``) it runs
+on the full state, as the JAX driver's ``iteration``: frozen atoms have
+zero inverse mass, so they keep their positions bit for bit and zero
+velocities. ``frozen_compact='auto'`` takes the compact iteration where it
+is eligible. A teleporting move (water hop, darting, an engine or
+combination holding one) turns frozen-system column culling off for both
+energies, as the JAX driver does, so the 'sweep' backend resolves to the
+pair kernel. Positions are (R, N, 3); the JAX package's ``vmap`` over
+replicas is the leading dimension here.
 
 Acceptance (reference semantics):
 
     log_accept = -(protocol_work)/kT + correction
     correction = -[(E_alch(x0) - E_md(x0)) + (E_md(x1) - E_alch(x1))]/kT
 
-Configurations outside the port (a frozen system without compaction,
-barostat, segmented dispatch, frame reporters, moves other than rotation
-or null) raise ``ValueError``.
+Configurations outside the port (barostat, segmented dispatch, frame
+reporters, backends other than 'sweep', 'pcells', 'pallas' and 'auto')
+raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -39,8 +44,7 @@ from ..integrators.constraints import make_constraint_fns
 from ..integrators.langevin import LangevinParams, make_md_step
 from ..integrators.ncmc import make_ncmc_protocol
 from ..integrators.schedules import build_ncmc_schedule, calculate_ncmc_steps
-from ..moves.base import Move, NullMove
-from ..moves.rotation import RandomLigandRotationMove
+from ..moves.base import Move
 from ..potentials.energy import make_energy_fn, make_force_fn
 from .compact import build_mobile_compaction
 
@@ -93,6 +97,7 @@ class IterationStats(NamedTuple):
     ncmc_potential: torch.Tensor  # (R,) alchemical potential at protocol end
     mid_work: torch.Tensor
     md_failed: torch.Tensor  # (R,) bool: MD rolled back
+    selected_move: torch.Tensor  # (R,) int64: the engine's sub-move (0 without an engine)
 
 
 def _check_slice(cfg: SimulationConfig, move):
@@ -107,8 +112,8 @@ def _check_slice(cfg: SimulationConfig, move):
         out.append("use_pallas")
     if cfg.nonbonded_backend not in ("auto", "sweep", "pcells", "pallas"):
         out.append(f"nonbonded_backend={cfg.nonbonded_backend!r}")
-    if move is not None and type(move) not in (Move, NullMove, RandomLigandRotationMove):
-        out.append(f"move {type(move).__name__}")
+    if move is not None and not isinstance(move, Move):
+        out.append(f"move {type(move).__name__} (not a blues_tpu_torch Move)")
     if out:
         raise ValueError("outside the port's slice: " + ", ".join(out))
 
@@ -127,13 +132,16 @@ class BLUESSimulation:
         self.propSteps = ncmc["propSteps"]
         self.moveStep = config.moveStep if config.moveStep is not None else ncmc["moveStep"]
 
+        # a teleport has no local displacement bound: the culling guard
+        # would veto every proposal, so culling is off for such moves
+        cull_skin = None if (move is not None and move.teleports) else config.frozen_cull_skin
         common = dict(
             nonbonded_method=config.nonbonded_method,
             cutoff=config.cutoff,
             switch_distance=config.switch_distance,
             ewald_tolerance=config.ewald_tolerance,
             nonbonded_backend=config.nonbonded_backend,
-            frozen_cull_skin=config.frozen_cull_skin,
+            frozen_cull_skin=cull_skin,
             sweep_row_group=config.sweep_row_group,
             device=self.device,
         )
@@ -143,6 +151,12 @@ class BLUESSimulation:
             if system.alchemical is not None
             else self.energy_md
         )
+        nb = self.energy_alch.nonbonded
+        if nb is not None and nb.backend != config.nonbonded_backend:
+            logger.info(
+                "nonbonded backend %r resolved to %r (culled columns: %s)",
+                config.nonbonded_backend, nb.backend, nb.cull_info,
+            )
         self.force_md = make_force_fn(self.energy_md)
         self.force_alch = make_force_fn(self.energy_alch)
         self._constrain = make_constraint_fns(system.constraints, system.masses, self.device)
@@ -164,20 +178,16 @@ class BLUESSimulation:
                 raise ValueError(
                     "frozen_compact=True but the system/move is not compaction-eligible "
                     "(needs frozen reference positions, no boundary-straddling "
-                    "constraints, a remappable move)"
+                    "constraints, a non-teleporting remappable move)"
                 )
-        if comp is None and (np.asarray(system.masses) <= 0).any():
-            raise ValueError(
-                "a system with frozen atoms runs the compact iteration only; this one "
-                "is not compaction-eligible or frozen_compact is False (the full-array "
-                "iteration of a frozen system is not ported)"
-            )
         self._compact = comp
         self.source = None
         self.state = None
         self.accept_counter = 0
         self.iteration_count = 0
         self.stats_history: list = []
+        #: per sub-move (attempted, accepted) counts, accumulated by run()
+        self.move_stats = np.zeros((len(getattr(move, "moves", [move])), 2))
 
     def _build_dynamics(self):
         """The protocol, MD step and state views of the iteration: on the
@@ -295,6 +305,11 @@ class BLUESSimulation:
         v = put(torch.zeros_like(x), vd)
         self.state = (x, v, box)
         self.iteration_count += 1
+        aux = res.move_aux
+        if isinstance(aux, dict) and "selected" in aux:
+            selected = aux["selected"]
+        else:
+            selected = torch.zeros(R, dtype=torch.long, device=dev)
         return IterationStats(
             accepted=accepted,
             protocol_work=res.protocol_work,
@@ -304,20 +319,34 @@ class BLUESSimulation:
             ncmc_potential=res.e_final,
             mid_work=res.mid_work,
             md_failed=~md_ok,
+            selected_move=selected,
         )
 
     def run(self, n_iter: Optional[int] = None):
         """Run ``n_iter`` iterations (default ``nIter``); returns the
-        acceptance ratio over all replicas and iterations."""
+        acceptance ratio over all replicas and iterations, and logs each
+        sub-move's acceptance when the move has several."""
         n_iter = n_iter if n_iter is not None else self.cfg.nIter
         n_accept = n_total = 0.0
         for _ in range(n_iter):
             stats = self.run_iteration()
             acc = stats.accepted.cpu().numpy()
+            sel = stats.selected_move.cpu().numpy()
             n_accept += float(acc.sum())
             n_total += float(acc.size)
             self.accept_counter += int(acc.sum())
+            np.add.at(self.move_stats[:, 0], sel, 1.0)
+            np.add.at(self.move_stats[:, 1], sel, acc.astype(np.float64))
             self.stats_history.append({k: t.cpu().numpy() for k, t in stats._asdict().items()})
         ratio = n_accept / max(n_total, 1.0)
         logger.info("Acceptance Ratio: %s", ratio)
+        logger.info("nIter: %s", n_iter)
+        moves = getattr(self.move, "moves", [self.move])
+        if len(moves) > 1:
+            for i, m in enumerate(moves):
+                att, acc_i = self.move_stats[i]
+                logger.info(
+                    "  %s: accepted %d / attempted %d (%.3f)",
+                    type(m).__name__, int(acc_i), int(att), acc_i / att if att else float("nan"),
+                )
         return ratio

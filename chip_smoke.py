@@ -15,7 +15,9 @@ Phases (each prints its own line; any failure exits non-zero):
      freeze radius 0.5 nm with mobile waters, PME 1.0 nm, sweep row groups
      of 32), and the same box with every atom mobile on backends 'pcells'
      and 'pallas', with the pair slots that K2 and K3 visit and the pairs
-     inside the cutoff at R = 8;
+     inside the cutoff at R = 8; the darting system (a second site carved
+     1.0 nm along x), whose teleporting engine turns culling off so that
+     'sweep' resolves to K2, and the frozen slice on 'pallas' and 'pcells';
   4. kernels: every kernel instance against its plain PyTorch version at
      R = 1 and R = 8 on perturbed positions, with the sweep tests'
      tolerances (energy 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1)), and its
@@ -35,19 +37,39 @@ Phases (each prints its own line; any failure exits non-zero):
      whose keys, clusters, bounding boxes and lists must equal their plain
      versions' bit for bit; then K2 MAIN against K3 MAIN, K2 MAIN with its
      list cut to 8 entries (the row clusters that keep more walk every
-     column cluster), and the K3 NaN poison of an overflowing bin;
+     column cluster), and the K3 NaN poison of an overflowing bin; K2 on
+     frozen systems without culled columns (the darting system) and with
+     them (the slice), K3 with the frozen rows masked (the slice), MAIN
+     and E0 each with its layout kernels, K2 without culling with an
+     8-entry list, and K2 against K3 over the frozen slice;
   5. main: FIRE, then BLUESSimulation on the frozen slice, R = 8, nstepsNC =
      nstepsMD = 50, 3 iterations;
   6. unfrozen: FIRE (200 steps), then BLUESSimulation on the unfrozen box
      with backend 'pcells', R = 8, nstepsNC = nstepsMD = 50, 3 iterations;
   7. pallas: a short run on backend 'pallas' from the minimised positions,
      R = 2, nstepsNC = nstepsMD = 10, 1 iteration;
-  8. check: the MD energy and forces of the final states on the card
+  8. darting: FIRE (200 steps), then the darting system at R = 8, nstepsNC
+     = nstepsMD = 50, 3 iterations, with a MoveEngine of rotation,
+     SmartDartMove and MolDartMove: it fails unless both energies run K2,
+     K1 is never launched, the iteration is the full-array one, frozen
+     atoms keep their reference positions bit for bit and zero velocities,
+     every sub-move is selected, each dart moves the ligand on a replica
+     that selected it at least once, and no non-finite work is accepted
+     (an overlapping proposal can blow up, as in the JAX package: see
+     tests/test_torch_frozen_pairs.py);
+  9. frozen_pallas, frozen_pcells: short runs of the slice on K2 with
+     culled columns (compact) and on K3 with a CombinationMove (the
+     full-array iteration), R = 2, 10 + 10 steps, 2 iterations;
+ 10. water: the unfrozen box on 'pcells' with a WaterTranslationMove (the
+     designated water alchemical), R = 8, 50 + 50 steps, 2 iterations: a
+     water swapped on every replica, no accepted non-finite work, water
+     geometry at its constraints to 1e-4 nm;
+ 11. check: the MD energy and forces of the final states on the card
      against the port's CPU path (the plain sums) on the same positions,
-     for the frozen slice and the unfrozen box.
+     for the frozen slice, the unfrozen box and the darting system.
 
-Each of the three paths (5-7) must launch its kernels: every count is set
-to 0 just before the path and read just after. Then the card's name and
+Each path (5-10) must launch its kernels: every count is set to 0 just
+before the path and read just after. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -95,8 +117,10 @@ N_ATOMS = 22340
 R_MAIN = 8
 N_ITER = 3
 NSTEPS = 50
-N_MIN_FROZEN, N_MIN_UNFROZEN = 400, 200
+N_MIN_FROZEN, N_MIN_UNFROZEN, N_MIN_DART = 400, 200, 200
 R_PALLAS, NSTEPS_PALLAS = 2, 10
+#: iterations of the water path and of the short frozen runs
+N_ITER_SHORT = 2
 E_REL, E_ABS, F_REL = 5e-5, 1e-2, 2e-5
 #: the unfrozen raw pair sums hold every excluded bonded pair, which the rest
 #: term subtracts: composed values are checked to this fraction of the raw
@@ -186,12 +210,203 @@ def build_unfrozen(device, backend, n_replicas, nsteps, n_atoms=N_ATOMS, cutoff=
     return system, x0, sim
 
 
-def sums_of(sim, kind):
-    """{kernel instance name: [pair sums]} of a simulation. MAIN lists the
-    MD energy's instance (the one the kernel checks use) and the
-    alchemical energy's, which the protocol's end-point energies launch."""
+def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
+    """The darting path: the box with a second site, pose 2 = the ligand
+    moved 1.0 nm along x, the waters whose oxygen lies within 0.4 nm of a
+    pose-2 ligand atom (minimum image) removed; frozen outside 0.5 nm of
+    the ligand as the main path, backend 'sweep' with row groups of 32 and
+    culling asked for; the move an engine of rotation (0.4), SmartDartMove
+    (0.3, lab frame, radius 0.2 nm) and MolDartMove (0.3, radius 0.1 nm)
+    over the two poses. The darts teleport, so the driver turns culling
+    off and the sweep resolves to the pair kernel K2. Returns the system,
+    its positions, the simulation and, per dart, the list that
+    ``record_moved`` fills."""
+    import numpy as np
+
+    from blues_tpu_torch.core.build import extract_atoms
+    from blues_tpu_torch.moves import MolDartMove, MoveEngine, RandomLigandRotationMove, SmartDartMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    system, x0, lig = _box(n_atoms)
+    pose2 = x0.copy()
+    pose2[lig] += (1.0, 0.0, 0.0)
+    oxy = system.topology.select_resname("WAT")[::3]
+    L = np.diag(np.asarray(system.box))
+    d = x0[oxy][:, None] - pose2[lig][None]
+    d -= L * np.round(d / L)
+    keep = [lig] + [np.arange(o, o + 3) for o in oxy[np.linalg.norm(d, axis=-1).min(1) > 0.4]]
+    system, x0 = extract_atoms(system, np.sort(np.concatenate(keep)), x0)
+    x0, lig = np.asarray(x0), system.topology.select_resname("LIG")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        frozen = system.freeze_radius(x0, lig, 0.5, solvent_resnames=())
+    pose2 = x0.copy()
+    pose2[lig] += (1.0, 0.0, 0.0)
+    move = MoveEngine(
+        [
+            RandomLigandRotationMove(lig, frozen.masses),
+            SmartDartMove.from_coordinates(lig, frozen.masses, None, [x0, pose2], 0.2),
+            MolDartMove.from_coordinates(lig, [x0, pose2], 0.1),
+        ],
+        [0.4, 0.3, 0.3],
+    )
+    cfg = _config(
+        nstepsNC=NSTEPS, nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="sweep", sweep_row_group=32,
+        frozen_cull_skin=0.45, n_replicas=R_MAIN,
+    )
+    moved = [record_moved(m, lig) for m in move.moves[1:]]
+    return frozen, x0, BLUESSimulation(frozen, move, cfg, device=device), moved
+
+
+def record_moved(move, atoms):
+    """Wrap ``move.propose`` so that each call appends, per replica,
+    whether it changed the positions of ``atoms``: the list it fills."""
+    import torch
+
+    moved, propose = [], move.propose
+    idx = torch.as_tensor(atoms)
+
+    def recording(source, x, box, aux):
+        x_new, aux = propose(source, x, box, aux)
+        i = idx.to(x.device)
+        moved.append((x_new.index_select(1, i) != x.index_select(1, i)).any(-1).any(-1))
+        return x_new, aux
+
+    move.propose = recording
+    return moved
+
+
+def build_frozen_short(device, frozen, backend, n_atoms=N_ATOMS, cutoff=1.0):
+    """The frozen slice on backend 'pallas' (K2 over the culled columns,
+    the rotation, compact iteration) or 'pcells' (K3 with the frozen rows
+    masked, a CombinationMove of the rotation and a null move, the
+    full-array iteration): R_PALLAS replicas, NSTEPS_PALLAS steps. A
+    rotation under a 10-step protocol can overlap its neighbours (huge
+    work, or a cull-guard NaN with culling), so the runs take N_ITER_SHORT
+    iterations and each replica needs finite work in one of them."""
+    from blues_tpu_torch.moves import CombinationMove, NullMove, RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    lig = frozen.alchemical.atoms
+    rot = RandomLigandRotationMove(lig, frozen.masses)
+    move = rot if backend == "pallas" else CombinationMove([rot, NullMove()])
+    cfg = _config(
+        nstepsNC=NSTEPS_PALLAS, nstepsMD=NSTEPS_PALLAS, cutoff=cutoff, nonbonded_backend=backend,
+        frozen_cull_skin=0.45, n_replicas=R_PALLAS, frozen_compact="auto" if backend == "pallas" else False,
+    )
+    return BLUESSimulation(frozen, move, cfg, device=device)
+
+
+def build_water(device, n_atoms=N_ATOMS, cutoff=1.0):
+    """The water path: the unfrozen box on 'pcells' with a
+    WaterTranslationMove (the sphere of 1.0 nm about the toluene's COM);
+    the alchemical region is the move's designated water."""
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.moves import WaterTranslationMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    system, x0, lig = _box(n_atoms)
+    move = WaterTranslationMove(system.topology, system.masses, lig, radius=1.0)
+    system = system.replace(alchemical=AlchemicalRegion(atoms=move.alch_water.astype("int32")))
+    cfg = _config(
+        nstepsNC=NSTEPS, nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="pcells", n_replicas=R_MAIN,
+    )
+    return system, x0, BLUESSimulation(system, move, cfg, device=device)
+
+
+def check_darting(sim, frozen, res, idle, moved, label="darting"):
+    """The darting path's own checks: both energies resolved to K2, K1 not
+    launched (``idle``: the sweep instances, zeroed before the path), the
+    full-array iteration, frozen atoms at their reference positions bit for
+    bit with zero velocities, every sub-move selected at least once, each
+    dart (``moved``: per dart, per iteration, whether its proposal moved
+    the ligand of a replica) moving the ligand on a replica that selected
+    it at least once, and the work: finite on every replica in some
+    iteration (``run_path``), finite wherever it was accepted, VETO_WORK
+    on a vetoed replica, which is rejected. A proposal whose dynamics blew
+    up (no cull guard runs here) can end with a non-finite work; the
+    driver rejects it, as the JAX package's does for the same proposal
+    (tests/test_torch_frozen_pairs.py), so it is counted, not refused."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.integrators.ncmc import VETO_WORK
+
+    backends = {sim.energy_md.nonbonded.backend, sim.energy_alch.nonbonded.backend}
+    k1 = sum(ps.launches for v in idle.values() for ps in v)
+    x, v, _ = sim.state
+    fro = torch.as_tensor(np.asarray(frozen.masses) <= 0, device=x.device)
+    ref = torch.as_tensor(np.asarray(frozen.frozen_ref_positions), dtype=x.dtype, device=x.device)
+    same = bool(torch.equal(x[:, fro], ref[fro].expand(x.shape[0], -1, -1)))
+    v_max = float(v[:, fro].abs().max())
+    work = np.stack([s.protocol_work.double().cpu().numpy() for s in res["stats"]])
+    sel = np.stack([s.selected_move.cpu().numpy() for s in res["stats"]])
+    acc = np.stack([s.accepted.cpu().numpy() for s in res["stats"]])
+    veto = np.stack([
+        (((a["selected"] == 1) & a["auxs"][1]) | ((a["selected"] == 2) & a["auxs"][2])).cpu().numpy()
+        for a in res["auxes"]
+    ])
+    counts = np.bincount(sel.ravel(), minlength=3)
+    fired = [int((torch.stack(m).cpu().numpy() & (sel == i + 1)).sum()) for i, m in enumerate(moved)]
+    phase(
+        label,
+        f"backend 'sweep' resolved to {sorted(backends)} (culling off for the teleporting engine); compact "
+        f"{sim._compact is not None}; K1 launches during the path {k1}; frozen atoms at their reference positions "
+        f"bit for bit: {same}, max|v| of frozen atoms {v_max}; sub-move selections {counts.tolist()} (rotation, "
+        f"SmartDart, MolDart), the ligand moved by SmartDart {fired[0]} and by MolDart {fired[1]} times, vetoes "
+        f"{int(veto.sum())}, accepted {int(acc.sum())} of {acc.size}; non-finite work "
+        f"on {int((~np.isfinite(work)).sum())} replica-iterations (rejected)",
+    )
+    if backends != {"pallas"} or k1 or sim._compact is not None:
+        raise RuntimeError(f"{label}: the path must run K2 on the full-array iteration, K1 never")
+    if not same or v_max != 0.0:
+        raise RuntimeError(f"{label}: frozen atoms moved")
+    if (acc & ~np.isfinite(work)).any() or (work[veto] < VETO_WORK * 0.5).any() or acc[veto].any():
+        raise RuntimeError(f"{label}: an accepted non-finite work, or a vetoed replica without VETO_WORK: {work}")
+    if (counts == 0).any():
+        raise RuntimeError(f"{label}: a sub-move was never selected: {counts}")
+    if min(fired) == 0:
+        raise RuntimeError(f"{label}: a dart never moved the ligand of a replica that selected it: {fired}")
+
+
+def check_water(sim, system, res, label="water"):
+    """The water path's own checks: a water swapped on every replica in
+    every iteration, no accepted non-finite work (``run_path`` asks each
+    replica for finite work in some iteration), and every water's O-H and
+    H-H distances at their constraint lengths to 1e-4 nm at the end."""
+    import numpy as np
+    import torch
+
+    swapped = torch.stack([a["swapped"] for a in res["auxes"]]).cpu().numpy()
+    work = np.stack([s.protocol_work.double().cpu().numpy() for s in res["stats"]])
+    acc = np.stack([s.accepted.cpu().numpy() for s in res["stats"]])
+    x = sim.state[0].double().cpu().numpy()
+    idx = np.asarray(system.constraints.idx, np.int64).reshape(-1, 2)
+    d0 = np.asarray(system.constraints.dist, np.float64)
+    wat = np.isin(np.asarray(system.topology.residue_names), ["WAT", "HOH"])
+    keep = wat[idx[:, 0]] & wat[idx[:, 1]]
+    L = np.diag(np.asarray(system.box))
+    dr = x[:, idx[keep, 0]] - x[:, idx[keep, 1]]
+    dr -= L * np.round(dr / L)
+    err = float(np.abs(np.linalg.norm(dr, axis=-1) - d0[keep]).max())
+    phase(
+        label,
+        f"swapped on {int(swapped.sum())} of {swapped.size} replica-iterations; non-finite work on "
+        f"{int((~np.isfinite(work)).sum())} (rejected); {int(keep.sum())} water constraints, max |d - d0| {err:.3e} nm",
+    )
+    if not swapped.all() or (acc & ~np.isfinite(work)).any() or err > 1e-4:
+        raise RuntimeError(f"{label}: a replica swapped no water, accepted a non-finite work, or a water is bent")
+
+
+def sums_of(sim, kind, prefix=None):
+    """{kernel instance name: [pair sums]} of a simulation, the names
+    ``<prefix>_main`` and ``<prefix>_e0`` (prefix: the kernel's kind, or a
+    configuration such as 'pair_nocull'). MAIN lists the MD energy's
+    instance (the one the kernel checks use) and the alchemical energy's,
+    which the protocol's end-point energies launch."""
     md, alch = sim.energy_md.nonbonded, sim.energy_alch.nonbonded
-    out = {f"{kind}_main": [md.pair_sum, alch.pair_sum], f"{kind}_e0": [alch.pair_sum0]}
+    prefix = prefix or kind
+    out = {f"{prefix}_main": [md.pair_sum, alch.pair_sum], f"{prefix}_e0": [alch.pair_sum0]}
     if kind == "sweep":
         out["sweep_ea"] = [alch.ea_sweep]
     return out
@@ -291,6 +506,7 @@ def check_layout(name, ps, xs, box, reps):
     res = {step_name(name, s): dict(max_abs_err=0.0) for s in ("key", "layout")}
     for R, x in xs.items():
         L = ps.box_lengths(box, torch.float32)
+        first = None  # the rows' keys and clusters, which the timing below lays out
         for side in ps.sides:
             kk, kp = ps.key_kernel(x, L, side), ps.key_plain(x, L, side)
             skey, order = torch.sort(kk, dim=1, stable=True)
@@ -307,7 +523,9 @@ def check_layout(name, ps, xs, box, reps):
             )
             if n_key or n_lay:
                 raise RuntimeError(f"{name}: the key or layout kernel disagrees with its plain version")
+            first = first or (kk, skey, order, bk)
         if R == R_MAIN:
+            kk, skey, order, bk = first
             m, C, nb = kk.shape[1], bk.clusters.n_clusters, bk.counts.shape[1]
             # keys: positions in, keys out (K2 also reads its atom ids);
             # layout: sorted keys, order and positions in, 32 slots of id and
@@ -573,12 +791,15 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     timers = {"ncmc": 0.0, "md": 0.0, "md_steps": 0}
     protocol, md_step = sim.protocol_fn, sim._md_step_d
 
+    auxes = []
+
     def timed_protocol(*args):
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = protocol(*args)
         torch.cuda.synchronize()
         timers["ncmc"] += time.perf_counter() - t
+        auxes.append(out.move_aux)
         return out
 
     def timed_md_step(*args):
@@ -639,6 +860,8 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         md_ms=1e3 * timers["md"] / max(timers["md_steps"], 1),
         t_min=t_min,
         t_iter=t_iter,
+        stats=stats,
+        auxes=auxes,
     )
     phase(
         label,
@@ -648,13 +871,15 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         f"NCMC micro-step {res['micro_ms']:.2f} ms, MD step {res['md_ms']:.2f} ms (synchronised per step), "
         f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}",
     )
+    sim.protocol_fn, sim._md_step_d = protocol, md_step
     return res, x_min
 
 
 def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
     """The MD energy and forces of the final states (the first
     ``n_replicas``, all by default) on the card against the port's CPU path
-    (plain sums) on the same positions. Forces
+    (plain sums, the same resolved backend and culling) on the same
+    positions. Forces
     at the sweep tests' tolerance; energy at it plus 4*eps_f32*|Ewald self
     term|: the full-box energy holds that constant, by far its largest term
     on the frozen slice (it cancels in every NCMC difference), and the two
@@ -668,11 +893,12 @@ def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
     from blues_tpu_torch import units
     from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
 
-    cfg = sim.cfg
+    cfg, nb = sim.cfg, sim.energy_md.nonbonded
     efn_cpu = make_energy_fn(
         system.replace(alchemical=None), nonbonded_method=cfg.nonbonded_method, cutoff=cfg.cutoff,
-        ewald_tolerance=cfg.ewald_tolerance, nonbonded_backend=cfg.nonbonded_backend,
-        frozen_cull_skin=cfg.frozen_cull_skin, sweep_row_group=cfg.sweep_row_group, device="cpu",
+        ewald_tolerance=cfg.ewald_tolerance, nonbonded_backend=nb.backend,
+        frozen_cull_skin=cfg.frozen_cull_skin if nb.cull_info is not None else None,
+        sweep_row_group=cfg.sweep_row_group, device="cpu",
     )
     x, _, box = sim.state
     x = x[:n_replicas]
@@ -704,7 +930,7 @@ def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
 
 
 def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
-    """Phases 2-8 on ``device``; returns the kernels' JSON entries."""
+    """Phases 2-11 on ``device``; returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -749,19 +975,45 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
         + f"; the all-pairs sweep visited {pair_sums['pair_main'][0].shape_info['all_pairs_slots']} "
         f"(built in {time.perf_counter() - t0:.1f} s)",
     )
+    # the frozen systems off the sweep kernel: (b) the darting system, where
+    # the teleporting engine turns culling off and 'sweep' resolves to K2;
+    # (c) 'pallas' and (d) 'pcells' on the frozen slice
+    t0 = time.perf_counter()
+    dart, xd0, sim_d, dart_moved = build_darting(device, n_atoms, cutoff)
+    sim_fp = build_frozen_short(device, frozen, "pallas", n_atoms, cutoff)
+    sim_fc = build_frozen_short(device, frozen, "pcells", n_atoms, cutoff)
+    box_d = torch.as_tensor(np.asarray(dart.box), dtype=torch.float32, device=device)
+    xs_d = {R: perturbed(xd0, np.asarray(dart.masses) > 0, R, rng, device) for R in (1, R_MAIN)}
+    nocull_sums = sums_of(sim_d, "pair", "pair_nocull")
+    culled_sums = sums_of(sim_fp, "pair", "pair_culled")
+    fcells_sums = sums_of(sim_fc, "cells", "cells_frozen")
+    frozen_off = {**nocull_sums, **culled_sums, **fcells_sums}
+    for k, v in frozen_off.items():
+        xk, bk = (xs_d, box_d) if k.startswith("pair_nocull") else (xs_f, box_f)
+        vis, n_in = v[0].pair_counts(xk[R_MAIN], bk)
+        si = v[0].shape_info
+        shape = (
+            f"{si['nr']} rows x {si['nc']} columns, list width {si['list_width']} of {si['col_clusters']} column "
+            f"clusters" if "nr" in si else f"grid {si['grid']}, {si['n_rows']} rows of {si['n_atoms']} atoms"
+        )
+        phase("system", f"{k} ({v[0].name}): {shape}; per replica at R = 8, {vis:.0f} slots visited, {n_in:.0f} pairs inside the cutoff")
+    phase(
+        "system",
+        f"darting: {dart.n_atoms} atoms after carving site 2, {int((dart.masses > 0).sum())} mobile; backend 'sweep' "
+        f"resolved to {sim_d.energy_md.nonbonded.backend!r} (MD) and {sim_d.energy_alch.nonbonded.backend!r} "
+        f"(alchemical), culled columns {sim_d.energy_md.nonbonded.cull_info}; frozen slice on 'pallas': culled "
+        f"{sim_fp.energy_md.nonbonded.cull_info}, on 'pcells': {sim_fc.energy_md.nonbonded.backend!r} "
+        f"(built in {time.perf_counter() - t0:.1f} s)",
+    )
 
     # --- kernels against their plain versions --------------------------------
     lam = {"main": (1.0, 1.0, 1.0), "e0": (1.0, 1.0, 1.0), "ea": (0.4, 0.4, 0.4)}
+    of = lambda sums: [(k, v[0], lam[k.rsplit("_", 1)[1]]) for k, v in sums.items()]  # noqa: E731
     sweep_sums = sums_of(sim, "sweep")
-    kres = check_kernels(
-        [(k, v[0], lam[k.split("_")[1]]) for k, v in sweep_sums.items()], xs_f, box_f, (50, 5)
-    )
-    kres.update(
-        check_kernels(
-            [(k, v[0], lam[k.split("_")[1]]) for k, v in {**cells_sums, **pair_sums}.items()],
-            xs_u, box_u, (20, 3),
-        )
-    )
+    kres = check_kernels(of(sweep_sums), xs_f, box_f, (50, 5))
+    kres.update(check_kernels(of({**cells_sums, **pair_sums}), xs_u, box_u, (20, 3)))
+    kres.update(check_kernels(of(nocull_sums), xs_d, box_d, (20, 3)))
+    kres.update(check_kernels(of({**culled_sums, **fcells_sums}), xs_f, box_f, (20, 3)))
     check_periodic_sweeps(device)
     x8 = xs_u[R_MAIN]
     pair_main = pair_sums["pair_main"][0]
@@ -769,23 +1021,44 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
         f"pair_main vs cells_main R={R_MAIN}",
         *pair_main.kernel(x8, box_u, 1.0, 1.0, 1.0), *cells_main.kernel(x8, box_u, 1.0, 1.0, 1.0),
     )
-    width, pair_main.list_width = pair_main.list_width, 8
-    try:
-        compare(f"pair_main with an 8-entry list R={R_MAIN}", *pair_main.kernel(x8, box_u, 1.0, 1.0, 1.0),
-                *pair_main.plain(x8, box_u, 1.0, 1.0, 1.0))
-    finally:
-        pair_main.list_width = width
+    for ps, x, b in ((pair_main, x8, box_u), (nocull_sums["pair_nocull_main"][0], xs_d[R_MAIN], box_d)):
+        width, ps.list_width = ps.list_width, 8
+        try:
+            over = int((ps.layout(x, b, torch.float32, kernel=True).count > 8).sum())
+            compare(f"{ps.name} with an 8-entry list ({over} row clusters keep more) R={R_MAIN}",
+                    *ps.kernel(x, b, 1.0, 1.0, 1.0), *ps.plain(x, b, 1.0, 1.0, 1.0))
+        finally:
+            ps.list_width = width
+    # K2 and K3 over the same frozen pair space
+    compare(
+        f"pair_culled_main vs cells_frozen_main R={R_MAIN}",
+        *culled_sums["pair_culled_main"][0].kernel(xs_f[R_MAIN], box_f, 1.0, 1.0, 1.0),
+        *fcells_sums["cells_frozen_main"][0].kernel(xs_f[R_MAIN], box_f, 1.0, 1.0, 1.0),
+    )
     check_poison(cells_main, xu0, box_u, device)
 
-    # --- the three paths -----------------------------------------------------
-    every = [v for sums in (sweep_sums, cells_sums, pair_sums) for v in sums.values()]
-    main_res, _ = run_path(sim, x0, sweep_sums, every, N_MIN_FROZEN, N_ITER, "main", card)
+    # --- the paths -----------------------------------------------------------
+    every = [
+        v for sums in (sweep_sums, cells_sums, pair_sums, frozen_off) for v in sums.values()
+    ]
+    main_res, xf_min = run_path(sim, x0, sweep_sums, every, N_MIN_FROZEN, N_ITER, "main", card)
     unf_res, xu_min = run_path(sim_c, xu0, cells_sums, every, N_MIN_UNFROZEN, N_ITER, "unfrozen", card)
     pal_res, _ = run_path(sim_p, xu_min, pair_sums, every, 0, 1, "pallas", card)
+    dart_res, _ = run_path(sim_d, xd0, nocull_sums, every, N_MIN_DART, N_ITER, "darting", card)
+    check_darting(sim_d, dart, dart_res, sweep_sums, dart_moved)
+    fp_res, _ = run_path(sim_fp, xf_min, culled_sums, every, 0, N_ITER_SHORT, "frozen_pallas", card)
+    fc_res, _ = run_path(sim_fc, xf_min, fcells_sums, every, 0, N_ITER_SHORT, "frozen_pcells", card)
+    water, _, sim_w = build_water(device, n_atoms, cutoff)
+    water_sums = sums_of(sim_w, "cells", "cells_water")
+    wat_res, _ = run_path(sim_w, xu_min, water_sums, every + list(water_sums.values()), 0, N_ITER_SHORT, "water", card)
+    check_water(sim_w, water, wat_res)
     check_against_cpu(sim, frozen, "frozen")
     check_against_cpu(sim_c, unfrozen, "unfrozen", raw_anchor=True, n_replicas=1)
+    check_against_cpu(sim_d, dart, "darting", raw_anchor=True, n_replicas=1)
 
-    launches = {**main_res["launches"], **unf_res["launches"], **pal_res["launches"]}
+    launches = {}
+    for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res):
+        launches.update(r["launches"])
     kernels = [
         {
             "name": k,

@@ -73,6 +73,44 @@ def build(kind, feat_arrays, L, cutoff, device):
     raise ValueError(kind)
 
 
+def build_frozen(kind, part, feat_arrays, x0, L, cutoff, device):
+    """K2 or K3 as a frozen system builds them (``nonbonded._build_frozen``)
+    on the synthetic box: the rows are the atoms within 0.9 nm of the box
+    centre in ``x0``, the first N_ALCH of them alchemical, the rest of the
+    box frozen. ``kind``:
+    'pair_nocull' (K2 over every column: the sweep's fallback where culling
+    is off), 'pair_culled' (K2 over the columns within cutoff + 0.3 nm of a
+    row, and the rows) or 'cells_frozen' (K3 over every atom, the frozen
+    rows masked); ``part`` 'main' (alchemical features) or 'e0' (the
+    non-alchemical rows; K2 over the non-alchemical columns, K3 with the
+    alchemical charge and epsilon zeroed)."""
+    q, sig, eps, _ = feat_arrays
+    n = len(q)
+    box0 = np.eye(3) * L
+    d = x0 - 0.5 * L
+    d -= L * np.round(d / L)
+    rows = np.flatnonzero(np.linalg.norm(d, axis=1) < 0.9)
+    alch = np.zeros(n)
+    alch[rows[:N_ALCH]] = 1.0
+    cols = None
+    if kind == "pair_culled":
+        dr = x0[:, None] - x0[rows][None]
+        dr -= L * np.round(dr / L)
+        cols = np.flatnonzero((np.linalg.norm(dr, axis=-1) < cutoff + 0.3).any(1))
+    if part == "main":
+        feats = build_pair_features(q, sig, eps, alch, rows)
+    else:
+        rows = rows[alch[rows] == 0]
+        if kind == "cells_frozen":
+            feats = build_pair_features(q * (1 - alch), sig, eps * (1 - alch), np.zeros(n), rows)
+        else:
+            feats = build_pair_features(q, sig, eps, np.zeros(n), rows)
+            cols = np.flatnonzero(alch == 0) if cols is None else cols[alch[cols] == 0]
+    if kind == "cells_frozen":
+        return CellsPairSum(feats, cutoff=cutoff, box0=box0, device=device, **COMMON)
+    return PallasPairSum(feats, col_idx=cols, cutoff=cutoff, box0=box0, device=device, **COMMON)
+
+
 def as_torch(xs, L, device, dtype=torch.float32):
     return torch.as_tensor(xs, dtype=dtype, device=device), torch.eye(3, dtype=dtype, device=device) * L
 

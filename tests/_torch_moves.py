@@ -1,9 +1,11 @@
-"""Test moves that apply one fixed rotation to the ligand, on both sides.
+"""Test moves that apply one fixed change to the ligand, on both sides.
 
 ``JFixedRotation`` (JAX package) and ``TFixedRotation`` (port) rotate the
 ligand about its centre of mass by the same proper rotation ``ROT``, so an
-NCMC protocol with a midpoint move compares deterministically; ``ZeroNoise``
-is a random source without noise (friction 0 runs).
+NCMC protocol with a midpoint move compares deterministically;
+``JFixedShift`` and ``TFixedShift`` translate it by one fixed vector (a
+dart whose landing place is chosen by the test); ``ZeroNoise`` is a random
+source without noise (friction 0 runs).
 """
 
 import jax.numpy as jnp
@@ -42,6 +44,23 @@ class TFixedRotation(TMove):
         out = TFixedRotation.__new__(TFixedRotation)
         out.idx, out.m = mapping[self.idx], self.m
         return out
+
+
+class JFixedShift(JMove):
+    def __init__(self, idx, shift):
+        self.idx, self.shift = np.asarray(idx, np.int64), np.asarray(shift, np.float64)
+
+    def propose(self, key, x, box, aux):
+        return x.at[self.idx].add(jnp.asarray(self.shift, x.dtype)), aux
+
+
+class TFixedShift(TMove):
+    def __init__(self, idx, shift):
+        self.idx, self.shift = np.asarray(idx, np.int64), np.asarray(shift, np.float64)
+
+    def propose(self, source, x, box, aux):
+        i = torch.as_tensor(self.idx)
+        return x.index_copy(1, i, x[:, i] + torch.as_tensor(self.shift, dtype=x.dtype)), aux
 
 
 class ZeroNoise:

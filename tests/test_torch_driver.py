@@ -4,8 +4,9 @@ A 6,500-atom toluene + TIP3P box frozen outside 0.4 nm of the ligand
 (waters inside mobile), PME at 0.65 nm, sweep row groups of 16, R = 2
 replicas: two iterations of NCMC -> correction -> Metropolis -> MD. The
 reported MD potential must equal the JAX package's ``energy_md`` (sweep
-backend, Pallas interpret mode) at the port's positions, and
-configurations outside the slice must raise.
+backend, Pallas interpret mode) at the port's positions, the full-array
+iteration (``frozen_compact=False``) must run, and configurations outside
+the slice must raise.
 """
 
 import warnings
@@ -88,7 +89,7 @@ def test_md_rollback_restores_pre_md_state(frozen):
 @pytest.mark.parametrize(
     "bad",
     [dict(pressure=1.0), dict(max_steps_per_dispatch=10), dict(md_report_interval=5),
-     dict(frozen_compact=False), dict(nonbonded_backend="cells"),
+     dict(nonbonded_backend="tiled"), dict(nonbonded_backend="cells"),
      dict(alchemical_pme_treatment="exact")],
 )
 def test_outside_the_slice_raises(frozen, bad):
@@ -96,6 +97,24 @@ def test_outside_the_slice_raises(frozen, bad):
     pt = system_from_reference(fr)
     with pytest.raises(ValueError):
         BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(CFG, **bad)), device=DEVICE)
+
+
+def test_frozen_compact_false_runs_the_full_array_iteration(frozen):
+    """A frozen system with compaction off runs on the full arrays: frozen
+    atoms keep their positions bit for bit and zero velocities."""
+    fr, x, li = frozen
+    pt = system_from_reference(fr)
+    cfg = SimulationConfig(**dict(CFG, nstepsNC=4, nstepsMD=2, frozen_compact=False))
+    sim = BLUESSimulation(pt, RandomLigandRotationMove(li, pt.masses), cfg, device=DEVICE)
+    assert sim._compact is None and sim.energy_md.nonbonded.backend == "sweep"
+    sim.initialize(x, seed=5)
+    st = sim.run_iteration()
+    assert torch.isfinite(st.protocol_work).all() and not st.md_failed.any()
+    assert st.selected_move.tolist() == [0, 0]
+    x_end, v_end, _ = sim.state
+    frozen_mask = torch.as_tensor(pt.masses <= 0)
+    assert torch.equal(x_end[:, frozen_mask], torch.as_tensor(x, dtype=torch.float32)[None, frozen_mask].expand(2, -1, -1))
+    assert float(v_end[:, frozen_mask].abs().max()) == 0.0
 
 
 def test_builders_default_to_the_card(frozen, monkeypatch):

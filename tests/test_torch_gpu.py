@@ -8,7 +8,9 @@ against K3 over the same pair space; K2 and K3 at water density (6,000
 atoms, cutoff 1.0 nm, atoms on the box edge and unwrapped) at R = 1 and 8,
 deterministic from call to call, with their key, layout and prune kernels
 equal to their plain versions bit for bit; K2 with a list too short for
-its row clusters.
+its row clusters; K2 and K3 as frozen systems build them (K2 over every
+column and over culled columns, K3 with the frozen rows masked; MAIN and
+E0) at R = 1 and 8, their layout kernels bit for bit.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -24,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cluster_case import as_torch, build, density_box
+from _torch_cluster_case import as_torch, build, build_frozen, density_box
 from _torch_sweep_case import LAM, port_ea, port_main
 from blues_tpu_torch.potentials.features import build_pair_features
 from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
@@ -210,23 +212,49 @@ def test_pruned_kernels_at_water_density(R):
         e2, f2 = ps.kernel(x, box, *LAM)
         assert torch.equal(ek, e2) and torch.equal(fk, f2)
         out[kind] = ek, fk
-        # the key and layout kernels build the plain version's clusters
-        lay = ps.clusters(x, box, torch.float32, kernel=True)
-        lay_p = ps.clusters(x, box, torch.float32)
-        for a, b in ((lay.rows, lay_p.rows), (lay.cols, lay_p.cols)):
-            for t, u in zip(a, b):
-                assert torch.equal(t, u)
-        if lay.binned is not None:
-            for t, u in zip(lay.binned[1:], lay_p.binned[1:]):
-                assert torch.equal(t, u)
-            assert torch.equal(lay.invalid, lay_p.invalid)
-        # the prune kernel keeps exactly the torch prune's entries
-        (lk, ck), (lp, cp) = ps.prune_kernel(lay), ps.prune_plain(lay)
-        used = torch.arange(lp.shape[-1] - 1, device=dev) < cp[..., None]
-        assert torch.equal(ck, cp) and torch.equal(lk[..., :-1][used], lp[..., :-1][used])
+        _assert_layout_matches(ps, x, box)
     _assert_close(*out["pair"], *out["cells"])
     # E0: the same pairs, K3 through zeroed features, K2 through its subset
     _assert_close(*out["pair_e0"], *out["cells_e0"])
+
+
+def _assert_layout_matches(ps, x, box):
+    """The key and layout kernels build the plain version's clusters, and
+    the prune kernel keeps exactly the torch prune's entries."""
+    lay = ps.clusters(x, box, torch.float32, kernel=True)
+    lay_p = ps.clusters(x, box, torch.float32)
+    for a, b in ((lay.rows, lay_p.rows), (lay.cols, lay_p.cols)):
+        for t, u in zip(a, b):
+            assert torch.equal(t, u)
+    if lay.binned is not None:
+        for t, u in zip(lay.binned[1:], lay_p.binned[1:]):
+            assert torch.equal(t, u)
+        assert torch.equal(lay.invalid, lay_p.invalid)
+    (lk, ck), (lp, cp) = ps.prune_kernel(lay), ps.prune_plain(lay)
+    used = torch.arange(lp.shape[-1] - 1, device=x.device) < cp[..., None]
+    assert torch.equal(ck, cp) and torch.equal(lk[..., :-1][used], lp[..., :-1][used])
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("kind", ["pair_nocull", "pair_culled", "cells_frozen"])
+def test_frozen_configurations_match_plain(kind, R):
+    """K2 and K3 as a frozen system builds them, MAIN and E0, against their
+    plain versions; no force on a frozen atom; two calls give the same
+    bits."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=5, edges=True, replicas=R)
+    x, box = as_torch(xs, L, dev)
+    for part in ("main", "e0"):
+        ps = build_frozen(kind, part, fa, xs[0], L, 1.0, dev)
+        ek, fk = ps(x, box, *LAM)
+        torch.cuda.synchronize()
+        assert ps.launches == 1
+        _assert_close(ek, fk, *ps.plain(x, box, *LAM))
+        frozen = torch.as_tensor(ps._feat_np[:, 5] == 0, device=dev)
+        assert float(fk[:, frozen].abs().max()) == 0.0
+        e2, f2 = ps.kernel(x, box, *LAM)
+        assert torch.equal(ek, e2) and torch.equal(fk, f2)
+        _assert_layout_matches(ps, x, box)
 
 
 def test_pair_kernel_list_overflow():
