@@ -12,6 +12,10 @@
 // subtracts the excluded pairs); r^2 is clamped at 1e-6. With a row subset,
 // a row's F and E are multiplied by its in_rows.
 //
+// Each replica has its own box lengths (NPT): the wrap, the bounding boxes,
+// the lattice shifts and the shrunken-box poison read replica rep's; the
+// grid, cap and neighbour table are the ones built from the first box.
+//
 // Before the sum, per call, three kernels of this source and a torch sort
 // build the layout (plain versions in blues_tpu_torch/potentials/pcells.py
 // and clusters.py): cells_key_kernel bins the wrapped positions into the JAX
@@ -46,19 +50,20 @@ namespace {
 // the JAX code clips it) and the in-cell snake of pcells.snake_key. The
 // plain version is CellsPairSum.key_plain, rounded alike.
 __global__ void cells_key_kernel(const float* __restrict__ x,  // (R*n, 3)
-                                 const float* __restrict__ L,  // (3,)
+                                 const float* __restrict__ L,  // (R, 3)
                                  int64_t* __restrict__ key,    // (R*n,)
-                                 int total, int nc0, int nc1, int nc2) {
+                                 int total, int n, int nc0, int nc1, int nc2) {
   constexpr int SUB = cluster_layout::SUBKEY_BITS;
   constexpr int ZL = 1 << (SUB - 2);  // z levels of the snake
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
+  const float* Lr = L + 3 * (i / n);  // this atom's replica's box
   const int nc[3] = {nc0, nc1, nc2};
   long long ci[3];
   float f[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const float l = L[d];
+    const float l = Lr[d];
     const float g = __fmul_rn(__fdiv_rn(cluster_layout::wrap1(x[(size_t)i * 3 + d], l), l),
                               (float)nc[d]);
     ci[d] = min(max((long long)floorf(g), 0LL), (long long)(nc[d] - 1));
@@ -91,7 +96,7 @@ __global__ void __launch_bounds__(WARPS * CL)
                        const int64_t* __restrict__ start,  // (R, nc + 1)
                        const int64_t* __restrict__ table,  // (nc + 1, 27)
                        const float* __restrict__ shifts,   // (nc + 1, 27, 3)
-                       const float* __restrict__ L,        // (3,)
+                       const float* __restrict__ L,        // (R, 3)
                        int* __restrict__ list,             // (R, C, width)
                        int* __restrict__ count,            // (R, C)
                        int C, int nc, int q_max, int width, float thr) {
@@ -108,7 +113,7 @@ __global__ void __launch_bounds__(WARPS * CL)
     for (int d = 0; d < 3; ++d) {
       a[d] = centre[ra * 3 + d];
       h[d] = half[ra * 3 + d];
-      l[d] = L[d];
+      l[d] = L[3 * rep + d];
     }
     const int64_t* ncl_r = ncl + (size_t)rep * (nc + 1);
     const int64_t* start_r = start + (size_t)rep * (nc + 1);
@@ -192,7 +197,8 @@ int cells_key_launch(const float* x, const float* L, int64_t* key, int R,
     return (int)cudaErrorInvalidValue;
   const int total = R * n, threads = 256;
   cells_key_kernel<<<(total + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(x, L, key, total, nc0, nc1, nc2);
+                     (cudaStream_t)stream>>>(x, L, key, total, n, nc0, nc1,
+                                             nc2);
   return (int)cudaGetLastError();
 }
 

@@ -118,7 +118,8 @@ struct LayoutArgs {
   const int64_t* order;  // (R, m) the sort's permutation
   const float* x;        // (R, n, 3) positions
   const int64_t* ids_t;  // (m,) atom id of each laid-out atom
-  const float* L;        // (3,) box lengths (ones when not periodic)
+  const float* L;        // (R, 3) box lengths per replica (ones when not
+                         // periodic)
   int64_t* ids;          // (R, C*32) atom id per slot, -1 when empty
   float* xo;             // (R, C*32, 3) slot positions
   int64_t* cl_bin;       // (R, C) bin of each cluster, n_bins when unused
@@ -129,10 +130,13 @@ struct LayoutArgs {
   float* centre;         // (R, C, 3) bounding-box centres
   float* half;           // (R, C, 3) bounding-box half extents
   bool* live;            // (R, C) the cluster holds an atom
-  bool* invalid;         // (R,) K3's poison: a bin over cap, a shrunken box
-  int n, m, n_bins, C, mode, cap;  // cap < 0: no poison (K2)
+  bool* invalid;         // (R,) the poison: K3, a bin over cap or a box
+                         // shrunk below cutoff-wide cells; K2 (LAY_MIN), a
+                         // box too small for the pair kernel's minimum image
+  int n, m, n_bins, C, mode, cap;  // cap < 0: no bin poison (K2)
   int nc[3];             // K3: cells per dimension
-  float cutoff;
+  float bound;           // K3: the cutoff, the least cell edge; K2: the
+                         // length every box edge must exceed, 2 (rc + margin)
 };
 
 __global__ void __launch_bounds__(THREADS) layout_kernel(LayoutArgs a) {
@@ -148,7 +152,7 @@ __global__ void __launch_bounds__(THREADS) layout_kernel(LayoutArgs a) {
   int64_t* ids = a.ids + (size_t)rep * P;
   float* xo = a.xo + (size_t)rep * P * 3;
   int64_t* clb = a.cl_bin + (size_t)rep * C;
-  const float L[3] = {a.L[0], a.L[1], a.L[2]};
+  const float L[3] = {a.L[3 * rep + 0], a.L[3 * rep + 1], a.L[3 * rep + 2]};
 
   for (int b = tid; b < nb; b += nt) cnt[b] = 0;
   for (size_t p = tid; p < P; p += nt) {
@@ -223,9 +227,11 @@ __global__ void __launch_bounds__(THREADS) layout_kernel(LayoutArgs a) {
     if (tid == 0) {
       bool bad = most > a.cap;
       for (int d = 0; d < 3; ++d)
-        bad = bad || __fdiv_rn(L[d], (float)a.nc[d]) < a.cutoff;
+        bad = bad || __fdiv_rn(L[d], (float)a.nc[d]) < a.bound;
       a.invalid[rep] = bad;
     }
+  } else if (a.mode == LAY_MIN && tid == 0) {
+    a.invalid[rep] = L[0] <= a.bound || L[1] <= a.bound || L[2] <= a.bound;
   }
 }
 
@@ -246,10 +252,10 @@ inline int launch_layout(const LayoutArgs& a, int R, cudaStream_t s) {
       int64_t* cl_bin, int64_t* counts, int64_t* lo, int64_t* ncl,            \
       int64_t* start, float* centre, float* half, bool* live, bool* invalid,  \
       int R, int n, int m, int n_bins, int C, int mode, int cap, int nc0,     \
-      int nc1, int nc2, float cutoff, void* stream) {                         \
+      int nc1, int nc2, float bound, void* stream) {                          \
     const cluster_layout::LayoutArgs a{                                       \
         skey,  order,  x,    ids_t,   L,   ids,    xo,    cl_bin,  counts,    \
         lo,    ncl,    start, centre, half, live,  invalid, n,     m,         \
-        n_bins, C,     mode, cap,     {nc0, nc1, nc2},     cutoff};           \
+        n_bins, C,     mode, cap,     {nc0, nc1, nc2},     bound};            \
     return cluster_layout::launch_layout(a, R, (cudaStream_t)stream);         \
   }

@@ -71,7 +71,8 @@ struct Args {
                            // walked
   const int64_t* cl_cell;  // K3: (R, cr) home cell of each row cluster
   const float* shifts;     // K3: (nc + 1, 27, 3) image shifts, box lengths
-  const float* params;     // lam_s, f_na, f_aa, Lx, Ly, Lz
+  const float* params;     // lam_s, f_na, f_aa, then Lx, Ly, Lz of each
+                           // replica: (3 + 3R,)
   float* out;              // (R, n, 4): F, E per atom
   int n, cr, cc, width, mask_rows;
 };
@@ -218,7 +219,8 @@ __device__ __forceinline__ void row_cluster(const Args& a, const PairConsts& c,
   const int rep = blockIdx.y;
   if (g >= a.cr) return;  // the whole warp: g is warp-uniform
   const float lam_s = a.params[0], f_na = a.params[1], f_aa = a.params[2];
-  const float L[3] = {a.params[3], a.params[4], a.params[5]};
+  const float* Lr = a.params + 3 + 3 * rep;  // this replica's box
+  const float L[3] = {Lr[0], Lr[1], Lr[2]};
   const float iL[3] = {1.0f / L[0], 1.0f / L[1], 1.0f / L[2]};
 
   const size_t rs = ((size_t)rep * a.cr + g) * CL + lane;

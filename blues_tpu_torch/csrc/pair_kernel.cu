@@ -24,6 +24,11 @@
 // rint(d * (1/L)) per pair; cluster_pairs.cuh gives the argument that it
 // equals the plain version's torch.round(d / L) on every pair it keeps.
 //
+// Each replica has its own box lengths (NPT): the keys' wrap, the bounding
+// boxes, the prune's and the pairs' minimum image read replica rep's; the
+// column grid and the list width come from the first box, and a replica's
+// row clusters that keep more columns than the list holds walk them all.
+//
 // Grid (row cluster / WARPS, replica), WARPS warps of 32 threads, one row
 // cluster per warp. Blocks are small so the ragged work per row cluster
 // balances across SMs; the resident warps per SM are set by the registers
@@ -47,7 +52,7 @@ namespace {
 __global__ void __launch_bounds__(cluster_layout::THREADS)
     pair_key_kernel(const float* __restrict__ x,        // (R, n, 3)
                     const int64_t* __restrict__ ids_t,  // (m,)
-                    const float* __restrict__ L,        // (3,)
+                    const float* __restrict__ L,        // (R, 3)
                     int64_t* __restrict__ key,          // (R, m)
                     int n, int m, int nx, int ny, int periodic) {
   using cluster_layout::warp_max;
@@ -57,7 +62,7 @@ __global__ void __launch_bounds__(cluster_layout::THREADS)
   const int rep = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & (CL - 1), w = tid / CL, nw = nt / CL;
   const float* xr = x + (size_t)rep * n * 3;
-  const float l[3] = {L[0], L[1], L[2]};
+  const float l[3] = {L[3 * rep + 0], L[3 * rep + 1], L[3 * rep + 2]};
   __shared__ float part[2][3][cluster_layout::THREADS / CL];
   __shared__ float box_lo[3], box_hi[3];
   if (!periodic) {
@@ -129,7 +134,7 @@ __global__ void __launch_bounds__(WARPS * CL)
                       const float* __restrict__ cb,     // (R, cc, 3)
                       const float* __restrict__ hb,     // (R, cc, 3)
                       const bool* __restrict__ lb,      // (R, cc)
-                      const float* __restrict__ L,      // (3,)
+                      const float* __restrict__ L,      // (R, 3)
                       int* __restrict__ list,           // (R, cr, width)
                       int* __restrict__ count,          // (R, cr)
                       int cr, int cc, int width, int min_image, float thr) {
@@ -145,7 +150,7 @@ __global__ void __launch_bounds__(WARPS * CL)
     for (int d = 0; d < 3; ++d) {
       a[d] = ca[ra * 3 + d];
       h[d] = ha[ra * 3 + d];
-      l[d] = L[d];
+      l[d] = L[3 * rep + d];
     }
     int* out = list + ra * width;
     for (int c0 = 0; c0 < cc; c0 += CL) {

@@ -63,6 +63,12 @@
 // fill is launched. No float atomics anywhere: every sum has a fixed order
 // and a call is deterministic.
 //
+// Each replica may have its own box (NPT): the box operand is (R, 3, 3) and
+// replica rep reads its lengths at box + box_stride * rep (box_stride 9; 0
+// when every replica shares one (3, 3) box). The chunk table, the culled
+// columns and the minimum-image skip are built once from the first box, as
+// in the JAX package.
+//
 // Numerics: pair_math.cuh. The minimum image, where it is on, is the plain
 // version's IEEE division (IMG_DIV): K2's cheaper reciprocal needs a box
 // known at build time to refuse L <= 2 (rc + margin), which a sweep is not
@@ -128,7 +134,9 @@ struct Sweep {
   const float* lam_s;  // scalars on the device
   const float* f_na;
   const float* f_aa;
-  const float* box;    // (3, 3) or null (lengths 1)
+  const float* box;    // (R, 3, 3) read at box_stride * rep, or null
+                       // (lengths 1)
+  int box_stride;      // 9, or 0 where the replicas share one (3, 3) box
   float4* partial;     // (R, n_chunks, tr) F, E per chunk and row slot
   float4* outc;        // EA: (R, n_keep) kept column forces
   float* f;            // (R, N, 3), zeroed here
@@ -145,8 +153,10 @@ __device__ __forceinline__ void zero_fill(float* f, size_t count) {
   for (size_t i = n4 * 4 + tid; i < count; i += n_threads) f[i] = 0.f;
 }
 
-__device__ __forceinline__ void box_lengths(const float* box, float* L,
+// replica rep's box lengths, and their reciprocals
+__device__ __forceinline__ void box_lengths(const Sweep& a, int rep, float* L,
                                             float* iL) {
+  const float* box = a.box ? a.box + (size_t)a.box_stride * rep : nullptr;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     L[d] = box ? box[4 * d] : 1.0f;
@@ -218,7 +228,7 @@ __global__ void __launch_bounds__(ROW_WARPS * CL)
   const float* x_rep = a.x + (size_t)rep * in.N * 3;
   const float lam_s = *a.lam_s, f_na = *a.f_na, f_aa = *a.f_aa;
   float L[3], iL[3];
-  box_lengths(a.box, L, iL);
+  box_lengths(a, rep, L, iL);
 
   const Row r = load_row(in, x_rep, block * CL + lane);
   float fx = 0.f, fy = 0.f, fz = 0.f, en = 0.f;
@@ -281,7 +291,7 @@ __global__ void __launch_bounds__(COL_WARPS * CL)
   const float* x_rep = a.x + (size_t)rep * in.N * 3;
   const float lam_s = *a.lam_s, f_na = *a.f_na, f_aa = *a.f_aa;
   float L[3], iL[3];
-  box_lengths(a.box, L, iL);
+  box_lengths(a, rep, L, iL);
 
   for (int r = threadIdx.x; r < nr; r += COL_WARPS * CL) {
     const Row row = load_row(in, x_rep, r);
@@ -446,16 +456,17 @@ int sweep_reduce_launch(const SweepInstance* s, const void* partial,
 // the reduce kernel. Returns the first cudaGetLastError() that is not 0.
 int sweep_launch(const SweepInstance* s, const float* x, const float* lam_s,
                  const float* f_na, const float* f_aa, const float* box,
-                 void* partial, void* outc, float* f, float* e, int R,
-                 void* stream) {
-  if (R <= 0 || (s->col_forces ? s->tr > MAX_EA_ROWS : s->tr != CL))
+                 int box_stride, void* partial, void* outc, float* f, float* e,
+                 int R, void* stream) {
+  if (R <= 0 || (s->col_forces ? s->tr > MAX_EA_ROWS : s->tr != CL) ||
+      (box_stride != 0 && box_stride != 9))
     return (int)cudaErrorInvalidValue;
   const PairConsts c = make_consts(
       s->method, s->cutoff, s->use_cutoff, s->alpha_ewald, s->k_rf, s->c_rf,
       s->ann, s->softcore_alpha, s->wrap, s->has_switch, s->switch_distance,
       s->alch_coulomb, s->ke);
-  const Sweep a = {*s,   x, lam_s, f_na, f_aa, box, (float4*)partial,
-                   (float4*)outc, f};
+  const Sweep a = {*s,   x,          lam_s,           f_na,          f_aa,
+                   box,  box_stride, (float4*)partial, (float4*)outc, f};
   cudaStream_t st = (cudaStream_t)stream;
   // the fill needs a block even where a sweep has no chunk
   const dim3 grid(s->n_chunks > 0 ? s->n_chunks : 1, R);

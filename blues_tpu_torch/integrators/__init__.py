@@ -1,1 +1,2 @@
-"""Lambda schedules, constraints, Langevin/BAOAB, FIRE and the NCMC protocol."""
+"""Lambda schedules, constraints, Langevin/BAOAB, FIRE, the Monte Carlo barostat
+and the NCMC protocol."""

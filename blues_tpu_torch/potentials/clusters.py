@@ -17,7 +17,8 @@ build the same clusters and keep the same entries. The plain PyTorch sums
 walk the very same list (``pair_list_sum``), so the CPU parity tests cover
 the pruning too.
 
-Layout pieces (every tensor batched over R replicas):
+Layout pieces (every tensor batched over R replicas, each replica on its
+own box lengths, (R, 3)):
 
   * ``Clusters``: atom ids per slot, (R, C*32), -1 on an empty slot; slot
     positions, (R, C*32, 3); each cluster's bounding-box centre and half
@@ -53,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core.device import device_const
+from .geometry import replica_boxes
 from .pairs import pair_energy_force
 from .sweep import PLAIN_CHUNK_ELEMS, PairSumFunction
 
@@ -69,6 +71,12 @@ F_QSTD, F_QALCH, F_SIG, F_EPS, F_ALCH, F_INROWS = range(6)
 N_FEAT = 8
 
 
+def per_replica(L, ndim):
+    """(R, 3) box lengths shaped (R, 1, ..., 1, 3) to broadcast against an
+    ``ndim``-dimensional tensor whose leading axis is the replica."""
+    return L.reshape(L.shape[:1] + (1,) * (ndim - 2) + (3,))
+
+
 class Clusters(NamedTuple):
     ids: torch.Tensor  # (R, C*32) int64 atom id per slot, -1 when empty
     x: torch.Tensor  # (R, C*32, 3) slot positions
@@ -83,8 +91,8 @@ class Clusters(NamedTuple):
 
 def bounds(ids, xs, L=None) -> Clusters:
     """Clusters of consecutive slots with their bounding boxes. A live
-    cluster's first slot is occupied. With box lengths ``L`` the box is
-    taken in the cluster's minimum-image frame around its first atom."""
+    cluster's first slot is occupied. With (R, 3) box lengths ``L`` the box
+    is taken in the cluster's minimum-image frame around its first atom."""
     R, P, _ = xs.shape
     C = P // CLUSTER
     v = xs.view(R, C, CLUSTER, 3)
@@ -92,7 +100,8 @@ def bounds(ids, xs, L=None) -> Clusters:
     ref = v[:, :, :1]
     off = v - ref
     if L is not None:
-        off = off - L * torch.round(off / L)
+        Lr = per_replica(L, 4)
+        off = off - Lr * torch.round(off / Lr)
     lo = torch.where(ok, off, float("inf")).amin(2)
     hi = torch.where(ok, off, float("-inf")).amax(2)
     live = ids.view(R, C, CLUSTER)[:, :, 0] >= 0  # contiguous, for the prune kernels
@@ -124,7 +133,8 @@ def layout_plain(skey, order, x, ids_t, n_bins, L, mode) -> Binned:
     dev = x.device
     xs = x.index_select(1, ids_t)
     if mode == LAY_WRAP:
-        xs = xs - L * torch.floor(xs / L)
+        Lr = per_replica(L, 3)
+        xs = xs - Lr * torch.floor(xs / Lr)
     bin_s = skey >> SUBKEY_BITS
     counts = torch.zeros((R, n_bins + 1), dtype=torch.long, device=dev)
     counts.scatter_add_(1, bin_s, torch.ones_like(bin_s))
@@ -180,7 +190,8 @@ def column_key_plain(x, ids_t, grid, L=None):
     nx, ny = grid
     xs = x.index_select(1, ids_t)
     if L is not None:
-        u = (xs - L * torch.floor(xs / L)) / L
+        Lr = per_replica(L, 3)
+        u = (xs - Lr * torch.floor(xs / Lr)) / Lr
     else:
         lo = xs.amin(1, keepdim=True)
         u = (xs - lo) / torch.clamp(xs.amax(1, keepdim=True) - lo, min=1e-6)
@@ -193,10 +204,12 @@ def column_key_plain(x, ids_t, grid, L=None):
 
 def box_gap2(ca, ha, cb, hb, L=None):
     """Squared distance between axis-aligned boxes (centre, half extent),
-    with the minimum image of the centres' difference when ``L`` is given."""
+    with the minimum image of the centres' difference when the (R, 3) box
+    lengths ``L`` are given (the replica the leading axis)."""
     d = ca - cb
     if L is not None:
-        d = d - L * torch.round(d / L)
+        Lr = per_replica(L, d.dim())
+        d = d - Lr * torch.round(d / Lr)
     gap = torch.clamp(d.abs() - ha - hb, min=0.0)
     return gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1] + gap[..., 2] * gap[..., 2]
 
@@ -241,7 +254,7 @@ def pair_list_sum(
     """The plain version of both pair kernels: the sum over the cluster
     pairs of the list, in the dtype of the slot positions.
 
-    ``L`` (box lengths) turns on the per-pair minimum image (K2);
+    ``L`` ((R, 3) box lengths) turns on the per-pair minimum image (K2);
     ``shift(rep, g, entry)`` instead returns each entry's (E, 3) image shift
     in nm, added to the column positions (K3). A pair counts when both slots
     hold atoms, the ids differ and r^2 < rc^2; its energy is weighted by
@@ -269,7 +282,8 @@ def pair_list_sum(
             xj = xj + shift(r, gi, en)[:, None, :]
         dx = xi[:, :, None, :] - xj[:, None, :, :]
         if L is not None:
-            dx = dx - L * torch.round(dx / L)
+            Lr = L[r][:, None, None, :]
+            dx = dx - Lr * torch.round(dx / Lr)
         r2 = dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1] + dx[..., 2] * dx[..., 2]
         a, b = id_i[:, :, None], id_j[:, None, :]
         valid = (a >= 0) & (b >= 0) & (a != b) & (r2 < rc2)
@@ -328,12 +342,12 @@ class Layout(NamedTuple):
 
     rows: Clusters
     cols: Clusters
-    box_len: torch.Tensor  # (3,) box lengths (ones when not periodic)
+    box_len: torch.Tensor  # (R, 3) box lengths per replica (ones when not periodic)
     min_image: bool  # per-pair minimum image (K2, periodic)
     lst: torch.Tensor = None  # (R, C_rows, W + 1) int32, from ``prune``
     count: torch.Tensor = None  # (R, C_rows) int32, above W when K2's list overflowed
     shift: object = None  # entry -> image shift in nm (K3)
-    invalid: torch.Tensor = None  # (R,) bool: poison the replica (K3)
+    invalid: torch.Tensor = None  # (R,) bool: poison the replica
     binned: Binned = None  # K3: the cells' clusters, for its prune
 
 
@@ -389,14 +403,15 @@ class ClusterPairSum:
         ]
 
     def params(self, lam, box_len):
-        """(6,) float32 kernel parameters [lam_s, f_na, f_aa, Lx, Ly, Lz]
-        on box_len's device; Python-number lambdas come from the cache of
-        ``device_const``, so a call makes no host-to-device copy."""
+        """(3 + 3R,) float32 kernel parameters [lam_s, f_na, f_aa, then
+        Lx, Ly, Lz of each replica] on box_len's device; Python-number
+        lambdas come from the cache of ``device_const``, so a call makes no
+        host-to-device copy."""
         if any(torch.is_tensor(v) for v in lam):
             lam_t = torch.stack(self.lambdas(*lam, torch.float32, box_len.device))
         else:
             lam_t = device_const(tuple(float(v) for v in lam), torch.float32, box_len.device)
-        return torch.cat([lam_t, box_len])
+        return torch.cat([lam_t, box_len.reshape(-1)])
 
     def consts(self):
         """The pair constants of the C interface, after the pointers."""
@@ -432,18 +447,21 @@ class ClusterPairSum:
         tensors, float32), else from their plain versions."""
         return self.prune(self.clusters(x, box, dtype, kernel), kernel)
 
-    def box_lengths(self, box, dtype):
-        """(3,) box lengths of ``box`` in ``dtype``, contiguous."""
-        return torch.diagonal(box).to(dtype).contiguous()
+    def box_lengths(self, box, dtype, n_replicas):
+        """(R, 3) box lengths of ``box``, (3, 3) or (R, 3, 3), in ``dtype``,
+        contiguous."""
+        return torch.diagonal(replica_boxes(box, n_replicas), dim1=-2, dim2=-1).to(dtype).contiguous()
 
     def prune(self, lay, kernel=False):
         lst, count = self.prune_kernel(lay) if kernel else self.prune_plain(lay)
         return lay._replace(lst=lst, count=count)
 
-    def layout_kernel(self, fn, skey, order, x, ids_t, n_bins, L, mode, cap=-1, ncells=(0, 0, 0)):
+    def layout_kernel(self, fn, skey, order, x, ids_t, n_bins, L, mode, bound, cap=-1, ncells=(0, 0, 0)):
         """The source's layout kernel ``fn`` (``csrc/cluster_layout.cuh``),
         the plain version ``layout_plain``, on float32 CUDA tensors: (Binned,
-        (R,) invalid), invalid being the cells' poison when ``cap`` >= 0."""
+        (R,) invalid), invalid being the cells' poison when ``cap`` >= 0
+        (``bound``: the cutoff) and K2's with LAY_MIN (``bound``: the length
+        every box edge must exceed), unset otherwise."""
         R, m = skey.shape
         C = -(-m // CLUSTER) + n_bins
         dev = x.device
@@ -459,7 +477,7 @@ class ClusterPairSum:
             skey.data_ptr(), order.data_ptr(), x.data_ptr(), ids_t.data_ptr(), L.data_ptr(), ids.data_ptr(),
             xo.data_ptr(), cl_bin.data_ptr(), counts.data_ptr(), lo.data_ptr(), ncl.data_ptr(), start.data_ptr(),
             centre.data_ptr(), half.data_ptr(), live.data_ptr(), invalid.data_ptr(), R, x.shape[1], m, n_bins, C,
-            mode, cap, *ncells, self.cutoff, cuda_stream(x),
+            mode, cap, *ncells, bound, cuda_stream(x),
         )
         if err != 0:
             raise RuntimeError(f"layout kernel of {self.name!r} failed to launch: cudaError {err}")

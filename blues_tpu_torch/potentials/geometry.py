@@ -1,8 +1,9 @@
 """Periodic geometry primitives: minimum image, distances, COM, rotations.
 
-Counterpart of ``blues_tpu.potentials.geometry``. Boxes are (3, 3)
-row-vector matrices shared by all replicas; positions carry a leading
-replica dimension, (R, N, 3).
+Counterpart of ``blues_tpu.potentials.geometry``. Positions carry a
+leading replica dimension, (R, N, 3). A box is a (3, 3) row-vector matrix
+shared by every replica or one per replica, (R, 3, 3), as the JAX
+package's ``vmap`` over replicas gives each its own box under a barostat.
 """
 
 from __future__ import annotations
@@ -12,14 +13,35 @@ import math
 import torch
 
 
+def replica_boxes(box, n_replicas: int):
+    """``box`` as (R, 3, 3): a (3, 3) box is broadcast (a view, no copy),
+    an (R, 3, 3) one is checked; None stays None."""
+    if box is None:
+        return None
+    if box.dim() == 2 and tuple(box.shape) == (3, 3):
+        return box.expand(n_replicas, 3, 3)
+    if tuple(box.shape) != (n_replicas, 3, 3):
+        raise ValueError(f"box must be (3, 3) or ({n_replicas}, 3, 3), got {tuple(box.shape)}")
+    return box
+
+
+def box_lengths(box):
+    """(..., 3) diagonal of a (..., 3, 3) orthorhombic box."""
+    return torch.diagonal(box, dim1=-2, dim2=-1)
+
+
 def periodic_displacement(dr, box):
-    """Minimum-image displacement vectors (..., 3) for box rows ``box``."""
+    """Minimum-image displacement vectors (..., 3) for box rows ``box``:
+    (3, 3), or (R, 3, 3) with one box per replica along the leading axis of
+    ``dr`` (R, ..., 3)."""
     if box is None:
         return dr
     box = box.to(dr.dtype)
-    dr = dr - box[2] * torch.round(dr[..., 2:3] / box[2, 2])
-    dr = dr - box[1] * torch.round(dr[..., 1:2] / box[1, 1])
-    dr = dr - box[0] * torch.round(dr[..., 0:1] / box[0, 0])
+    if box.dim() == 3:  # align each replica's box with its slice of dr
+        box = box.reshape(box.shape[:1] + (1,) * (dr.dim() - 2) + (3, 3))
+    dr = dr - box[..., 2, :] * torch.round(dr[..., 2:3] / box[..., 2, 2:3])
+    dr = dr - box[..., 1, :] * torch.round(dr[..., 1:2] / box[..., 1, 1:2])
+    dr = dr - box[..., 0, :] * torch.round(dr[..., 0:1] / box[..., 0, 0:1])
     return dr
 
 

@@ -39,7 +39,7 @@ from .. import units
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import AlchemicalRegion, NonbondedParams
 from .features import build_pair_features
-from .geometry import distance, periodic_displacement
+from .geometry import box_lengths, distance, periodic_displacement, replica_boxes
 from .pairs import pair_energy_force
 from .pme import PMEParams, make_pme_reciprocal, precompute_spread_grid
 from .pair_kernel import PallasPairSum
@@ -276,8 +276,11 @@ def _lam(v, dtype, device):
 
 
 class NonbondedEnergy:
-    """fn(x (R, N, 3), box (3, 3), globals) -> (R,) nonbonded energy, with
-    ``lambda_e0`` / ``lambda_ea`` when the lambda split applies.
+    """fn(x (R, N, 3), box, globals) -> (R,) nonbonded energy, with
+    ``lambda_e0`` / ``lambda_ea`` when the lambda split applies. ``box`` is
+    (3, 3), broadcast to every replica, or (R, 3, 3): each replica's terms
+    (minimum images, PME, the dispersion tail, the pair sums) use its own
+    box.
 
     The rest terms (exclusion and exception lists, PME reciprocal/self/
     plasma, dispersion) are shared by every backend; only the pair sums
@@ -811,20 +814,26 @@ class NonbondedEnergy:
             el = torch.where(elec > 0, lam_e * el, el)
         return (lj + el).sum(-1)
 
+    @staticmethod
+    def _volume(box):
+        """(R,) volume of each replica's orthorhombic box, multiplied in the
+        JAX package's order."""
+        L = box_lengths(box)
+        return L[:, 0] * L[:, 1] * L[:, 2]
+
     def _reciprocal(self, x, box):
         """PME reciprocal/self/plasma/erf-exclusion terms with q_std, plus
-        (frozen systems) the poison for a box that differs from the frozen
-        grid's."""
+        (frozen systems) the poison of each replica whose box differs from
+        the frozen grid's."""
         c, dt = self.c, x.dtype
         ke, alpha = units.ONE_4PI_EPS0, self.alpha
         q = c("q_eff", dt)
         e = self.recip(x, q, box)
         if self._frozen_grid:
-            mismatch = (box - c("box0", dt)).abs().max() > 1e-5
+            mismatch = (box - c("box0", dt)).abs().amax((-2, -1)) > 1e-5
             e = torch.where(mismatch, float("nan"), 0.0).to(dt) + e
         e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
-        vol = box[0, 0] * box[1, 1] * box[2, 2]
-        e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / vol
+        e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / self._volume(box)
         idx = c("erf_idx")
         if len(idx):
             rx = distance(periodic_displacement(x[:, idx[:, 0]] - x[:, idx[:, 1]], box))
@@ -839,7 +848,7 @@ class NonbondedEnergy:
         if self.method == PME:
             e = self._reciprocal(x, box)
         if self.disp_coeff:
-            e = e + self.disp_coeff / (box[0, 0] * box[1, 1] * box[2, 2])
+            e = e + self.disp_coeff / self._volume(box)
         return e
 
     def cull_guard(self, x, box):
@@ -852,7 +861,7 @@ class NonbondedEnergy:
         c, dt = self.c, x.dtype
         d = x[:, c("guard_rows")] - c("guard_centers", dt)
         if self.periodic and box is not None:
-            bl = torch.diagonal(box).to(dt)
+            bl = box_lengths(box).to(dt)[:, None, :]
             d = d - bl * torch.round(d / bl)
         bad = ((d * d).sum(-1) > c("guard_r2", dt)).any(-1).detach()
         poison = torch.where(bad, float("nan"), 0.0).to(dt)
@@ -860,12 +869,14 @@ class NonbondedEnergy:
 
     def energy_rest(self, x, box=None, globals_=None):
         """Exclusion/exception corrections, PME reciprocal terms, dispersion."""
+        box = replica_boxes(box, x.shape[0])
         lam_s, lam_e, f_aa = self.pair_factors(globals_, x.dtype, x.device)
         e = self._sub_excluded(x, box, "xsub", lam_s, lam_e, f_aa)
         e = e + self._exceptions(x, box, "exc", lam_s, lam_e)
         return e + self._tail(x, box)
 
     def __call__(self, x, box=None, globals_=None):
+        box = replica_boxes(box, x.shape[0])
         lam_s, lam_e, f_aa = self.pair_factors(globals_, x.dtype, x.device)
         e = self.pair_sum.energy(x, box, lam_s, lam_e, f_aa)
         return e + self.cull_guard(x, box) + self.energy_rest(x, box, globals_)
@@ -873,6 +884,7 @@ class NonbondedEnergy:
     def lambda_e0(self, x, box=None):
         """Lambda-independent part E0(x): non-alchemical pair sum, culling
         guard, non-alchemical corrections and every reciprocal-space term."""
+        box = replica_boxes(box, x.shape[0])
         e = self.cull_guard(x, box)
         if self.pair_sum0 is not None:
             e = e + self.pair_sum0.energy(x, box, 1.0, 1.0, 1.0)
@@ -909,6 +921,7 @@ class NonbondedEnergy:
         block (the EA sweep with culled columns, dense otherwise), the
         intra-alchemical pairs and the alchemical-involving exceptions."""
         c, dt = self.c, x.dtype
+        box = replica_boxes(box, x.shape[0])
         lam_s, lam_e, f_aa = self.pair_factors(globals_, dt, x.device)
         if self.ea_sweep is not None:
             e = self.ea_sweep.energy(x, box, lam_s, lam_e, f_aa)

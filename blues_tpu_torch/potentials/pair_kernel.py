@@ -17,6 +17,11 @@ column, and each row cluster gets the list of column clusters whose
 bounding boxes come within the cutoff (``clusters.py``), at most
 ``list_width`` of them (a row cluster that keeps more walks every column
 cluster). The order is rebuilt every call, so diffusion never degrades it.
+The kernel's minimum image (one rounding per axis) holds while every box
+length exceeds 2 (rc + PRUNE_MARGIN): the build box is checked, and a
+replica whose box (a barostat's trial box) falls to that bound is poisoned
+to NaN energy and forces per call, as K3 poisons a box shrunk below its
+grid.
 On a CUDA tensor ``__call__`` builds the layout with the key, layout and
 prune kernels of ``csrc/pair_kernel.cu`` (and a torch sort) and launches
 the pair kernel over it, or raises; on a CPU tensor the plain versions
@@ -42,7 +47,8 @@ class PallasPairSum(ClusterPairSum):
     """The K2 pair sum over ``feats`` (``features.PairFeatures``): rows
     ``feats.row_idx[:n_rows]`` x columns ``col_idx`` (all atoms when None).
     ``box0`` (periodic systems) is checked against the cutoff: the kernel's
-    minimum image needs every box length above 2 (rc + PRUNE_MARGIN)."""
+    minimum image needs every box length above 2 (rc + PRUNE_MARGIN); a
+    replica's box at or below it poisons that replica."""
 
     def __init__(
         self,
@@ -84,6 +90,8 @@ class PallasPairSum(ClusterPairSum):
         self.rows_are_all = len(rows) == n
         self._rows_t = torch.as_tensor(rows, device=dev)
         self._cols_t = torch.as_tensor(cols, device=dev)
+        #: float32 2 (rc + PRUNE_MARGIN), the length every box edge must exceed
+        self.min_box_len = float(np.float32(2.0 * (cutoff + PRUNE_MARGIN)))
         b0 = box0 if periodic else None
         self._grids = column_grid(len(rows), b0), column_grid(len(cols), b0)
         n_cl = [-(-m // CLUSTER) + gx * gy for m, (gx, gy) in zip((len(rows), len(cols)), self._grids)]
@@ -121,33 +129,39 @@ class PallasPairSum(ClusterPairSum):
         return key
 
     def binned(self, skey, order, x, L, side, kernel=False):
-        """(Binned, None): the rows' or columns' clusters from their sorted
-        keys, by the layout kernel when ``kernel``, else by its plain
-        version (K2 has no poison)."""
+        """(Binned, (R,) invalid): the rows' or columns' clusters from their
+        sorted keys, by the layout kernel when ``kernel``, else by its plain
+        version. ``invalid`` (periodic only, else None) poisons a replica
+        whose box has an edge of at most ``min_box_len``."""
         ids_t, (nx, ny) = self._side(side)
-        mode = LAY_MIN if self.periodic else LAY_RAW
+        if not self.periodic:
+            if kernel:
+                fn = _bind(_load()).pair_layout_launch
+                return self.layout_kernel(fn, skey, order, x, ids_t, nx * ny, L, LAY_RAW, 0.0)[0], None
+            return layout_plain(skey, order, x, ids_t, nx * ny, L, LAY_RAW), None
         if kernel:
             fn = _bind(_load()).pair_layout_launch
-            return self.layout_kernel(fn, skey, order, x, ids_t, nx * ny, L, mode)[0], None
-        return layout_plain(skey, order, x, ids_t, nx * ny, L, mode), None
+            return self.layout_kernel(fn, skey, order, x, ids_t, nx * ny, L, LAY_MIN, self.min_box_len)
+        return layout_plain(skey, order, x, ids_t, nx * ny, L, LAY_MIN), (L <= self.min_box_len).any(1)
 
-    def box_lengths(self, box, dtype):
+    def box_lengths(self, box, dtype, n_replicas):
         if self.periodic:
-            return super().box_lengths(box, dtype)
-        return torch.ones(3, dtype=dtype, device=box.device)
+            return super().box_lengths(box, dtype, n_replicas)
+        return torch.ones((n_replicas, 3), dtype=dtype, device=self.device)
 
     def clusters(self, x, box, dtype, kernel=False):
         """Clusters of the rows and of the columns at ``x``, with the key
         and layout kernels when ``kernel`` (float32 CUDA tensors), else
         with their plain versions."""
         xf = x.to(dtype).contiguous()
-        L = self.box_lengths(box, dtype)
+        L = self.box_lengths(box, dtype, x.shape[0])
         sides = []
         for side in self.sides:
             key = self.key_kernel(xf, L, side) if kernel else self.key_plain(xf, L, side)
             skey, order = torch.sort(key, dim=1, stable=True)
-            sides.append(self.binned(skey, order, xf, L, side, kernel)[0].clusters)
-        return Layout(sides[0], sides[-1], L, self.periodic)
+            sides.append(self.binned(skey, order, xf, L, side, kernel))
+        # both sides test the same lengths: the rows' poison stands for both
+        return Layout(sides[0][0].clusters, sides[-1][0].clusters, L, self.periodic, invalid=sides[0][1])
 
     def prune_plain(self, lay):
         """Each row cluster's column clusters within the cutoff, as torch
@@ -187,7 +201,7 @@ class PallasPairSum(ClusterPairSum):
         return e.to(x.dtype), f.to(x.dtype)
 
     def launch(self, lay, lam_s, f_na, f_aa):
-        """The pair kernel over a float32 layout on the card."""
+        """The pair kernel over a float32 layout on the card, poisoned."""
         lib = _bind(_load())
         rows, cols = lay.rows, lay.cols
         f32, dev = torch.float32, rows.x.device
@@ -206,7 +220,7 @@ class PallasPairSum(ClusterPairSum):
         if err != 0:
             raise RuntimeError(f"pair kernel {self.name!r} launch failed: cudaError {err}")
         self.launches += 1
-        return out[:, :, 3].sum(1), out[:, :, :3]
+        return self.poisoned(out[:, :, 3].sum(1), out[:, :, :3], lay.invalid)
 
 
 def _load():

@@ -13,9 +13,13 @@ every row visits the 27 neighbour cells of its home cell, each with a
 static lattice shift that is the minimum image; a pair counts when
 gid_i != gid_j and r^2 < rc^2 (no exclusion mask), with weight
 1 - 0.5*in_rows_i*in_rows_j on the energy; when the rows are a subset, E
-and F are masked by ``in_rows``. Both outputs are poisoned to NaN when a
-bin holds more than ``cap`` atoms or the box shrinks below cutoff-wide
-cells: the driver's rollback depends on it.
+and F are masked by ``in_rows``. Each replica has its own box (NPT): the
+lattice shifts scale by its lengths, while the grid, ``cap`` and the
+neighbour table stay the ones built from ``box0``, as in the JAX package.
+A replica's outputs are poisoned to NaN when one of its bins holds more
+than ``cap`` atoms or its box shrinks below cutoff-wide cells: the
+driver's rollback and the barostat's rejection depend on it; the other
+replicas are untouched.
 
 Layout (per call; ``clusters.py``): inside each cell the atoms are sorted
 along a snake over the cell's 2 x 2 xy quarters (z rising in the first and
@@ -41,7 +45,7 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from .cells import _grid_shape, _neighbor_table
 from .clusters import (
     CLUSTER, LAY_WRAP, SUBKEY_BITS, ClusterPairSum, Layout, bind_layout, box_gap2, compact, cuda_stream,
-    feature_table, layout_plain,
+    feature_table, layout_plain, per_replica,
 )
 
 N_NBR = 27
@@ -155,10 +159,12 @@ class CellsPairSum(ClusterPairSum):
 
     def key_plain(self, x, L, side=0):
         """(R, N) int64 sort keys, (cell << SUBKEY_BITS) | snake key, of the
-        wrapped positions: the plain version of the key kernel."""
-        xw = x - L * torch.floor(x / L)
+        positions wrapped into each replica's box: the plain version of the
+        key kernel."""
+        Lr = per_replica(L, 3)
+        xw = x - Lr * torch.floor(x / Lr)
         # xw can round to exactly L: clip the cell index as the JAX code does
-        g = xw / L * self._ncells_f(x.dtype)
+        g = xw / Lr * self._ncells_f(x.dtype)
         ci = torch.minimum(torch.clamp(torch.floor(g).long(), min=0), self._nmax)
         cid = (ci * self._strides).sum(-1)
         return (cid << SUBKEY_BITS) | snake_key(g - ci).long()
@@ -176,26 +182,27 @@ class CellsPairSum(ClusterPairSum):
     def binned(self, skey, order, x, L, side=0, kernel=False):
         """(Binned, (R,) invalid) from the sorted keys: the layout kernel
         when ``kernel``, else its plain version. ``invalid`` is the poison
-        condition: a bin over ``cap`` or a shrunken box."""
+        condition of each replica: a bin over ``cap`` or a box shrunk below
+        cutoff-wide cells."""
         if kernel:
             return self.layout_kernel(
                 _bind(_load()).cells_layout_launch, skey, order, x, self._ids, self.n_cells, L, LAY_WRAP,
-                cap=self.cap, ncells=self.ncells,
+                self.cutoff, cap=self.cap, ncells=self.ncells,
             )
         b = layout_plain(skey, order, x, self._ids, self.n_cells, L, LAY_WRAP)
-        return b, (b.counts.amax(1) > self.cap) | (L / self._ncells_f(x.dtype) < self.cutoff).any()
+        return b, (b.counts.amax(1) > self.cap) | (L / self._ncells_f(x.dtype) < self.cutoff).any(-1)
 
     def clusters(self, x, box, dtype, kernel=False):
         """Wrap, bin and cluster (R, N, 3) positions, every piece batched
         over replicas, with the key and layout kernels when ``kernel``
         (float32 CUDA tensors), else with their plain versions."""
-        L = self.box_lengths(box, dtype)
+        L = self.box_lengths(box, dtype, x.shape[0])
         xf = x.to(dtype).contiguous()
         key = self.key_kernel(xf, L) if kernel else self.key_plain(xf, L)
         skey, order = torch.sort(key, dim=1, stable=True)
         binned, invalid = self.binned(skey, order, xf, L, kernel=kernel)
         cl_cell = binned.cl_bin
-        shift_nm = lambda r, gi, en: self._shift_table(dtype)[cl_cell[r, gi], en & (CLUSTER - 1)] * L  # noqa: E731
+        shift_nm = lambda r, gi, en: self._shift_table(dtype)[cl_cell[r, gi], en & (CLUSTER - 1)] * L[r]  # noqa: E731
         clus = binned.clusters
         return Layout(clus, clus, L, False, shift=shift_nm, invalid=invalid, binned=binned)
 
@@ -213,7 +220,7 @@ class CellsPairSum(ClusterPairSum):
         flat = cand.view(R, -1, 1).expand(-1, -1, 3)
         cb = clus.centre.gather(1, flat).view(R, C, N_NBR, Q, 3)
         hb = clus.half.gather(1, flat).view(R, C, N_NBR, Q, 3)
-        sh = self._shift_table(lay.box_len.dtype)[b.cl_bin] * lay.box_len  # (R, C, 27, 3)
+        sh = self._shift_table(lay.box_len.dtype)[b.cl_bin] * per_replica(lay.box_len, 4)  # (R, C, 27, 3)
         gap2 = box_gap2(clus.centre[:, :, None, None], clus.half[:, :, None, None], cb + sh[:, :, :, None], hb)
         mask = ok & (gap2 < self.prune_threshold()) & clus.live[:, :, None, None]
         return compact(mask.view(R, C, -1), (cand * CLUSTER + self._k).view(R, C, -1), N_NBR * Q)

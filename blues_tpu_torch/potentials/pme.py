@@ -23,6 +23,7 @@ import torch
 
 from .. import units
 from ..core.device import DEFAULT_DEVICE, device_const, resolve_device
+from .geometry import box_lengths, replica_boxes
 
 
 @dataclass(frozen=True)
@@ -78,7 +79,9 @@ def _modes(K):
 
 
 class PMEReciprocal:
-    """fn(positions (R, n, 3), charges (N,), box (3, 3)) -> (R,) energy.
+    """fn(positions (R, n, 3), charges (N,), box (R, 3, 3)) -> (R,) energy,
+    each replica on its own box lengths; the grid dims are the ones chosen
+    from the build box, as in the JAX package.
 
     ``base_grid``/``spread_subset``: the frozen atoms' spread is a constant
     grid, precomputed once; only ``spread_subset`` atoms are spread per call
@@ -127,7 +130,7 @@ class PMEReciprocal:
         R, n, _ = positions.shape
         dt = positions.dtype
         K = device_const((Kx, Ky, Kz), dt, positions.device)
-        u = positions / torch.diagonal(box).to(dt) * K
+        u = positions / box_lengths(box).to(dt)[:, None, :] * K
         base = torch.floor(u)
         w = u - base
         wts = bspline_weights(w, order).flip(-1)  # (R, n, 3, order) ascending
@@ -154,13 +157,13 @@ class PMEReciprocal:
     def energy_from_grid(self, grid, box):
         dt = box.dtype
         t = self._tables(dt)
-        blen = torch.diagonal(box)
+        blen = box_lengths(box)[:, :, None, None, None]  # (R, 3, 1, 1, 1)
         fq = torch.fft.rfftn(grid, dim=(-3, -2, -1))
         s2 = fq.real**2 + fq.imag**2
         m2 = (
-            (t["mx"][:, None, None] / blen[0]) ** 2
-            + (t["my"][None, :, None] / blen[1]) ** 2
-            + (t["mz"][None, None, :] / blen[2]) ** 2
+            (t["mx"][:, None, None] / blen[:, 0]) ** 2
+            + (t["my"][None, :, None] / blen[:, 1]) ** 2
+            + (t["mz"][None, None, :] / blen[:, 2]) ** 2
         )
         pi2 = math.pi * math.pi
         influence = torch.where(
@@ -168,12 +171,13 @@ class PMEReciprocal:
             torch.exp(-pi2 * m2 / (self.params.alpha**2)) / torch.clamp(m2, min=1e-12),
             torch.zeros((), dtype=dt, device=m2.device),
         )
-        vol = blen[0] * blen[1] * blen[2]
+        vol = (blen[:, 0] * blen[:, 1] * blen[:, 2]).reshape(-1)
         return (influence * t["b2"] * s2).sum((-3, -2, -1)) * (
             units.ONE_4PI_EPS0 / (2.0 * math.pi * vol)
         )
 
     def __call__(self, positions, charges, box):
+        box = replica_boxes(box, positions.shape[0])
         if self.subset is not None:
             positions = positions.index_select(1, self.subset)
             charges = charges.index_select(0, self.subset)

@@ -31,7 +31,9 @@ force array) and a reduce kernel that sums the chunks' partials in a fixed
 order and writes forces and energy.
 
 ``SweepPairSum.__call__(x, box, lam_s, f_na, f_aa)`` returns ((R,) energy,
-(R, N, 3) forces) for (R, N, 3) positions. On a CUDA tensor it launches the
+(R, N, 3) forces) for (R, N, 3) positions and a (3, 3) box or one per
+replica, (R, 3, 3) (NPT); the layout above is built once from the first
+box, as in the JAX package. On a CUDA tensor it launches the
 hand-written kernels (``csrc/sweep_kernel.cu``) or raises; on a CPU tensor
 it computes the same layout with plain tensor ops (``plain``), in the dtype
 of ``x``. ``energy`` wraps it in a ``torch.autograd.Function`` whose
@@ -47,6 +49,7 @@ import torch
 
 from .. import units
 from ..core.device import DEFAULT_DEVICE, device_const, resolve_device
+from .geometry import box_lengths, replica_boxes
 from .pairs import pair_energy_force
 
 ROWS_PER_BLOCK = 32
@@ -454,18 +457,18 @@ class SweepPairSum:
         return e.to(x_dtype), f.to(x_dtype)
 
     def _lambdas(self, lam_s, f_na, f_aa, box, dtype, device):
+        """The three factors as scalar tensors and the box lengths: (R, 1,
+        1, 3) of an (R, 3, 3) box, ones without a box."""
         lam = [
             v.to(dtype=dtype, device=device).reshape(())
             if torch.is_tensor(v)
             else device_const((float(v),), dtype, device).reshape(())
             for v in (lam_s, f_na, f_aa)
         ]
-        blen = (
-            torch.diagonal(box).to(dtype=dtype, device=device)
-            if box is not None
-            else device_const((1.0, 1.0, 1.0), dtype, device)
-        )
-        return lam, blen
+        if box is None:
+            return lam, device_const((1.0, 1.0, 1.0), dtype, device)
+        blen = box_lengths(box).to(dtype=dtype, device=device)
+        return lam, blen[:, None, None, :]
 
     # ------------------------------------------------------------------
     def plain(self, x, box, lam_s, f_na, f_aa, count_only=False):
@@ -474,8 +477,9 @@ class SweepPairSum:
         keeps (inside the cutoff, not masked) over all replicas."""
         dt = x.dtype
         calc = torch.float32 if dt == torch.float32 else torch.float64
-        (ls, fna, faa), blen = self._lambdas(lam_s, f_na, f_aa, box, calc, x.device)
         R = x.shape[0]
+        box = replica_boxes(box, R)
+        (ls, fna, faa), blen = self._lambdas(lam_s, f_na, f_aa, box, calc, x.device)
         xr = x.index_select(1, self._slot_gid).to(calc)
         xc = self._col_positions(x, calc)
         if calc not in self._feat:
@@ -561,7 +565,10 @@ class SweepPairSum:
     def operands(self, x, box):
         """The checked operands of a launch at positions ``x``: the
         kernels read ``x`` and ``box`` themselves, so these are the two
-        tensors, float32 and contiguous on the sweep's device."""
+        tensors, float32 on the sweep's device, and the box's stride between
+        replicas. A (3, 3) box, or its broadcast view, is shared by every
+        replica (stride 0), an (R, 3, 3) one is read per replica (stride 9):
+        neither is copied when it is float32 and contiguous already."""
         if x.device.type != "cuda":
             raise ValueError("the sweep kernel runs on CUDA tensors only")
         if x.dtype != torch.float32:
@@ -570,11 +577,14 @@ class SweepPairSum:
             raise ValueError(f"positions must be (R, {self.n_atoms}, 3), got {tuple(x.shape)}")
         if x.device != self._row_feat.device:
             raise ValueError(f"positions on {x.device}, sweep staged on {self._row_feat.device}")
+        stride = 0
         if box is not None:
-            if tuple(box.shape) != (3, 3):
-                raise ValueError(f"box must be (3, 3), got {tuple(box.shape)}")
-            box = box.detach().to(dtype=torch.float32, device=x.device).contiguous()
-        return x.detach().contiguous(), box
+            box = replica_boxes(box, x.shape[0]).detach().to(dtype=torch.float32, device=x.device)
+            if box.stride(0) == 0 and box[0].is_contiguous():
+                box = box[0]  # one box for every replica
+            else:
+                box, stride = box.contiguous(), 9
+        return x.detach().contiguous(), box, stride
 
     def _scalars(self, lam, device):
         """Device addresses of the three float32 factors, and what keeps
@@ -599,7 +609,7 @@ class SweepPairSum:
         partials, the kept column forces and the zeroed force array, then
         (``reduce``) the reduce kernel. Returns (E or None, F, partials,
         kept column forces or None)."""
-        x, box = ops
+        x, box, box_stride = ops
         R, dev, f32 = x.shape[0], x.device, torch.float32
         held, lam = self._scalars(lam, dev)
         partial = torch.empty((R, max(self.n_chunks, 1), self.tr, 4), dtype=f32, device=dev)
@@ -608,8 +618,8 @@ class SweepPairSum:
         e = torch.empty((R,), dtype=f32, device=dev) if reduce else None
         ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         err = _lib().sweep_launch(
-            self._inst, x.data_ptr(), *lam, ptr(box), partial.data_ptr(), ptr(outc), f.data_ptr(), ptr(e), R,
-            _stream(x),
+            self._inst, x.data_ptr(), *lam, ptr(box), box_stride, partial.data_ptr(), ptr(outc), f.data_ptr(),
+            ptr(e), R, _stream(x),
         )
         del held  # the launches are on the stream: the allocator frees in its order
         if err != 0:
@@ -704,7 +714,7 @@ def _lib():
 
         lib = load_library("sweep_kernel")
         P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Instance)
-        lib.sweep_launch.argtypes = [S] + [P] * 9 + [I, P]
+        lib.sweep_launch.argtypes = [S] + [P] * 5 + [I] + [P] * 4 + [I, P]
         lib.sweep_reduce_launch.argtypes = [S] + [P] * 4 + [I, P]
         lib.sweep_empty_launch.argtypes = [P]
         for fn in (

@@ -16,14 +16,23 @@ energies, as the JAX driver does, so the 'sweep' backend resolves to the
 pair kernel. Positions are (R, N, 3); the JAX package's ``vmap`` over
 replicas is the leading dimension here.
 
+The state is (x, v, box) with one box per replica, (R, 3, 3). With
+``pressure`` set, MD runs in chunks of ``barostat_frequency`` steps, each
+followed by one Monte Carlo volume move per replica
+(``integrators/barostat.py``) and a force re-evaluation; remainder steps
+get no attempt, and the NCMC protocol keeps the box it is given (NPT on
+the MD system only, as in the reference).
+
 Acceptance (reference semantics):
 
     log_accept = -(protocol_work)/kT + correction
     correction = -[(E_alch(x0) - E_md(x0)) + (E_md(x1) - E_alch(x1))]/kT
 
-Configurations outside the port (barostat, segmented dispatch, frame
-reporters, backends other than 'sweep', 'pcells', 'pallas' and 'auto')
-raise ``ValueError``.
+Configurations outside the port (segmented dispatch, frame reporters,
+backends other than 'sweep', 'pcells', 'pallas' and 'auto') raise
+``ValueError``, and so do the JAX driver's own refusals: pressure with
+frozen atoms under PME, and ``frozen_compact=True`` where compaction is
+ineligible (a barostat makes it so).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.rng import TorchRandomSource
 from ..core.state import maxwell_boltzmann_velocities
 from ..core.system import System
+from ..integrators.barostat import MonteCarloBarostat
 from ..integrators.constraints import make_constraint_fns
 from ..integrators.langevin import LangevinParams, make_md_step
 from ..integrators.ncmc import make_ncmc_protocol
@@ -102,8 +112,6 @@ class IterationStats(NamedTuple):
 
 def _check_slice(cfg: SimulationConfig, move):
     out = []
-    if cfg.pressure is not None:
-        out.append("pressure (barostat)")
     if cfg.max_steps_per_dispatch:
         out.append("max_steps_per_dispatch")
     if cfg.md_report_interval is not None or cfg.ncmc_frame_indices is not None:
@@ -116,6 +124,34 @@ def _check_slice(cfg: SimulationConfig, move):
         out.append(f"move {type(move).__name__} (not a blues_tpu_torch Move)")
     if out:
         raise ValueError("outside the port's slice: " + ", ".join(out))
+
+
+
+def initial_state(system, cfg, positions, box, seed, source, dtype, device, velocities=None):
+    """(source, (x, v, box)): the run's random source (``source``, else a
+    ``torch.Generator`` on ``device`` seeded with ``seed``) and the state of
+    ``cfg.n_replicas`` replicas: positions (N, 3) broadcast to (R, N, 3), a
+    (3, 3) box (the system's when None) to (R, 3, 3), velocities (N, 3)
+    broadcast, or drawn from Maxwell-Boltzmann when None."""
+    R = cfg.n_replicas
+    if source is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        source = TorchRandomSource(gen)
+    if box is None:
+        if system.box is None:
+            raise ValueError("the port's path is periodic: the system needs a box")
+        box = system.box
+
+    def replicas(a):
+        t = torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        return (t.unsqueeze(0).expand(R, *t.shape) if t.dim() == 2 else t).contiguous()
+
+    if velocities is None:
+        v = maxwell_boltzmann_velocities(source, system.masses, cfg.temperature, R, dtype, device)
+    else:
+        v = replicas(velocities)
+    return source, (replicas(positions), v, replicas(box))
 
 
 class BLUESSimulation:
@@ -170,15 +206,39 @@ class BLUESSimulation:
         )
         self.langevin_params = LangevinParams(config.dt, config.friction, config.temperature)
         self._kT = units.kT(config.temperature)
+        if (
+            config.pressure is not None
+            and system.frozen_ref_positions is not None
+            and config.nonbonded_method == "PME"
+        ):
+            # the frozen-background PME grid assumes a fixed box (the JAX
+            # driver's refusal)
+            raise ValueError(
+                "pressure (NPT barostat) cannot be combined with frozen atoms under PME: "
+                "the frozen-background grid assumes a fixed box"
+            )
+        self._barostat = (
+            MonteCarloBarostat(
+                system, self.energy_md, config.pressure * units.BAR_TO_KJMOL_PER_NM3, config.temperature,
+                device=self.device,
+            )
+            if config.pressure is not None
+            else None
+        )
+        #: the barostat's per-replica state (proposal size, counters), kept
+        #: across iterations; set at the first iteration
+        self.barostat_state = None
 
         comp = None
         if config.frozen_compact:
-            comp = build_mobile_compaction(system, self.energy_alch, self.force_alch, move, self.device)
+            # a volume move scales every molecule: a barostat rules compaction out
+            if self._barostat is None:
+                comp = build_mobile_compaction(system, self.energy_alch, self.force_alch, move, self.device)
             if config.frozen_compact is True and comp is None:
                 raise ValueError(
                     "frozen_compact=True but the system/move is not compaction-eligible "
                     "(needs frozen reference positions, no boundary-straddling "
-                    "constraints, a non-teleporting remappable move)"
+                    "constraints, a non-teleporting remappable move, no barostat)"
                 )
         self._compact = comp
         self.source = None
@@ -221,33 +281,15 @@ class BLUESSimulation:
 
     # ------------------------------------------------------------------
     def initialize(self, positions, box=None, seed: int = 0, source=None, velocities=None):
-        """Set the state: positions (N, 3) are broadcast to (R, N, 3).
-        Draws come from ``source``, else a ``torch.Generator`` seeded with
-        ``seed`` on the simulation's device."""
-        R = self.cfg.n_replicas
-        if source is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            source = TorchRandomSource(gen)
-        self.source = source
+        """Set the state: positions (N, 3) are broadcast to (R, N, 3), a
+        (3, 3) box to (R, 3, 3). Draws come from ``source``, else a
+        ``torch.Generator`` seeded with ``seed`` on the simulation's
+        device."""
+        self.source, self.state = initial_state(
+            self.system, self.cfg, positions, box, seed, source, self.dtype, self.device, velocities
+        )
         self._build_dynamics()
-        if box is None:
-            if self.system.box is None:
-                raise ValueError("the port's path is periodic: the system needs a box")
-            box = self.system.box
-        box = torch.as_tensor(np.asarray(box), dtype=self.dtype, device=self.device)
-        x = torch.as_tensor(np.asarray(positions), dtype=self.dtype, device=self.device)
-        if x.dim() == 2:
-            x = x.unsqueeze(0).expand(R, -1, -1).contiguous()
-        if velocities is None:
-            v = maxwell_boltzmann_velocities(
-                source, self.system.masses, self.cfg.temperature, R, self.dtype, self.device
-            )
-        else:
-            v = torch.as_tensor(np.asarray(velocities), dtype=self.dtype, device=self.device)
-            if v.dim() == 2:
-                v = v.unsqueeze(0).expand(R, -1, -1).contiguous()
-        self.state = (x, v, box)
+        self.barostat_state = None
         return self.state
 
     @torch.no_grad()
@@ -290,17 +332,7 @@ class BLUESSimulation:
         xd = gather(x)
         vd = maxwell_boltzmann_velocities(src, self._masses_d, cfg.temperature, R, dt, dev)
         vd = self._constrain_d[1](vd, xd)
-        xd_keep, vd_keep = xd, vd
-        _, fd = self._ffn_md_d(xd, box, None)
-        for _ in range(cfg.nstepsMD):
-            xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
-        if cfg.md_fault_injection > 0.0:
-            fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
-            xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
-        e_md_end = self.energy_md(put(x, xd), box, None)
-        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1)
-        xd = torch.where(md_ok[:, None, None], xd, xd_keep)
-        vd = torch.where(md_ok[:, None, None], vd, vd_keep)
+        xd, vd, box, e_md_end, md_ok = self._run_md(x, xd, vd, box)
         x = put(x, xd)
         v = put(torch.zeros_like(x), vd)
         self.state = (x, v, box)
@@ -321,6 +353,43 @@ class BLUESSimulation:
             md_failed=~md_ok,
             selected_move=selected,
         )
+
+    def _run_md(self, x, xd, vd, box):
+        """``nstepsMD`` MD steps of the dynamics state from (xd, vd); with a
+        barostat, in chunks of ``barostat_frequency`` steps, each followed
+        by a volume move and a force re-evaluation (the remainder steps get
+        no attempt). A replica whose MD ends non-finite rolls back its
+        positions, velocities, box and barostat state. Returns (xd, vd,
+        box, (R,) MD potential at the end, (R,) md_ok)."""
+        cfg, src, baro = self.cfg, self.source, self._barostat
+        R, dt, dev = xd.shape[0], xd.dtype, xd.device
+        n_md = cfg.nstepsMD
+        if baro is not None and self.barostat_state is None:
+            self.barostat_state = baro.init_state(box)
+        bstate = self.barostat_state
+        keep = (xd, vd, box, bstate)
+        chunk = max(min(cfg.barostat_frequency if baro is not None else max(n_md, 1), max(n_md, 1)), 1)
+        n_chunks = n_md // chunk if n_md > 0 else 0
+        _, fd = self._ffn_md_d(xd, box, None)
+        for _ in range(n_chunks):
+            for _ in range(chunk):
+                xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
+            if baro is not None:
+                # no compaction under a barostat: the dynamics state is the full one
+                xd, box, bstate = baro.step(src, xd, box, bstate)
+                _, fd = self._ffn_md_d(xd, box, None)
+        for _ in range(n_md - n_chunks * chunk):
+            xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
+        if cfg.md_fault_injection > 0.0:
+            fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
+            xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
+        e_md_end = self.energy_md(self._put(x, xd), box, None)
+        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1)
+        ok3 = md_ok[:, None, None]
+        xd, vd, box = (torch.where(ok3, a, b) for a, b in zip((xd, vd, box), keep))
+        if baro is not None:
+            self.barostat_state = bstate.where(md_ok, keep[3])
+        return xd, vd, box, e_md_end, md_ok
 
     def run(self, n_iter: Optional[int] = None):
         """Run ``n_iter`` iterations (default ``nIter``); returns the

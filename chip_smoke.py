@@ -41,7 +41,15 @@ Phases (each prints its own line; any failure exits non-zero):
      frozen systems without culled columns (the darting system) and with
      them (the slice), K3 with the frozen rows masked (the slice), MAIN
      and E0 each with its layout kernels, K2 without culling with an
-     8-entry list, and K2 against K3 over the frozen slice;
+     8-entry list, and K2 against K3 over the frozen slice; then every
+     instance again at R = 8 with eight different boxes (each replica's box,
+     and for K2 and K3 its positions, scaled by a factor in 0.985-1.015),
+     K1 also with the minimum image on, K2's and K3's layout kernels equal
+     to their plain versions bit for bit, the call's time beside the
+     one-box call's of the same run; and K3's poison of the one replica
+     whose box shrank below ncells x cutoff (NaN), and K2's of the one
+     whose box shrank below 2 (cutoff + PRUNE_MARGIN), the other seven
+     finite and equal to the plain version;
   5. main: FIRE, then BLUESSimulation on the frozen slice, R = 8, nstepsNC =
      nstepsMD = 50, 3 iterations;
   6. unfrozen: FIRE (200 steps), then BLUESSimulation on the unfrozen box
@@ -64,11 +72,22 @@ Phases (each prints its own line; any failure exits non-zero):
      designated water alchemical), R = 8, 50 + 50 steps, 2 iterations: a
      water swapped on every replica, no accepted non-finite work, water
      geometry at its constraints to 1e-4 nm;
- 11. check: the MD energy and forces of the final states on the card
-     against the port's CPU path (the plain sums) on the same positions,
-     for the frozen slice, the unfrozen box and the darting system.
+ 11. npt: the unfrozen box on 'pcells' under the Monte Carlo barostat
+     (1.01325 bar, an attempt every 25 MD steps), R = 8, nstepsNC = nstepsMD
+     = 50, 3 iterations, from the unfrozen phase's minimised positions: K3
+     must launch, every replica counts 2 attempts per iteration whose MD
+     was not rolled back, the boxes stay finite, orthorhombic and inside
+     the K3 grid's validity, a volume move is accepted, at least two
+     replicas end on different boxes, no non-finite work is accepted;
+ 12. mc: MonteCarloSimulation on the same box ('pcells', a rotation), R = 8,
+     5 proposals per iteration, nstepsMD = 50, 2 iterations: (5, R) stats,
+     a finite MD potential, a finite dPE wherever a proposal was accepted;
+ 13. check: the MD energy and forces of the final states on the card
+     against the port's CPU path (the plain sums) on the same positions
+     and boxes, for the frozen slice, the unfrozen box, the darting system
+     and the NPT run (two replicas on different boxes).
 
-Each path (5-10) must launch its kernels: every count is set to 0 just
+Each path (5-12) must launch its kernels: every count is set to 0 just
 before the path and read just after. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
@@ -119,8 +138,11 @@ N_ITER = 3
 NSTEPS = 50
 N_MIN_FROZEN, N_MIN_UNFROZEN, N_MIN_DART = 400, 200, 200
 R_PALLAS, NSTEPS_PALLAS = 2, 10
-#: iterations of the water path and of the short frozen runs
+#: iterations of the water path, of the short frozen runs and of the mc path
 N_ITER_SHORT = 2
+#: the npt path: pressure (bar) and MD steps per barostat attempt; the mc
+#: path's proposals per iteration
+PRESSURE_BAR, BAROSTAT_FREQUENCY, MC_PER_ITER = 1.01325, 25, 5
 E_REL, E_ABS, F_REL = 5e-5, 1e-2, 2e-5
 #: the unfrozen raw pair sums hold every excluded bonded pair, which the rest
 #: term subtracts: composed values are checked to this fraction of the raw
@@ -208,6 +230,31 @@ def build_unfrozen(device, backend, n_replicas, nsteps, n_atoms=N_ATOMS, cutoff=
     )
     sim = BLUESSimulation(system, RandomLigandRotationMove(lig, system.masses), cfg, device=device)
     return system, x0, sim
+
+
+def build_npt(device, n_atoms=N_ATOMS, cutoff=1.0):
+    """The unfrozen box on 'pcells' under the Monte Carlo barostat."""
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    system, x0, lig = _box(n_atoms)
+    cfg = _config(
+        nstepsNC=NSTEPS, nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="pcells", n_replicas=R_MAIN,
+        pressure=PRESSURE_BAR, barostat_frequency=BAROSTAT_FREQUENCY,
+    )
+    return system, BLUESSimulation(system, RandomLigandRotationMove(lig, system.masses), cfg, device=device)
+
+
+def build_mc(device, n_atoms=N_ATOMS, cutoff=1.0):
+    """MonteCarloSimulation on the unfrozen box, 'pcells', a rotation."""
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import MonteCarloSimulation
+
+    system, _, lig = _box(n_atoms)
+    cfg = _config(nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="pcells", n_replicas=R_MAIN)
+    return MonteCarloSimulation(
+        system, RandomLigandRotationMove(lig, system.masses), cfg, mc_per_iter=MC_PER_ITER, device=device
+    )
 
 
 def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
@@ -505,7 +552,7 @@ def check_layout(name, ps, xs, box, reps):
 
     res = {step_name(name, s): dict(max_abs_err=0.0) for s in ("key", "layout")}
     for R, x in xs.items():
-        L = ps.box_lengths(box, torch.float32)
+        L = ps.box_lengths(box, torch.float32, R)
         first = None  # the rows' keys and clusters, which the timing below lays out
         for side in ps.sides:
             kk, kp = ps.key_kernel(x, L, side), ps.key_plain(x, L, side)
@@ -631,7 +678,8 @@ def check_periodic_sweeps(device):
     faces): a rows sweep
     (1,728 columns: three chunks of 512 and a ragged last one of 192) and an
     EA sweep with column forces on kept columns, against their plain
-    versions at R = 1 and 3."""
+    versions at R = 1 and 3, and at R = R_MAIN with eight boxes
+    (``box_scales``; each replica's minimum image on its own box)."""
     import numpy as np
     import torch
 
@@ -683,6 +731,27 @@ def check_periodic_sweeps(device):
                 f"{label} ({ps.shape_info['masked_pairs']} masked pairs, {ps.n_chunks} chunks) R={R}",
                 *ps.kernel(x, box, 0.4, 0.3, 0.3), *ps.plain(x, box, 0.4, 0.3, 0.3),
             )
+        x, boxes = replica_boxes(perturbed(x0, movable, R_MAIN, rng, device), box, scale_positions=False)
+        compare(
+            f"{label} R={R_MAIN}, eight boxes", *ps.kernel(x, boxes, 0.4, 0.3, 0.3), *ps.plain(x, boxes, 0.4, 0.3, 0.3)
+        )
+
+
+def check_two_launches(name, ps, x, box, lam):
+    """One K1 call under the profiler: exactly two kernel launches, no host
+    copy or synchronisation. Returns (device launches, device us)."""
+    n_dev, dev_us, _, runtime = profile_call(lambda: ps.kernel(x, box, *lam))
+    # (cudaDeviceSynchronize is profile_call's own, around the call)
+    blocking = [
+        k for k in runtime
+        if k != "cudaDeviceSynchronize" and any(w in k for w in ("Memcpy", "Memset", "Synchronize"))
+    ]
+    if n_dev != 2 or runtime.get("cudaLaunchKernel") != 2 or blocking:
+        raise RuntimeError(
+            f"{name}: a call must be two kernel launches with no copy and no synchronisation, "
+            f"got {n_dev} device launches and the CUDA runtime calls {runtime}"
+        )
+    return n_dev, dev_us
 
 
 def check_kernels(instances, xs, box, reps):
@@ -705,18 +774,7 @@ def check_kernels(instances, xs, box, reps):
                 res.update(bound_of(ps, x, box))
                 if hasattr(ps, "operands"):  # K1: its two kernels on checked operands
                     ops = ps.operands(x, box)
-                    n_dev, dev_us, _, runtime = profile_call(lambda: ps.kernel(x, box, *lam))
-                    res.update(device_launches=n_dev, device_us=dev_us)
-                    # (cudaDeviceSynchronize is profile_call's own, around the call)
-                    blocking = [
-                        k for k in runtime
-                        if k != "cudaDeviceSynchronize" and any(w in k for w in ("Memcpy", "Memset", "Synchronize"))
-                    ]
-                    if n_dev != 2 or runtime.get("cudaLaunchKernel") != 2 or blocking:
-                        raise RuntimeError(
-                            f"{name}: a call must be two kernel launches with no copy and no synchronisation, "
-                            f"got {n_dev} device launches and the CUDA runtime calls {runtime}"
-                        )
+                    res.update(zip(("device_launches", "device_us"), check_two_launches(name, ps, x, box, lam)))
                 else:  # K2, K3: the pair kernel on a prebuilt layout
                     ops = ps.layout(x, box, torch.float32, kernel=True)
                 res["kernel_only_ms"] = time_ms(lambda: ps.launch(ops, *lam), reps[0])
@@ -766,6 +824,206 @@ def check_poison(cells, x0, box, device):
         raise RuntimeError("the cells kernel does not poison an overflowing bin")
 
 
+def box_scales(R):
+    """R different box factors, evenly spaced over 0.985-1.015: the
+    replicas' boxes of the per-replica-box checks."""
+    return [0.985 + 0.03 * k / max(R - 1, 1) for k in range(R)]
+
+
+def replica_boxes(x, box, scale_positions=True, scales=None):
+    """The R replicas of the (R, N, 3) positions ``x`` on their own boxes:
+    ``box`` (3, 3) scaled by each replica's factor (``box_scales`` by
+    default), and with ``scale_positions`` the positions too (a cell list
+    wraps positions into a smaller box, which would stack atoms across its
+    faces). Returns (R, N, 3) positions and (R, 3, 3) boxes."""
+    import torch
+
+    scales = box_scales(x.shape[0]) if scales is None else scales
+    s = torch.as_tensor(scales, dtype=torch.float32, device=x.device)
+    boxes = box[None] * s[:, None, None]
+    return (x * s[:, None, None] if scale_positions else x), boxes
+
+
+def layout_mismatches(ps, x, box):
+    """Elements in which K2's or K3's key, layout and prune kernels differ
+    from their plain versions at ``x`` on ``box``: keys, clusters, boxes,
+    bin tables, poison and the kept list entries."""
+    import torch
+
+    lay, lay_p = ps.clusters(x, box, torch.float32, kernel=True), ps.clusters(x, box, torch.float32)
+    n = 0
+    for a, b in ((lay.rows, lay_p.rows), (lay.cols, lay_p.cols)):
+        n += sum(int((t != u).sum()) for t, u in zip(a, b))
+    if lay.binned is not None:
+        n += sum(int((t != u).sum()) for t, u in zip(lay.binned[1:], lay_p.binned[1:]))
+    if lay.invalid is not None:
+        n += int((lay.invalid != lay_p.invalid).sum())
+    (lk, ck), (lp, cp) = ps.prune_kernel(lay), ps.prune_plain(lay)
+    used = torch.arange(lp.shape[-1] - 1, device=x.device) < cp[..., None]
+    return n + int((ck != cp).sum()) + int(((lk[..., :-1] != lp[..., :-1]) & used).sum())
+
+
+def check_boxes(instances, x8, box, reps, scale_positions=True):
+    """Each (name, pair sum, lambdas) at R = R_MAIN with a box per replica
+    (``replica_boxes`` of the positions ``x8`` and ``box``) against its
+    plain version at the sweep tests' tolerances, K2's and K3's layout
+    kernels bit for bit; its time beside the one-box call's on ``x8`` in
+    the same run. Returns {name: results}, with the plain time and the
+    bound of the per-replica-box call."""
+    res = {}
+    xb, boxes = replica_boxes(x8, box, scale_positions)
+    for name, ps, lam in instances:
+        _, f_err = compare(f"{name} R={R_MAIN}, eight boxes", *ps.kernel(xb, boxes, *lam), *ps.plain(xb, boxes, *lam))
+        r = dict(max_abs_err=f_err)
+        if hasattr(ps, "operands"):  # K1 reads each replica's box in place: still two launches, no copy
+            check_two_launches(f"{name} at eight boxes", ps, xb, boxes, lam)
+        if hasattr(ps, "prune_kernel"):
+            n_bad = layout_mismatches(ps, xb, boxes)
+            if n_bad:
+                raise RuntimeError(f"{name}: {n_bad} layout elements differ from the plain version at eight boxes")
+        r["ms"] = time_ms(lambda: ps.kernel(xb, boxes, *lam), reps[0])
+        r["ms_one_box"] = time_ms(lambda: ps.kernel(x8, box, *lam), reps[0])
+        r["plain_ms"] = time_ms(lambda: ps.plain(xb, boxes, *lam), reps[1])
+        r.update(bound_of(ps, xb, boxes))
+        phase(
+            "kernels",
+            f"{name} R={R_MAIN}, eight boxes (0.985-1.015 x the build box): kernel "
+            f"{r['ms']:.4f} ms/call, one box in the same run {r['ms_one_box']:.4f}; plain {r['plain_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.2f} % of bound"
+            + ("; layout kernels equal to their plain versions bit for bit" if hasattr(ps, "prune_kernel") else "")
+            + ("; two launches a call, no copy" if hasattr(ps, "operands") else ""),
+        )
+        res[name] = r
+    return res
+
+
+def check_poison_boxes(ps, x0, box, device):
+    """K3 or K2 (``ps``) at R = R_MAIN on eight boxes, replica P = R_MAIN //
+    2 shrunk past the kernel's bound: K3's to 0.99 x ncells x cutoff (its
+    cells narrower than the cutoff, the grid coming from 0.97 x the build
+    box), K2's to 0.999 x 2 (cutoff + PRUNE_MARGIN) (its minimum image no
+    longer holds). That replica's E and every F are NaN, and the layout
+    kernels and their plain versions poison it alone; the other seven are
+    finite and equal to the plain version run on them."""
+    import torch
+
+    L0, P = float(box[0, 0]), R_MAIN // 2
+    cells = hasattr(ps, "ncells")
+    bound = ps.ncells[0] * ps.cutoff if cells else ps.min_box_len
+    scales = box_scales(R_MAIN)
+    scales[P] = (0.99 if cells else 0.999) * bound / L0
+    x8 = torch.as_tensor(x0, dtype=torch.float32, device=device)[None].expand(R_MAIN, -1, -1)
+    xb, boxes = replica_boxes(x8, box, True, scales)
+    keep = torch.tensor([r for r in range(R_MAIN) if r != P], device=device)
+    ek, fk = ps.kernel(xb, boxes, 1.0, 1.0, 1.0)
+    ep, fp = ps.plain(xb[keep], boxes[keep], 1.0, 1.0, 1.0)
+    flags = [ps.clusters(xb, boxes, torch.float32, kernel=k).invalid.tolist() for k in (True, False)]
+    torch.cuda.synchronize()
+    poisoned = bool(torch.isnan(ek[P]) and torch.isnan(fk[P]).all())
+    phase(
+        "kernels",
+        f"{ps.name} on eight boxes, replica {P} at {scales[P] * L0:.4f} nm, bound {bound:.4f} nm: E {float(ek[P])}, "
+        f"non-finite F {int((~torch.isfinite(fk[P])).sum())}/{fk[P].numel()}; poisoned replicas (kernel, plain) "
+        f"{flags}",
+    )
+    compare(f"{ps.name} the other replicas", ek[keep], fk[keep], ep, fp)
+    if not poisoned or flags != [[r == P for r in range(R_MAIN)]] * 2:
+        raise RuntimeError(f"{ps.name} does not poison exactly the replica whose box shrank past its bound")
+
+
+def check_npt(sim, res, label="npt"):
+    """The npt path's own checks on the barostat state and the boxes (the
+    iterations' checks are ``run_path``'s); prints each replica's final
+    volume and volume-move acceptance."""
+    import numpy as np
+
+    cfg, cells = sim.cfg, sim.energy_md.nonbonded.pair_sum
+    kept = np.stack([~s.md_failed.cpu().numpy() for s in res["stats"]])
+    per_iter = cfg.nstepsMD // max(min(cfg.barostat_frequency, cfg.nstepsMD), 1)  # the driver's chunks
+    bs = sim.barostat_state
+    n_att, n_acc = bs.n_attempted.cpu().numpy(), bs.n_accepted.cpu().numpy()
+    box = sim.state[2].double().cpu().numpy()
+    L = np.diagonal(box, axis1=1, axis2=2)
+    vol = L.prod(1)
+    off = np.abs(box - np.stack([np.diag(d) for d in L])).max()
+    grid_ok = np.all(L / np.asarray(cells.ncells) >= cells.cutoff)
+    n_boxes = len({tuple(r) for r in L.tolist()})
+    phase(
+        label,
+        f"barostat: attempts {n_att.tolist()}, accepted {n_acc.tolist()} (acceptance "
+        f"{n_acc.sum() / max(n_att.sum(), 1):.3f}), proposal sizes {[f'{v:.5f}' for v in bs.volume_scale.tolist()]} "
+        f"nm^3, {res['baro_ms']:.2f} ms per attempt; final volumes {[f'{v:.5f}' for v in vol]} nm^3 (start "
+        f"{float(np.prod(np.diag(np.asarray(sim.system.box)))):.5f}); {n_boxes} distinct boxes; off-diagonal "
+        f"max {off}; every box at least {cells.ncells} cells of {cells.cutoff} nm: {bool(grid_ok)}",
+    )
+    if not np.array_equal(n_att, per_iter * kept.sum(0)):
+        raise RuntimeError(f"{label}: {n_att} attempts, expected {per_iter} per iteration whose MD was kept")
+    if not (np.isfinite(box).all() and off == 0.0 and grid_ok):
+        raise RuntimeError(f"{label}: a box is non-finite, not orthorhombic or outside the cell grid's validity")
+    if n_acc.sum() < 1 or n_boxes < 2:
+        raise RuntimeError(f"{label}: no volume move was accepted, or every replica ends on one box")
+
+
+def zero_counts(every):
+    """Every launch count of the pair sums in ``every`` (lists of them) to 0."""
+    for instances in every:
+        for ps in instances:
+            ps.launches = 0
+            for step in LAYOUT_STEPS:
+                if hasattr(ps, f"{step}_launches"):
+                    setattr(ps, f"{step}_launches", 0)
+
+
+def read_counts(counted):
+    """{instance or layout-step name: launches} of ``counted``'s pair sums."""
+    launches = {k: sum(ps.launches for ps in v) for k, v in counted.items()}
+    for step in LAYOUT_STEPS:
+        launches.update(
+            {
+                step_name(k, step): sum(getattr(ps, f"{step}_launches") for ps in v)
+                for k, v in counted.items() if hasattr(v[0], f"{step}_launches")
+            }
+        )
+    return launches
+
+
+def run_mc(sim, x0, counted, every, n_iter, label, card):
+    """MonteCarloSimulation from x0 for n_iter iterations, with every
+    kernel count 0 just before and ``counted``'s read just after: (R,)
+    finite MD potentials, (mc_per_iter, R) stats, a finite dPE wherever a
+    proposal was accepted."""
+    import numpy as np
+    import torch
+
+    zero_counts(every)
+    sim.initialize(x0, seed=2027)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = [sim.run_iteration() for _ in range(n_iter)]
+    torch.cuda.synchronize()
+    t_iter = time.perf_counter() - t0
+    launches = read_counts(counted)
+    R, m = sim.cfg.n_replicas, sim.mc_per_iter
+    acc = np.stack([s.accepted.cpu().numpy() for s in stats])
+    dpe = np.stack([s.delta_pe.double().cpu().numpy() for s in stats])
+    md = np.stack([s.md_potential.double().cpu().numpy() for s in stats])
+    phase(
+        label,
+        f"R={R} x {n_iter} iterations of {m} proposals + {sim.cfg.nstepsMD} MD steps on {card}: accepted "
+        f"{int(acc.sum())} of {acc.size}, dPE median {float(np.median(dpe[np.isfinite(dpe)])):.3f} kJ/mol, non-finite "
+        f"dPE {int((~np.isfinite(dpe)).sum())} (rejected), MD potential {md[-1].min():.2f} to {md[-1].max():.2f} "
+        f"kJ/mol, {t_iter / n_iter:.2f} s per iteration, launches {launches}",
+    )
+    if acc.shape[1:] != (m, R) or dpe.shape[1:] != (m, R) or md.shape[1:] != (R,):
+        raise RuntimeError(f"{label}: stats of shape {acc.shape[1:]}, {md.shape[1:]}, expected ({m}, {R}), ({R},)")
+    if not np.isfinite(md).all() or (acc & ~np.isfinite(dpe)).any():
+        raise RuntimeError(f"{label}: a non-finite MD potential, or an accepted non-finite dPE")
+    for k, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{label}: kernel {k} was not launched on its path")
+    return dict(launches=launches)
+
+
 def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     """Initialise at x0, FIRE-minimise (n_min steps), then n_iter
     iterations; every kernel count is 0 just before and ``counted``'s are
@@ -774,12 +1032,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     import numpy as np
     import torch
 
-    for instances in every:
-        for ps in instances:
-            ps.launches = 0
-            for step in LAYOUT_STEPS:
-                if hasattr(ps, f"{step}_launches"):
-                    setattr(ps, f"{step}_launches", 0)
+    zero_counts(every)
     sim.initialize(x0, seed=2026)
     t0 = time.perf_counter()
     if n_min:
@@ -811,21 +1064,29 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         timers["md_steps"] += 1
         return out
 
+    baro = getattr(sim, "_barostat", None)
+    baro_step = baro.step if baro is not None else None
+    timers.update(baro=0.0, baro_steps=0)
+
+    def timed_baro_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = baro_step(*args)
+        torch.cuda.synchronize()
+        timers["baro"] += time.perf_counter() - t
+        timers["baro_steps"] += 1
+        return out
+
     sim.protocol_fn, sim._md_step_d = timed_protocol, timed_md_step
+    if baro is not None:
+        baro.step = timed_baro_step
     stats = []
     t0 = time.perf_counter()
     for _ in range(n_iter):
         stats.append(sim.run_iteration())
     torch.cuda.synchronize()
     t_iter = time.perf_counter() - t0
-    launches = {k: sum(ps.launches for ps in v) for k, v in counted.items()}
-    for step in LAYOUT_STEPS:
-        launches.update(
-            {
-                step_name(k, step): sum(getattr(ps, f"{step}_launches") for ps in v)
-                for k, v in counted.items() if hasattr(v[0], f"{step}_launches")
-            }
-        )
+    launches = read_counts(counted)
 
     R = sim.cfg.n_replicas
     work = np.stack([s.protocol_work.cpu().numpy() for s in stats])
@@ -858,6 +1119,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         sps=R * n_micro * n_iter / timers["ncmc"],
         micro_ms=1e3 * timers["ncmc"] / (n_micro * n_iter),
         md_ms=1e3 * timers["md"] / max(timers["md_steps"], 1),
+        baro_ms=1e3 * timers["baro"] / max(timers["baro_steps"], 1),
         t_min=t_min,
         t_iter=t_iter,
         stats=stats,
@@ -872,14 +1134,16 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}",
     )
     sim.protocol_fn, sim._md_step_d = protocol, md_step
+    if baro is not None:
+        baro.step = baro_step
     return res, x_min
 
 
-def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
-    """The MD energy and forces of the final states (the first
-    ``n_replicas``, all by default) on the card against the port's CPU path
-    (plain sums, the same resolved backend and culling) on the same
-    positions. Forces
+def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
+    """The MD energy and forces of the final states (the replicas of the
+    index list ``replicas``, all by default) on the card against the port's
+    CPU path (plain sums, the same resolved backend and culling) on the
+    same positions and boxes. Forces
     at the sweep tests' tolerance; energy at it plus 4*eps_f32*|Ewald self
     term|: the full-box energy holds that constant, by far its largest term
     on the frozen slice (it cancels in every NCMC difference), and the two
@@ -889,6 +1153,7 @@ def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
     import math
 
     import numpy as np
+    import torch
 
     from blues_tpu_torch import units
     from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
@@ -901,7 +1166,9 @@ def check_against_cpu(sim, system, label, raw_anchor=False, n_replicas=None):
         sweep_row_group=cfg.sweep_row_group, device="cpu",
     )
     x, _, box = sim.state
-    x = x[:n_replicas]
+    if replicas is not None:
+        idx = torch.as_tensor(replicas, device=x.device)
+        x, box = x.index_select(0, idx), box.index_select(0, idx)
     e_k, f_k = sim.force_md(x, box, None)
     xc, bc = x.cpu(), box.cpu()
     e_p, f_p = make_force_fn(efn_cpu)(xc, bc, None)
@@ -962,6 +1229,11 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     everyone = np.ones(unfrozen.n_atoms, bool)
     xs_u = {R: perturbed(xu0, everyone, R, rng, device) for R in (1, R_MAIN)}
     cells_sums, pair_sums = sums_of(sim_c, "cells"), sums_of(sim_p, "pair")
+    # the npt path (K3 under the barostat) and the mc path (K3, MD energy only)
+    _, sim_n = build_npt(device, n_atoms, cutoff)
+    sim_mc = build_mc(device, n_atoms, cutoff)
+    npt_sums = sums_of(sim_n, "cells", "cells_npt")
+    mc_sums = {"cells_mc_main": [sim_mc.energy.nonbonded.pair_sum]}
     ci = cells_main.shape_info
     slots = {k: v[0].pair_counts(xs_u[R_MAIN], box_u) for k, v in {**cells_sums, **pair_sums}.items()}
     phase(
@@ -1037,9 +1309,23 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     )
     check_poison(cells_main, xu0, box_u, device)
 
+    # --- a box per replica (NPT): every instance at eight boxes --------------
+    check_boxes(of(sweep_sums), xs_f[R_MAIN], box_f, (50, 3), scale_positions=False)
+    boxes_res = check_boxes(of({**cells_sums, **pair_sums}), xs_u[R_MAIN], box_u, (20, 3))
+    boxes_res.update(check_boxes(of(nocull_sums), xs_d[R_MAIN], box_d, (20, 3)))
+    boxes_res.update(check_boxes(of({**culled_sums, **fcells_sums}), xs_f[R_MAIN], box_f, (20, 3)))
+    kres.update(check_boxes(of({**npt_sums, **mc_sums}), xs_u[R_MAIN], box_u, (20, 3)))
+    phase(
+        "kernels",
+        "eight boxes against one box, ms per call at R = 8 in this run: "
+        + "; ".join(f"{k} {v['ms']:.4f} vs {v['ms_one_box']:.4f}" for k, v in boxes_res.items()),
+    )
+    check_poison_boxes(cells_main, xu0, box_u, device)
+    check_poison_boxes(pair_main, xu0, box_u, device)
+
     # --- the paths -----------------------------------------------------------
     every = [
-        v for sums in (sweep_sums, cells_sums, pair_sums, frozen_off) for v in sums.values()
+        v for sums in (sweep_sums, cells_sums, pair_sums, frozen_off, npt_sums, mc_sums) for v in sums.values()
     ]
     main_res, xf_min = run_path(sim, x0, sweep_sums, every, N_MIN_FROZEN, N_ITER, "main", card)
     unf_res, xu_min = run_path(sim_c, xu0, cells_sums, every, N_MIN_UNFROZEN, N_ITER, "unfrozen", card)
@@ -1052,12 +1338,18 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     water_sums = sums_of(sim_w, "cells", "cells_water")
     wat_res, _ = run_path(sim_w, xu_min, water_sums, every + list(water_sums.values()), 0, N_ITER_SHORT, "water", card)
     check_water(sim_w, water, wat_res)
+    npt_res, _ = run_path(sim_n, xu_min, npt_sums, every, 0, N_ITER, "npt", card)
+    check_npt(sim_n, npt_res)
+    mc_res = run_mc(sim_mc, xu_min, mc_sums, every, N_ITER_SHORT, "mc", card)
     check_against_cpu(sim, frozen, "frozen")
-    check_against_cpu(sim_c, unfrozen, "unfrozen", raw_anchor=True, n_replicas=1)
-    check_against_cpu(sim_d, dart, "darting", raw_anchor=True, n_replicas=1)
+    check_against_cpu(sim_c, unfrozen, "unfrozen", raw_anchor=True, replicas=[0])
+    check_against_cpu(sim_d, dart, "darting", raw_anchor=True, replicas=[0])
+    L_npt = torch.diagonal(sim_n.state[2], dim1=-2, dim2=-1)
+    other = int(torch.nonzero((L_npt != L_npt[0]).any(-1))[0])  # check_npt: two boxes differ
+    check_against_cpu(sim_n, unfrozen, "npt", raw_anchor=True, replicas=[0, other])
 
     launches = {}
-    for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res):
+    for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):
         launches.update(r["launches"])
     kernels = [
         {
@@ -1260,26 +1552,43 @@ def empty_launch_us(n=2000):
 def profile_call(fn):
     """One call of ``fn`` under torch.profiler: (device launches, device
     microseconds, [(kernel, count, microseconds)], {CUDA runtime call: count}).
-    A profile that recorded no device event (seen once, right after a
-    profile of 300,000 launches) is taken again, and refused the third time:
-    every ``fn`` here launches a kernel."""
+    A trace on some machines lost the first kernel of a profile, here one
+    of K1's two kernels, its runtime launch recorded, in every retry of that
+    call: so a one-element int16 fill (the sentinel) is the profile's first
+    launch, and its kernel and its ``cudaLaunchKernel`` are left out of
+    what is returned. A profile whose device trace still holds fewer of the
+    call's kernels than it launched is incomplete and is taken again, and
+    refused the third time (no device event at all was also seen once,
+    right after a profile of 300,000 launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    sentinel = torch.empty(1, dtype=torch.int16, device="cuda")
     fn()
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sentinel.fill_(1)
             fn()
             torch.cuda.synchronize()
         avg = prof.key_averages()
-        kern = sorted((e for e in avg if e.device_type == DeviceType.CUDA), key=lambda e: -e.device_time_total)
-        if kern:
+        kern = sorted(
+            (e for e in avg if e.device_type == DeviceType.CUDA and "FillFunctor<short>" not in e.key),
+            key=lambda e: -e.device_time_total,
+        )
+        runtime = {e.key: e.count for e in avg if e.device_type == DeviceType.CPU and e.key.startswith("cuda")}
+        runtime["cudaLaunchKernel"] = runtime.get("cudaLaunchKernel", 0) - 1  # the sentinel's
+        if not runtime["cudaLaunchKernel"]:
+            del runtime["cudaLaunchKernel"]
+        launched = sum(n for k, n in runtime.items() if k.startswith("cudaLaunchKernel"))
+        if kern and sum(e.count for e in kern) >= launched:
             break
     else:
-        raise RuntimeError("torch.profiler recorded no device event in three profiles of a call that launches kernels")
-    runtime = {e.key: e.count for e in avg if e.device_type == DeviceType.CPU and e.key.startswith("cuda")}
+        raise RuntimeError(
+            "torch.profiler recorded fewer device kernels than the call launched, in three profiles of it; the "
+            f"last: {[(e.key[:60], e.count) for e in kern]}, runtime calls {runtime}"
+        )
     return (
         sum(e.count for e in kern), sum(e.device_time_total for e in kern),
         [(e.key, e.count, e.device_time_total) for e in kern], runtime,

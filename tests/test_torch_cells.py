@@ -123,6 +123,28 @@ def test_plain_matches_jax_unfrozen():
     _assert_close(*_port(tps, x, box, LAM), *_jax(jps, x, box, LAM))
 
 
+@pytest.mark.parametrize("kind", ["all", "e0"])
+def test_per_replica_boxes_match_jax_vmapped(kind):
+    """Two replicas on two boxes (0.985 and 1.01 of the build box; the grid
+    and cap stay the build box's): the port's (R, 3, 3) box against the JAX
+    kernel vmapped over positions and boxes, and each replica against its
+    own one-box call."""
+    x, _, _, _, _, box = _synthetic_box()
+    jps, tps, _ = _box0_pair(kind)
+    xs = np.stack([x * 0.985, x * 1.01 + 0.01])
+    boxes = np.stack([box * 0.985, box * 1.01])
+    ej, fj = jax.vmap(jps, in_axes=(0, 0, None, None, None))(
+        jnp.asarray(xs, jnp.float32), jnp.asarray(boxes, jnp.float32), *map(jnp.float32, LAM)
+    )
+    xt, bt = torch.as_tensor(xs, dtype=torch.float32), torch.as_tensor(boxes, dtype=torch.float32)
+    et, ft = tps(xt, bt, *LAM)
+    assert not tps.layout(xt, bt, torch.float32).invalid.any()
+    for r in range(2):
+        _assert_close(float(et[r]), ft[r].double().numpy(), float(ej[r]), np.asarray(fj[r], np.float64))
+        e1, f1 = tps(xt[r : r + 1], bt[r], *LAM)
+        assert torch.equal(e1[0], et[r]) and torch.equal(f1[0], ft[r])
+
+
 def test_plain_matches_jax_frozen_rows():
     x, _, _, _, _, box = _synthetic_box()
     x = np.random.default_rng(1).uniform(0, 2.9, x.shape)
@@ -294,7 +316,7 @@ def test_grid_of_2048_cells_or_more():
     ps = build("cells", fa, L, 0.6, DEVICE)
     assert ps.n_cells == 13**3
     x, box = as_torch(xs, L, DEVICE)
-    key = ps.key_plain(x, box.diagonal())
+    key = ps.key_plain(x, box.diagonal().expand(len(xs), 3))
     assert int(key.max()) >= 2**31
     lay = ps.layout(x, box, torch.float32)
     assert not lay.invalid.any()

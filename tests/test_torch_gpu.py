@@ -10,7 +10,9 @@ deterministic from call to call, with their key, layout and prune kernels
 equal to their plain versions bit for bit; K2 with a list too short for
 its row clusters; K2 and K3 as frozen systems build them (K2 over every
 column and over culled columns, K3 with the frozen rows masked; MAIN and
-E0) at R = 1 and 8, their layout kernels bit for bit.
+E0) at R = 1 and 8, their layout kernels bit for bit; K1, K2 and K3 at
+R = 4 with a box per replica (NPT), and K3's poison of the one replica
+whose box shrank below cutoff-wide cells.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -271,3 +273,86 @@ def test_pair_kernel_list_overflow():
     e8, f8 = ps(x, box, *LAM)
     _assert_close(e8, f8, *ps.plain(x, box, *LAM))
     _assert_close(e8, f8, ek, fk)
+
+
+#: four replicas' box factors: a box per replica, as the barostat leaves them
+BOX_SCALES = (0.985, 0.995, 1.005, 1.015)
+
+
+def _scaled_replicas(xs, L, dev, scales=BOX_SCALES):
+    """Each replica's positions and box scaled by its own factor: (R, n, 3)
+    positions and (R, 3, 3) boxes on ``dev``."""
+    s = np.asarray(scales)
+    x = torch.as_tensor(xs * s[:, None, None], dtype=torch.float32, device=dev)
+    return x, torch.as_tensor(np.eye(3)[None] * L * s[:, None, None], dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("build_sweep", [port_main, port_ea], ids=["rows", "ea_col_forces"])
+def test_sweep_kernel_with_a_box_per_replica(build_sweep):
+    """K1 with the minimum image on, R = 4, four boxes: against its plain
+    version, and each replica against its own one-box call."""
+    dev = _cuda()
+    ps, xs, box = build_sweep(device=dev, replicas=4)
+    assert not ps.skip_min_image
+    boxes = box[None] * torch.as_tensor(BOX_SCALES, device=dev)[:, None, None]
+    ek, fk = ps(xs, boxes, *LAM)
+    torch.cuda.synchronize()
+    _assert_close(ek, fk, *ps.plain(xs, boxes, *LAM))
+    assert float((ek - ek[0]).abs().max()) > 1e-3
+    for r in range(4):
+        e1, f1 = ps.kernel(xs[r : r + 1], boxes[r], *LAM)
+        assert torch.equal(e1[0], ek[r]) and torch.equal(f1[0], fk[r])
+
+
+@pytest.mark.parametrize("kind", ["pair", "pair_e0", "cells", "cells_e0"])
+def test_pruned_kernels_with_a_box_per_replica(kind):
+    """K2 and K3 at water density, R = 4, four boxes (grid, cap and list
+    width from the build box): against their plain versions, the layout
+    kernels bit for bit."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=6, edges=True, replicas=4)
+    x, boxes = _scaled_replicas(xs, L, dev)
+    ps = build(kind, fa, L, 1.0, dev)
+    ek, fk = ps(x, boxes, *LAM)
+    torch.cuda.synchronize()
+    assert ps.launches == 1
+    _assert_close(ek, fk, *ps.plain(x, boxes, *LAM))
+    _assert_layout_matches(ps, x, boxes)
+    e2, f2 = ps.kernel(x, boxes, *LAM)
+    assert torch.equal(ek, e2) and torch.equal(fk, f2)
+
+
+@pytest.mark.parametrize("kind", ["pair", "pair_e0"])
+def test_pair_kernel_poisons_only_the_shrunken_replica(kind):
+    """K2, R = 4: replica 2's box shrunk below 2 (cutoff + PRUNE_MARGIN),
+    where the kernel's minimum image no longer holds, is NaN in E and every
+    F; the other three are finite and equal to the plain version."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=7, replicas=4)
+    ps = build(kind, fa, L, 1.0, dev)
+    x, boxes = _scaled_replicas(xs, L, dev, (1.0, 0.995, 0.999 * ps.min_box_len / L, 1.01))
+    ek, fk = ps.kernel(x, boxes, *LAM)
+    ep, fp = ps.plain(x, boxes, *LAM)
+    torch.cuda.synchronize()
+    assert ps.layout(x, boxes, torch.float32, kernel=True).invalid.tolist() == [False, False, True, False]
+    assert torch.isnan(ek[2]) and torch.isnan(fk[2]).all() and torch.isnan(ep[2])
+    keep = torch.tensor([0, 1, 3], device=dev)
+    _assert_close(ek[keep], fk[keep], ep[keep], fp[keep])
+
+
+def test_cells_kernel_poisons_only_the_shrunken_replica():
+    """K3, R = 4: replica 2's box shrunk below ncells * cutoff (its cells
+    narrower than the cutoff) is NaN in E and every F; the other three are
+    finite and equal to the plain version."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=7, replicas=4)
+    ps = build("cells", fa, L, 1.0, dev)
+    shrunk = 0.99 * ps.ncells[0] * 1.0 / L
+    x, boxes = _scaled_replicas(xs, L, dev, (1.0, 0.995, shrunk, 1.01))
+    ek, fk = ps.kernel(x, boxes, *LAM)
+    ep, fp = ps.plain(x, boxes, *LAM)
+    torch.cuda.synchronize()
+    assert ps.layout(x, boxes, torch.float32, kernel=True).invalid.tolist() == [False, False, True, False]
+    assert torch.isnan(ek[2]) and torch.isnan(fk[2]).all() and torch.isnan(ep[2])
+    keep = torch.tensor([0, 1, 3], device=dev)
+    _assert_close(ek[keep], fk[keep], ep[keep], fp[keep])

@@ -88,6 +88,32 @@ def test_plain_matches_jax_pallas(rows, cols, periodic):
     assert tps.name == "pair" and tps.launches == 0
 
 
+@pytest.mark.parametrize("cols", ["all", "subset"])
+def test_per_replica_boxes_match_jax_vmapped(cols):
+    """Two replicas on two boxes (0.985 and 1.015 of the build box; the
+    column grid and list width stay the build box's): the port's (R, 3, 3)
+    box against the JAX kernel vmapped over positions and boxes, and each
+    replica against its own one-box call."""
+    x, fargs, box = _case(seed=5)
+    col_idx = None if cols == "all" else np.setdiff1d(np.arange(len(x)), np.arange(8))
+    jps = make_pallas_pair_sum(jtiled.build_pair_features(*fargs), col_idx=col_idx, **COMMON)
+    tps = PallasPairSum(tfeat.build_pair_features(*fargs), col_idx=col_idx, box0=box, **COMMON, device=DEVICE)
+    xs = np.stack([x * 0.985, x * 1.015 - 0.02])
+    boxes = np.stack([box * 0.985, box * 1.015])
+    ej, fj = jax.jit(jax.vmap(jps, in_axes=(0, 0, None, None, None)))(
+        jnp.asarray(xs, jnp.float32), jnp.asarray(boxes, jnp.float32), *map(jnp.float32, LAM)
+    )
+    xt, bt = torch.as_tensor(xs, dtype=torch.float32), torch.as_tensor(boxes, dtype=torch.float32)
+    et, ft = tps(xt, bt, *LAM)
+    ej, fj = np.asarray(ej, np.float64), np.asarray(fj, np.float64)
+    for r in range(2):
+        assert abs(float(et[r]) - ej[r]) <= 5e-5 * abs(ej[r]) + 1e-2, (r, et, ej)
+        fscale = float(np.abs(fj[r]).max()) + 1.0
+        assert float(np.abs(ft[r].double().numpy() - fj[r]).max()) < 2e-5 * fscale
+        e1, f1 = tps(xt[r : r + 1], bt[r], *LAM)
+        assert torch.equal(e1[0], et[r]) and torch.equal(f1[0], ft[r])
+
+
 def _old_layout(groups, nr, nc, em):
     """shape_info of the per-block column storage every K1 layout had."""
     blocks = [(len(r[lo : lo + 32]), len(c)) for r, c in groups for lo in range(0, len(r), 32)]
@@ -210,10 +236,11 @@ def test_column_grid_of_2048_columns_or_more():
     xs, fa, L = density_box(1500, 98.8, seed=4, edges=True)
     x, box = as_torch(xs, L, DEVICE)
     ids_t = torch.arange(1500)
-    key = tcl.column_key_plain(x, ids_t, (48, 48), box.diagonal())
+    L_r = box.diagonal().expand(len(xs), 3)
+    key = tcl.column_key_plain(x, ids_t, (48, 48), L_r)
     assert int(key.max()) >= 2**31
     skey, order = torch.sort(key, dim=1, stable=True)
-    b = tcl.layout_plain(skey, order, x, ids_t, 48 * 48, box.diagonal(), tcl.LAY_MIN)
+    b = tcl.layout_plain(skey, order, x, ids_t, 48 * 48, L_r, tcl.LAY_MIN)
     for r in range(len(xs)):
         ids = b.clusters.ids[r]
         live = ids >= 0

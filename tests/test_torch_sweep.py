@@ -14,6 +14,7 @@ the host builds for it (the chunk table, the packed columns, the per-column
 mobile index, the kept columns' places) is pinned here.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,6 +98,44 @@ def test_ea_sweep_with_column_forces_matches_jax(masked):
     x[rows] += 0.01 * rng.standard_normal((len(rows), 3))
     _, ft = _compare(jps, tps, x)
     assert np.abs(ft[cols[mob_sel]]).max() > 0  # reaction forces landed
+
+
+@pytest.mark.parametrize("kind", ["main", "ea"])
+def test_per_replica_boxes_match_jax_vmapped(kind):
+    """Two replicas on two boxes (L and 1.012 L, the minimum image on): the
+    port's (R, 3, 3) box against the JAX kernel vmapped over positions and
+    boxes; each replica also equals its own one-box call."""
+    rng, x0, rows, per_atom = _space(9)
+    if kind == "main":
+        kw = dict(COMMON, row_gid=rows, col_gid=np.arange(N, dtype=np.int64), per_atom=per_atom,
+                  excl_mask=_excl(rng, len(rows), N, True), col_const_positions=x0, col_mobile_sel=rows,
+                  col_mobile_gid=rows)
+        jps = jsk.make_sweep_pair_sum(**kw)
+    else:
+        cols = np.setdiff1d(np.arange(N), ALCH)
+        mob_sel = np.where(np.isin(cols, rows))[0]
+        kw = dict(COMMON, row_gid=ALCH, col_gid=cols, per_atom=dict(per_atom, in_rows=np.zeros(N)),
+                  excl_mask=_excl(rng, len(ALCH), len(cols), False), col_const_positions=x0[cols],
+                  col_mobile_sel=mob_sel, col_mobile_gid=cols[mob_sel], col_forces=True, col_force_keep=mob_sel)
+        jps = jsk.make_sweep_pair_sum(col_tile=640, **kw)
+    tps = tsk.SweepPairSum(**kw, device=DEVICE)
+    assert not tps.skip_min_image
+    xs = np.repeat(x0[None], 2, axis=0)
+    xs[:, rows] += 0.01 * rng.standard_normal((2, len(rows), 3))
+    boxes = np.stack([np.eye(3) * L, np.eye(3) * 1.012 * L])
+    ej, fj = jax.vmap(jps, in_axes=(0, 0, None, None, None))(
+        jnp.asarray(xs, jnp.float32), jnp.asarray(boxes, jnp.float32), *map(jnp.float32, LAM)
+    )
+    xt, bt = torch.as_tensor(xs, dtype=torch.float32), torch.as_tensor(boxes, dtype=torch.float32)
+    et, ft = tps(xt, bt, *LAM)
+    ej, fj = np.asarray(ej, np.float64), np.asarray(fj, np.float64)
+    assert np.isfinite(ej).all() and abs(ej[1] - ej[0]) > 1e-3
+    for r in range(2):
+        assert abs(float(et[r]) - ej[r]) <= 5e-5 * abs(ej[r]) + 1e-2, (r, et, ej)
+        fscale = float(np.abs(fj[r]).max()) + 1.0
+        assert float(np.abs(ft[r].double().numpy() - fj[r]).max()) < 2e-5 * fscale
+        e1, f1 = tps(xt[r : r + 1], bt[r], *LAM)
+        assert torch.equal(e1[0], et[r]) and torch.equal(f1[0], ft[r])
 
 
 def test_row_groups_match_jax():
@@ -273,12 +312,13 @@ def test_lambdas_come_from_the_constant_cache():
     """Python-number lambdas make no new tensor per call: the same cached
     constants come back, and tensors pass through as they are."""
     ps, xs, box = port_main(masked=False)
-    a, _ = ps._lambdas(0.25, 0.5, 1.0, box, torch.float32, xs.device)
-    b, _ = ps._lambdas(0.25, 0.5, 1.0, box, torch.float32, xs.device)
+    boxes = box.expand(xs.shape[0], 3, 3)
+    a, _ = ps._lambdas(0.25, 0.5, 1.0, boxes, torch.float32, xs.device)
+    b, _ = ps._lambdas(0.25, 0.5, 1.0, boxes, torch.float32, xs.device)
     assert all(u.data_ptr() == v.data_ptr() for u, v in zip(a, b))
     assert [float(v) for v in a] == [0.25, 0.5, 1.0]
     lam = torch.tensor(0.25)
-    assert ps._lambdas(lam, 0.5, 1.0, box, torch.float32, xs.device)[0][0].data_ptr() == lam.data_ptr()
+    assert ps._lambdas(lam, 0.5, 1.0, boxes, torch.float32, xs.device)[0][0].data_ptr() == lam.data_ptr()
     e1, f1 = ps(xs, box, 0.25, 0.5, 1.0)
     e2, f2 = ps(xs, box, lam, torch.tensor(0.5), torch.tensor(1.0))
     assert torch.equal(e1, e2) and torch.equal(f1, f2)

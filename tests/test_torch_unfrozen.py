@@ -211,7 +211,7 @@ def test_driver_full_iteration_md_potential_matches_jax(sys_):
     e_j = float(_jax_md_f32(sys_)(
         jnp.asarray(x_end[0].numpy()), jnp.asarray(sys_["box"], jnp.float32), None
     )[0])
-    e_raw = abs(float(sim.energy_md.nonbonded.pair_sum(x_end[:1], sim.state[2], 1.0, 1.0, 1.0)[0][0]))
+    e_raw = abs(float(sim.energy_md.nonbonded.pair_sum(x_end[:1], sim.state[2][:1], 1.0, 1.0, 1.0)[0][0]))
     e_t = float(st.md_potential[0])
     assert abs(e_t - e_j) <= 2e-6 * e_raw + 1e-2, (e_t, e_j, e_raw)
 
