@@ -13,22 +13,36 @@ import torch
 
 from .system import (
     AlchemicalRegion,
+    CentroidRestraint,
     Constraints,
+    CustomPairForce,
     HarmonicAngles,
     HarmonicBonds,
     NonbondedParams,
     PeriodicTorsions,
+    PositionRestraints,
     System,
     Topology,
 )
 
 #: reference System fields the port has no counterpart for; a non-empty
-#: value is outside the frozen NCMC slice and refused
-_UNSUPPORTED = ("custom_pairs", "centroid_restraints", "position_restraints", "gb")
+#: value is refused
+_UNSUPPORTED = ("gb",)
 
 
 def _copy_fields(obj, cls):
     return cls(**{f: np.array(getattr(obj, f)) for f in cls.__dataclass_fields__})
+
+
+def _copy_mixed(obj, cls):
+    """A copy of a dataclass holding arrays beside scalars, strings, tuples
+    and dicts: arrays are copied, the rest taken as they are (dicts copied)."""
+    def conv(v):
+        if isinstance(v, np.ndarray):
+            return np.array(v)
+        return dict(v) if isinstance(v, dict) else v
+
+    return cls(**{f: conv(getattr(obj, f)) for f in cls.__dataclass_fields__})
 
 
 def system_from_reference(obj) -> System:
@@ -62,6 +76,15 @@ def system_from_reference(obj) -> System:
         angles=_copy_fields(obj.angles, HarmonicAngles),
         torsions=_copy_fields(obj.torsions, PeriodicTorsions),
         nonbonded=None if obj.nonbonded is None else _copy_fields(obj.nonbonded, NonbondedParams),
+        custom_pairs=[_copy_mixed(cp, CustomPairForce) for cp in getattr(obj, "custom_pairs", [])],
+        centroid_restraints=[
+            _copy_mixed(r, CentroidRestraint) for r in getattr(obj, "centroid_restraints", [])
+        ],
+        position_restraints=(
+            None
+            if getattr(obj, "position_restraints", None) is None
+            else _copy_mixed(obj.position_restraints, PositionRestraints)
+        ),
         constraints=_copy_fields(obj.constraints, Constraints),
         box=None if obj.box is None else np.array(obj.box),
         alchemical=alch,

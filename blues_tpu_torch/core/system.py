@@ -1,8 +1,8 @@
 """System specification: topology and force-field parameters as numpy arrays.
 
-The port's copy of the slice of ``blues_tpu.core.system`` that the frozen
-NCMC path uses, with the same field names, so a reference ``System`` maps
-onto this one field by field (``core/convert.py``). Energy builders close
+The port's copy of ``blues_tpu.core.system`` (all but the generalized-Born
+field), with the same field names, so a reference ``System`` maps onto this
+one field by field (``core/convert.py``). Energy builders close
 over these arrays and stage them on the device once.
 
 All quantities are in MD units (nm, ps, kJ/mol, dalton, e).
@@ -86,6 +86,44 @@ class NonbondedParams:
 
 
 @dataclass
+class CustomPairForce:
+    """A pair interaction defined by a Lepton energy expression over the
+    interaction groups group_a x group_b (OpenMM's CustomNonbondedForce with
+    interaction groups). ``energy`` may read ``r``, the per-particle
+    parameters suffixed 1 and 2, and named globals."""
+
+    energy: str
+    per_particle_names: tuple  # tuple[str, ...]
+    per_particle: np.ndarray  # (N, P)
+    globals_defaults: dict  # name -> float
+    group_a: np.ndarray  # (Ga,) int32
+    group_b: np.ndarray  # (Gb,) int32
+    cutoff: Optional[float] = None  # nm; None = no cutoff
+    uses_periodic: bool = False
+
+
+@dataclass
+class CentroidRestraint:
+    """E = 0.5 * k * |com(group1) - com(group2)|^2, weighted centroids."""
+
+    group1: np.ndarray  # (G1,) int32
+    group2: np.ndarray  # (G2,) int32
+    weights1: np.ndarray  # (G1,) normalized weights
+    weights2: np.ndarray  # (G2,)
+    k: float  # kJ/mol/nm^2
+
+
+@dataclass
+class PositionRestraints:
+    """E = k * periodicdistance(x, x0)^2 over the selected atoms (no 1/2,
+    as the reference's CustomExternalForce restraint)."""
+
+    idx: np.ndarray  # (M,) int32
+    x0: np.ndarray  # (M, 3) nm
+    k: float  # kJ/mol/nm^2
+
+
+@dataclass
 class Constraints:
     """Holonomic distance constraints |x_i - x_j| = d."""
 
@@ -140,13 +178,16 @@ class Topology:
 
 @dataclass
 class System:
-    """The parameters of every energy term on the frozen NCMC path."""
+    """The parameters of every energy term."""
 
     masses: np.ndarray  # (N,) dalton; 0 = frozen atom
     bonds: HarmonicBonds = field(default_factory=HarmonicBonds.empty)
     angles: HarmonicAngles = field(default_factory=HarmonicAngles.empty)
     torsions: PeriodicTorsions = field(default_factory=PeriodicTorsions.empty)
     nonbonded: Optional[NonbondedParams] = None
+    custom_pairs: list = field(default_factory=list)  # list[CustomPairForce]
+    centroid_restraints: list = field(default_factory=list)  # list[CentroidRestraint]
+    position_restraints: Optional[PositionRestraints] = None
     constraints: Constraints = field(default_factory=Constraints.empty)
     box: Optional[np.ndarray] = None  # (3, 3) nm
     alchemical: Optional[AlchemicalRegion] = None
@@ -166,6 +207,11 @@ class System:
         masses = self.masses.copy()
         masses[np.asarray(atom_indices, dtype=np.int64)] = 0.0
         return self.replace(masses=masses)
+
+    def freeze_atoms(self, atom_indices) -> "System":
+        """Freeze the given atoms (zero masses); no reference positions are
+        recorded, so such a system runs the full-array iteration."""
+        return self.zero_masses(atom_indices)
 
     def freeze_radius(
         self,
@@ -207,6 +253,16 @@ class System:
         return self.zero_masses(frozen_idx).replace(
             frozen_ref_positions=np.asarray(positions).copy()
         )
+
+    def restrain_positions(self, positions, atom_indices, weight_kcal_per_A2: float = 5.0) -> "System":
+        """Harmonic positional restraints of the given atoms to ``positions``;
+        the weight is in kcal/mol/A^2."""
+        from .. import units
+
+        k = weight_kcal_per_A2 * units.KCAL_TO_KJ * 100.0  # -> kJ/mol/nm^2
+        idx = np.asarray(atom_indices, dtype=np.int32)
+        x0 = np.asarray(positions)[idx].copy()
+        return self.replace(position_restraints=PositionRestraints(idx=idx, x0=x0, k=k))
 
 
 def exclusions_from_bonds(n_atoms: int, bond_idx: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

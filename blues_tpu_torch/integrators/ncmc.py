@@ -2,9 +2,10 @@
 
 Counterpart of ``blues_tpu.integrators.ncmc.make_ncmc_protocol`` (the
 monolithic protocol): lambda switching, the V R O R V dynamics core, Kahan
-protocol-work accumulation, the midpoint move with external-work capture
-and the closing lambda transition. ``lax.scan`` becomes a Python loop over
-micro-steps; positions are (R, n, 3) and every scalar of the result is (R,).
+protocol-work accumulation, the midpoint move with external-work capture,
+the closing lambda transition and the snapshots at ``record_micro``.
+``lax.scan`` becomes a Python loop over micro-steps; positions are
+(R, n, 3) and every scalar of the result is (R,).
 
 Work telescopes (see the JAX package): each micro-step adds
 E(x, lam_new) - E(x, lam_cached) at fixed x, the move adds the energy
@@ -38,6 +39,8 @@ class NCMCResult(NamedTuple):
     e_final: torch.Tensor  # (R,) alchemical potential at protocol end
     mid_work: torch.Tensor  # (R,) work accumulated up to and including the move
     move_aux: object = None  # the move's per-replica aux at protocol end (e.g. an engine's "selected")
+    snapshots: object = None  # (R, K, n, 3) positions at the record_micro points, or None
+    snapshot_work: object = None  # (R, K) protocol work (kJ/mol) at those points
 
 
 def _parse_splitting(splitting: str, dt: float):
@@ -67,12 +70,19 @@ def make_ncmc_protocol(
     move=None,
     splitting: str = "H V R O R V H",
     lambda_split: bool = None,
+    record_micro=(),
     device=DEFAULT_DEVICE,
 ):
     """Build protocol_fn(x, v, box) -> NCMCResult for (R, n, 3) x and v.
 
     energy_fn(x, box, globals) -> (R,) E; force_fn -> (E, F). ``move``
-    follows ``moves.base.Move``; draws come from ``source``."""
+    follows ``moves.base.Move``; draws come from ``source``.
+
+    ``record_micro``: micro-step indices (0..n_micro) at which the positions
+    and the accumulated work are snapshot into ``NCMCResult.snapshots`` /
+    ``snapshot_work``. The snapshot at m is taken after m micro-steps, with
+    the midpoint move included once m >= move_micro; the one at n_micro
+    includes the closing lambda transition's work."""
     m = make_baoab_machinery(masses, params, constrain_x, constrain_v, source, device)
     kT = units.kT(params.temperature)
     tokens, h_V, h_R, h_O = _parse_splitting(splitting, params.dt)
@@ -85,6 +95,10 @@ def make_ncmc_protocol(
         raise ValueError("lambda_split requested but energy_fn exposes no lambda split")
     mm = schedule.move_micro
     gps = schedule.globals_per_step
+    rec = sorted(set(int(r) for r in record_micro))
+    if rec and not (0 <= rec[0] and rec[-1] <= schedule.n_micro):
+        raise ValueError(f"record_micro {tuple(rec)} out of range for n_micro={schedule.n_micro}")
+    rec_set = set(rec)
 
     def globals_at(i):
         return {k: float(v[i]) for k, v in gps.items()}
@@ -178,11 +192,15 @@ def make_ncmc_protocol(
             c["e"] = e_initial
         mid_w = c["work"].value
         step = micro_step_split if use_split else micro_step
+        snaps, snap_work = [], []
         for i in range(schedule.n_micro + 1):
             if i == mm and move is not None:
                 aux = apply_move(c, aux)
                 mid_w = c["work"].value
             if i < schedule.n_micro:
+                if i in rec_set:
+                    snaps.append(c["x"])
+                    snap_work.append(c["work"].value)
                 step(c, globals_at(i))
 
         if use_split:
@@ -193,6 +211,9 @@ def make_ncmc_protocol(
             e_final = energy_fn(c["x"], box, g_final)
             c["work"] = c["work"].add(e_final - c["e"])
         work = c["work"].value
+        if schedule.n_micro in rec_set:
+            snaps.append(c["x"])
+            snap_work.append(work)
         if move is not None:
             veto = move.after(source, c["x"], box, aux)
             work = work + torch.where(veto, VETO_WORK, 0.0).to(work.dtype)
@@ -205,6 +226,8 @@ def make_ncmc_protocol(
             e_final=e_final,
             mid_work=mid_w,
             move_aux=aux,
+            snapshots=torch.stack(snaps, 1) if snaps else None,
+            snapshot_work=torch.stack(snap_work, 1) if snaps else None,
         )
 
     protocol_fn.use_split = use_split

@@ -1,47 +1,44 @@
 """Lambda schedules for the NCMC switching protocol.
 
-Counterpart of ``blues_tpu.integrators.schedules`` (``build_ncmc_schedule``
-and ``calculate_ncmc_steps``): the whole protocol is precomputed into flat
-per-micro-step arrays. The alchemical functions are numpy callables of the
-master lambda; the two defaults are the JAX package's Lepton strings
-written out. The Lepton expression compiler is not ported.
+Counterpart of ``blues_tpu.integrators.schedules`` (``build_ncmc_schedule``,
+``resolve_frame_indices`` and ``calculate_ncmc_steps``): the whole protocol
+is precomputed into flat per-micro-step arrays. The alchemical functions
+are Lepton strings of the master lambda, compiled by ``core/expressions``,
+or Python callables of it.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Union
 
 import numpy as np
 
+from ..core.expressions import compile_expression
 
-def _step(x):
-    """Lepton step(x) = 0 if x < 0 else 1."""
-    return 1.0 if x >= 0 else 0.0
-
-
-def lambda_sterics_default(lam):
-    """min(1, (1/0.3)*abs(lambda-0.5))"""
-    return min(1.0, (1 / 0.3) * abs(lam - 0.5))
-
-
-def lambda_electrostatics_default(lam):
-    """step(0.2-lambda) - 1/0.2*lambda*step(0.2-lambda)
-    + 1/0.2*(lambda-0.8)*step(lambda-0.8)"""
-    return (
-        _step(0.2 - lam)
-        - 1 / 0.2 * lam * _step(0.2 - lam)
-        + 1 / 0.2 * (lam - 0.8) * _step(lam - 0.8)
-    )
-
-
-#: sterics switch off linearly to 0 at the midpoint and back; electrostatics
-#: switch off over master lambda [0, 0.2], stay off, and back on over [0.8, 1]
+#: The reference's default alchemical functions: sterics switch off
+#: linearly to 0 at the midpoint and back; electrostatics switch off over
+#: master lambda [0, 0.2], stay off, and back on over [0.8, 1].
 DEFAULT_ALCHEMICAL_FUNCTIONS = {
-    "lambda_sterics": lambda_sterics_default,
-    "lambda_electrostatics": lambda_electrostatics_default,
+    "lambda_sterics": "min(1, (1/0.3)*abs(lambda-0.5))",
+    "lambda_electrostatics": (
+        "step(0.2-lambda) - 1/0.2*lambda*step(0.2-lambda)"
+        " + 1/0.2*(lambda-0.8)*step(lambda-0.8)"
+    ),
 }
+
+
+def as_schedule_fn(fn_or_str: Union[str, Callable]) -> Callable:
+    """A Python callable f(lambda) -> value as it is, or a Lepton string
+    compiled into one; a string may read no variable but ``lambda``."""
+    if callable(fn_or_str):
+        return fn_or_str
+    expr = compile_expression(fn_or_str)
+    unknown = expr.variables - {"lambda"}
+    if unknown:
+        raise ValueError(f"alchemical function uses unknown variables {unknown}")
+    return lambda lam: expr({"lambda": lam})
 
 
 @dataclass(frozen=True)
@@ -63,7 +60,7 @@ class NCMCSchedule:
 def build_ncmc_schedule(
     nsteps_neq: int,
     *,
-    alchemical_functions: Mapping[str, Callable] = None,
+    alchemical_functions: Mapping[str, Union[str, Callable]] = None,
     splitting: str = "H V R O R V H",
     nprop: int = 1,
     prop_lambda: float = 0.3,
@@ -75,14 +72,7 @@ def build_ncmc_schedule(
     0.5+prop_lambda] re-run the dynamics nprop-1 extra times."""
     if alchemical_functions is None:
         alchemical_functions = DEFAULT_ALCHEMICAL_FUNCTIONS
-    fns = {}
-    for k, v in alchemical_functions.items():
-        if not callable(v):
-            raise ValueError(
-                f"alchemical function {k!r} must be a callable of lambda; Lepton "
-                "strings need the expression compiler, which the port does not have"
-            )
-        fns[k] = v
+    fns = {k: as_schedule_fn(v) for k, v in alchemical_functions.items()}
     n_h = splitting.upper().split().count("H")
     if n_h == 0:
         raise ValueError("splitting must contain at least one H substep")
@@ -130,6 +120,26 @@ def build_ncmc_schedule(
         n_lambda_steps=n_lambda_steps,
         micro_of_step=np.asarray(micro_of_step, np.int64),
     )
+
+
+def resolve_frame_indices(frame_indices, nsteps_nc: int, move_step: int):
+    """Reporter frame indices, with the reference's sentinels 0.5 ->
+    moveStep and -1 -> nstepsNC (the last step), as NCMC integrator-step
+    numbers: a sorted tuple of unique steps in [0, nsteps_nc]."""
+    out = set()
+    for fi in frame_indices:
+        if fi == 0.5:
+            s = move_step
+        elif fi == -1:
+            s = nsteps_nc
+        else:
+            s = int(fi)
+            if s < 0:
+                s = nsteps_nc + 1 + s  # python-style negative indexing
+        if not 0 <= s <= nsteps_nc:
+            raise ValueError(f"frame index {fi} out of range for a {nsteps_nc}-step protocol")
+        out.add(s)
+    return tuple(sorted(out))
 
 
 def calculate_ncmc_steps(nstepsNC: int, nprop: int = 1, propLambda: float = 0.3):

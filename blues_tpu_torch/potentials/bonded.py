@@ -1,20 +1,24 @@
-"""Bonded energy terms: harmonic bonds, harmonic angles, periodic torsions.
+"""Bonded energy terms: harmonic bonds, harmonic angles, periodic torsions,
+positional restraints and centroid restraints.
 
-Counterpart of ``blues_tpu.potentials.bonded`` (the terms the frozen NCMC
-path uses). Each term is a gather + reduction over (R, N, 3) positions and
-returns (R,) energies; forces come from autograd. Parameters are staged on
-the device once, by ``BondedTerms``.
+Counterpart of ``blues_tpu.potentials.bonded``. Each term is a gather +
+reduction over (R, N, 3) positions and returns (R,) energies; forces come
+from autograd. Parameters are staged on the device once, by
+``BondedTerms``. The positional restraint takes the minimum image in each
+replica's box, (3, 3) or (R, 3, 3).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .geometry import distance
+from .geometry import distance, periodic_displacement
 
 
 class BondedTerms:
-    """Bond, angle and torsion energy of a ``System`` on one device."""
+    """Bond, angle, torsion and restraint energy of a ``System`` on one
+    device: every lambda-independent term, which the lambda split keeps in
+    E0."""
 
     def __init__(self, system, device):
         def t(a, dtype=torch.float64):
@@ -28,11 +32,19 @@ class BondedTerms:
             if len(tor)
             else None
         )
+        pr = system.position_restraints
+        self.position = None if pr is None else (t(pr.idx, torch.long), t(pr.x0), float(pr.k))
+        self.centroids = [
+            (t(r.group1, torch.long), t(r.group2, torch.long), t(r.weights1), t(r.weights2), float(r.k))
+            for r in system.centroid_restraints
+        ]
 
     def __bool__(self):
-        return any(x is not None for x in (self.bonds, self.angles, self.torsions))
+        return bool(self.centroids) or any(
+            x is not None for x in (self.bonds, self.angles, self.torsions, self.position)
+        )
 
-    def __call__(self, x):
+    def __call__(self, x, box=None):
         e = x.new_zeros(x.shape[0])
         if self.bonds is not None:
             e = e + bond_energy(x, *self.bonds)
@@ -40,6 +52,10 @@ class BondedTerms:
             e = e + angle_energy(x, *self.angles)
         if self.torsions is not None:
             e = e + torsion_energy(x, *self.torsions)
+        if self.position is not None:
+            e = e + position_restraint_energy(x, *self.position, box)
+        for rest in self.centroids:
+            e = e + centroid_restraint_energy(x, *rest)
         return e
 
 
@@ -66,3 +82,17 @@ def torsion_energy(x, idx, periodicity, phase, k):
     phi = torch.atan2((m1 * n2).sum(-1), (n1 * n2).sum(-1))
     dt = x.dtype
     return (k.to(dt) * (1.0 + torch.cos(periodicity.to(dt) * phi - phase.to(dt)))).sum(-1)
+
+
+def position_restraint_energy(x, idx, x0, k, box=None):
+    """E = k * periodicdistance(x, x0)^2, no 1/2 (the reference's form)."""
+    dr = periodic_displacement(x[:, idx] - x0.to(x.dtype), box)
+    return k * (dr * dr).sum((-2, -1))
+
+
+def centroid_restraint_energy(x, group1, group2, weights1, weights2, k):
+    """E = 0.5 * k * |c1 - c2|^2 between the weighted centroids."""
+    c1 = (x[:, group1] * weights1.to(x.dtype)[:, None]).sum(-2)
+    c2 = (x[:, group2] * weights2.to(x.dtype)[:, None]).sum(-2)
+    d = distance(c1 - c2)
+    return 0.5 * k * d * d

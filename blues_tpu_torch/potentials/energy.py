@@ -3,9 +3,13 @@
 Counterpart of ``blues_tpu.potentials.energy``: ``energy_fn(x, box,
 globals) -> (R,) energies`` for (R, N, 3) positions, forces from
 ``torch.autograd.grad`` (the JAX package takes them from
-``jax.value_and_grad``). With an alchemical region the lambda split
+``jax.value_and_grad``). The terms are the bonded ones and the restraints
+(``BondedTerms``), the custom pair forces and the nonbonded term, when the
+system has one. With an alchemical region the lambda split
 E(x, lam) = E0(x) + Ea(x, lam) is exposed as ``lambda_e0_f0`` and
-``lambda_ea_fa``, with every bonded term in E0.
+``lambda_ea_fa``, with every bonded and restraint term in E0; custom pair
+forces may read the lambda globals, so a system with any turns the split
+off, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ import torch
 from ..core.device import DEFAULT_DEVICE
 from ..core.system import System
 from .bonded import BondedTerms
-from .nonbonded import PME, make_nonbonded_energy
+from .custom_pair import CustomPairEnergy
+from .nonbonded import NO_CUTOFF, make_nonbonded_energy
 
 
 def _value_and_force(fn, x, *args):
@@ -36,6 +41,7 @@ class EnergyFunction:
 
     def __init__(self, system: System, device, **nb_kwargs):
         self.bonded = BondedTerms(system, device)
+        self.custom_pairs = [CustomPairEnergy(cp, device) for cp in system.custom_pairs]
         self.nonbonded = None
         if system.nonbonded is not None:
             cull_bonds = [np.asarray(e.idx).reshape(-1, 2) for e in (system.bonds, system.constraints) if len(e)]
@@ -50,17 +56,19 @@ class EnergyFunction:
                 **nb_kwargs,
             )
         nb = self.nonbonded
-        self.has_split = nb is not None and nb.has_split
+        self.has_split = nb is not None and nb.has_split and not self.custom_pairs
 
     def __call__(self, x, box=None, globals_=None):
-        e = self.bonded(x) if self.bonded else x.new_zeros(x.shape[0])
+        e = self.bonded(x, box) if self.bonded else x.new_zeros(x.shape[0])
+        for cp in self.custom_pairs:
+            e = e + cp(x, box, globals_)
         if self.nonbonded is not None:
             e = e + self.nonbonded(x, box, globals_)
         return e
 
     def _e0_total(self, x, box=None):
         e = self.nonbonded.lambda_e0(x, box)
-        return e + self.bonded(x) if self.bonded else e
+        return e + self.bonded(x, box) if self.bonded else e
 
     def lambda_e0_f0(self, x, box=None):
         """(E0, F0): the lambda-independent part and its forces."""
@@ -74,12 +82,12 @@ class EnergyFunction:
 def make_energy_fn(
     system: System,
     *,
-    nonbonded_method: str = PME,
+    nonbonded_method: str = NO_CUTOFF,
     cutoff: float = 1.0,
     alchemical_pme_treatment: str = "direct-space",
     ewald_tolerance: float = 5e-4,
     rf_dielectric: float = 78.3,
-    nonbonded_backend: str = "sweep",
+    nonbonded_backend: str = "auto",
     dispersion_correction: bool = True,
     switch_distance: Optional[float] = None,
     frozen_cull_skin: float = 0.45,

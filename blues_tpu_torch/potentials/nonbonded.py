@@ -1,6 +1,8 @@
 """Nonbonded LJ + electrostatics with alchemical softcore semantics.
 
-Port of ``blues_tpu.potentials.nonbonded._make_pair_backend_energy`` for
+Port of ``blues_tpu.potentials.nonbonded``: its dense path
+(``DenseNonbondedEnergy``, every method and alchemical treatment, chosen by
+'auto' at 4,096 atoms and below) and ``_make_pair_backend_energy`` for
 three pair backends, which share every term around the pair sum
 (exclusion / exception lists, PME reciprocal/self/plasma terms and the
 dispersion correction) and the lambda split E(x, lam) = E0(x) + Ea(x, lam)
@@ -23,7 +25,8 @@ systems on every backend share the frozen-background PME grid and the
 filtered lists (``_build_frozen``); systems without frozen atoms take full
 lists and PME over every atom (``_build_unfrozen``). Positions are (R, N,
 3); every energy is (R,). Other backends, the 'exact' PME treatment and
-triclinic boxes raise ``ValueError``.
+the methods without a cutoff on the three kernel backends, and triclinic
+boxes raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -40,12 +43,13 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import AlchemicalRegion, NonbondedParams
 from .features import build_pair_features
 from .geometry import box_lengths, distance, periodic_displacement, replica_boxes
-from .pairs import pair_energy_force
+from .pairs import lj_switch, pair_energy_force
 from .pme import PMEParams, make_pme_reciprocal, precompute_spread_grid
 from .pair_kernel import PallasPairSum
 from .pcells import CellsPairSum
 from .sweep import SweepPairSum, build_row_groups
 
+NO_CUTOFF = "NoCutoff"
 CUTOFF_PERIODIC = "CutoffPeriodic"
 CUTOFF_NONPERIODIC = "CutoffNonPeriodic"
 PME = "PME"
@@ -275,7 +279,112 @@ def _lam(v, dtype, device):
     return float(v)
 
 
-class NonbondedEnergy:
+class _NonbondedBase:
+    """What every nonbonded path shares: the per-atom parameters, the
+    method's constants (PME grid and alpha, reaction field, dispersion
+    tail), the exception list and the per-replica helpers."""
+
+    def _setup(self, nb, method, cutoff, alchemical, ewald_tolerance, rf_dielectric, box_for_pme,
+               dispersion_correction, switch_distance, device):
+        if box_for_pme is not None:
+            b = np.asarray(box_for_pme, np.float64)
+            if np.abs(b - np.diag(np.diag(b))).max() > 0:
+                raise ValueError("the port supports orthorhombic boxes only")
+        if switch_distance is not None and not (0.0 < switch_distance < cutoff):
+            raise ValueError(f"switch_distance {switch_distance} must lie in (0, cutoff={cutoff})")
+        self.device = resolve_device(device)
+        n = self.n_atoms = nb.charge.shape[0]
+        self._charges = np.asarray(nb.charge, np.float64)
+        self._sigmas = np.asarray(nb.sigma, np.float64)
+        self._epsilons = np.asarray(nb.epsilon, np.float64)
+        is_alch = np.zeros(n, bool)
+        if alchemical is not None and len(alchemical.atoms):
+            is_alch[np.asarray(alchemical.atoms, np.int64)] = True
+        self._is_alch = is_alch
+        self.sc = alchemical if alchemical is not None else AlchemicalRegion(atoms=np.zeros(0, np.int32))
+        self.alchemical = alchemical
+        self.method, self.cutoff, self.switch_distance = method, float(cutoff), switch_distance
+        self.periodic = method in (PME, CUTOFF_PERIODIC)
+        self.pme_params, self.alpha = None, 0.0
+        if method == PME:
+            if box_for_pme is None:
+                raise ValueError("PME requires box_for_pme")
+            self.pme_params = choose_pme_params(np.diag(np.asarray(box_for_pme)), cutoff, ewald_tolerance)
+            self.alpha = self.pme_params.alpha
+        self.k_rf, self.c_rf = (
+            reaction_field_constants(cutoff, rf_dielectric)
+            if method in (CUTOFF_PERIODIC, CUTOFF_NONPERIODIC)
+            else (0.0, 0.0)
+        )
+        self.disp_coeff = (
+            dispersion_correction_coeff(nb.sigma, nb.epsilon, cutoff)
+            if (self.periodic and alchemical is None and dispersion_correction)
+            else 0.0
+        )
+        self.box0 = None if box_for_pme is None else np.asarray(box_for_pme, np.float64)
+        self.c = _Consts(self.device)
+        self._exc_sig = np.asarray(nb.exceptions_sigma, np.float64)
+        self._exc_eps = np.asarray(nb.exceptions_epsilon, np.float64)
+        self._exc_qq = np.asarray(nb.exceptions_chargeprod, np.float64)
+
+    def _stage_exc(self, prefix, exc_idx, sel, exc_keep=None):
+        """Stage the exceptions ``exc_idx[sel]``; ``exc_keep`` selects their
+        parameters from the system's list when ``exc_idx`` is a subset."""
+        c, sc = self.c, self.sc
+        keep = slice(None) if exc_keep is None else exc_keep
+        pairs = exc_idx[sel]
+        c[prefix + "_idx"] = pairs.reshape(-1, 2)
+        c[prefix + "_sig"] = self._exc_sig[keep][sel]
+        c[prefix + "_eps"] = self._exc_eps[keep][sel]
+        c[prefix + "_qq"] = self._exc_qq[keep][sel]
+        ai, aj = self._is_alch[pairs[:, 0]], self._is_alch[pairs[:, 1]]
+        na, aa = ai ^ aj, ai & aj
+        c[prefix + "_ster"] = (na | (aa & sc.annihilate_sterics)).astype(np.float64)
+        c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
+
+    def pair_factors(self, globals_, dtype, device):
+        g = globals_ or {}
+        lam_s = _lam(g.get("lambda_sterics", 1.0), dtype, device)
+        lam_e = _lam(g.get("lambda_electrostatics", 1.0), dtype, device)
+        f_aa = lam_e if self.sc.annihilate_electrostatics else 1.0
+        return lam_s, lam_e, f_aa
+
+    def _disp(self, x, idx, box):
+        dr = x[:, idx[:, 0]] - x[:, idx[:, 1]]
+        if self.periodic and box is not None:
+            dr = periodic_displacement(dr, box)
+        return dr
+
+    def _exceptions(self, x, box, prefix, lam_s, lam_e, scaled=True):
+        c, dt, sc = self.c, x.dtype, self.sc
+        idx = c(prefix + "_idx")
+        if not len(idx):
+            return 0.0
+        dre = self._disp(x, idx, box)
+        re2 = torch.clamp((dre * dre).sum(-1), min=1e-12)
+        re = torch.sqrt(re2)
+        sig, eps, qq = c(prefix + "_sig", dt), c(prefix + "_eps", dt), c(prefix + "_qq", dt)
+        lj = lj_energy_pair(re2, sig, eps)
+        el = units.ONE_4PI_EPS0 * qq / re
+        if scaled:
+            soft = softcore_lj_energy_pair(
+                re2, sig, eps, lam_s, sc.softcore_alpha, sc.softcore_a, sc.softcore_b
+            )
+            ster = c(prefix + "_ster", dt)
+            elec = c(prefix + "_elec", dt)
+            lj = torch.where(ster > 0, soft, lj)
+            el = torch.where(elec > 0, lam_e * el, el)
+        return (lj + el).sum(-1)
+
+    @staticmethod
+    def _volume(box):
+        """(R,) volume of each replica's orthorhombic box, multiplied in the
+        JAX package's order."""
+        L = box_lengths(box)
+        return L[:, 0] * L[:, 1] * L[:, 2]
+
+
+class NonbondedEnergy(_NonbondedBase):
     """fn(x (R, N, 3), box, globals) -> (R,) nonbonded energy, with
     ``lambda_e0`` / ``lambda_ea`` when the lambda split applies. ``box`` is
     (3, 3), broadcast to every replica, or (R, 3, 3): each replica's terms
@@ -313,70 +422,29 @@ class NonbondedEnergy:
     ):
         if alchemical_pme_treatment not in ("direct-space", "coulomb"):
             raise ValueError(
-                f"alchemical_pme_treatment {alchemical_pme_treatment!r} is not ported; "
-                "the port implements 'direct-space' and 'coulomb'"
+                f"alchemical_pme_treatment {alchemical_pme_treatment!r} is not ported to the "
+                f"{backend} backend, which implements 'direct-space' and 'coulomb' ('dense' has all three)"
             )
         if method not in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC):
-            raise ValueError(f"the {backend} backend needs a cutoff method, got {method!r}")
-        if box_for_pme is not None:
-            b = np.asarray(box_for_pme, np.float64)
-            if np.abs(b - np.diag(np.diag(b))).max() > 0:
-                raise ValueError("the port supports orthorhombic boxes only")
-        if switch_distance is not None and not (0.0 < switch_distance < cutoff):
-            raise ValueError(f"switch_distance {switch_distance} must lie in (0, cutoff={cutoff})")
-        self.device = dev = resolve_device(device)
+            raise ValueError(
+                f"the {backend} backend needs a cutoff method, got {method!r} (backend 'dense' takes every method)"
+            )
+        self._setup(nb, method, cutoff, alchemical, ewald_tolerance, rf_dielectric, box_for_pme,
+                    dispersion_correction, switch_distance, device)
+        dev, n, sc, is_alch, charges = self.device, self.n_atoms, self.sc, self._is_alch, self._charges
         self.backend = backend
-        n = nb.charge.shape[0]
-        self.n_atoms = n
-        charges = np.asarray(nb.charge, np.float64)
-        sigmas = np.asarray(nb.sigma, np.float64)
-        epsilons = np.asarray(nb.epsilon, np.float64)
-        is_alch = np.zeros(n, bool)
-        sc = alchemical if alchemical is not None else AlchemicalRegion(atoms=np.zeros(0, np.int32))
-        if alchemical is not None and len(alchemical.atoms):
-            is_alch[np.asarray(alchemical.atoms, np.int64)] = True
-        self.sc = sc
-        self.alchemical = alchemical
-        alch_coulomb = alchemical_pme_treatment == "coulomb" and method == PME and alchemical is not None
-        self.method, self.cutoff, self.switch_distance = method, float(cutoff), switch_distance
-        self.alch_coulomb = alch_coulomb
-        periodic = method in (PME, CUTOFF_PERIODIC)
-        self.periodic = periodic
-        self._charges, self._sigmas, self._epsilons, self._is_alch = charges, sigmas, epsilons, is_alch
-
-        pme_params = None
-        alpha = 0.0
-        if method == PME:
-            if box_for_pme is None:
-                raise ValueError("PME requires box_for_pme")
-            pme_params = choose_pme_params(np.diag(np.asarray(box_for_pme)), cutoff, ewald_tolerance)
-            alpha = pme_params.alpha
-        self.pme_params, self.alpha = pme_params, alpha
-        k_rf, c_rf = (
-            reaction_field_constants(cutoff, rf_dielectric)
-            if method in (CUTOFF_PERIODIC, CUTOFF_NONPERIODIC)
-            else (0.0, 0.0)
+        self.alch_coulomb = alch_coulomb = (
+            alchemical_pme_treatment == "coulomb" and method == PME and alchemical is not None
         )
-        self.k_rf, self.c_rf = k_rf, c_rf
-        self.disp_coeff = (
-            dispersion_correction_coeff(nb.sigma, nb.epsilon, cutoff)
-            if (periodic and alchemical is None and dispersion_correction)
-            else 0.0
-        )
-        self.box0 = None if box_for_pme is None else np.asarray(box_for_pme, np.float64)
         self.common = dict(
-            method=method, cutoff=cutoff, alpha_ewald=alpha, k_rf=k_rf, c_rf=c_rf,
+            method=method, cutoff=cutoff, alpha_ewald=self.alpha, k_rf=self.k_rf, c_rf=self.c_rf,
             annihilate_sterics=sc.annihilate_sterics, softcore_alpha=sc.softcore_alpha,
-            periodic=periodic, switch_distance=switch_distance, alch_coulomb=alch_coulomb,
+            periodic=self.periodic, switch_distance=switch_distance, alch_coulomb=alch_coulomb,
             device=dev,
         )
-        self.c = _Consts(dev)
         q_std_np = charges * (1.0 - is_alch)
         self._q_std, self._q_alch = q_std_np, charges * is_alch
         self.c["q_eff"] = q_std_np if alchemical is not None else charges
-        self._exc_sig = np.asarray(nb.exceptions_sigma, np.float64)
-        self._exc_eps = np.asarray(nb.exceptions_epsilon, np.float64)
-        self._exc_qq = np.asarray(nb.exceptions_chargeprod, np.float64)
         self.pair_sum0 = self.ea_sweep = None
         self.has_split = False
         self.cull_info = self.cull_bounds = None
@@ -389,7 +457,7 @@ class NonbondedEnergy:
         frozen = bool((m <= 0).any())
         if backend not in ("sweep", "pcells", "pallas"):
             raise ValueError(
-                f"nonbonded backend {backend!r} is not ported; the port has 'sweep', "
+                f"nonbonded backend {backend!r} is not ported; the port has 'dense', 'sweep', "
                 "'pcells' and 'pallas'"
             )
         if frozen or backend == "sweep":
@@ -425,21 +493,6 @@ class NonbondedEnergy:
         if len(pairs):
             for k, v in self._pair_params(pairs).items():
                 self.c[f"{prefix}_{k}"] = v
-
-    def _stage_exc(self, prefix, exc_idx, sel, exc_keep=None):
-        """Stage the exceptions ``exc_idx[sel]``; ``exc_keep`` selects their
-        parameters from the system's list when ``exc_idx`` is a subset."""
-        c, sc = self.c, self.sc
-        keep = slice(None) if exc_keep is None else exc_keep
-        pairs = exc_idx[sel]
-        c[prefix + "_idx"] = pairs.reshape(-1, 2)
-        c[prefix + "_sig"] = self._exc_sig[keep][sel]
-        c[prefix + "_eps"] = self._exc_eps[keep][sel]
-        c[prefix + "_qq"] = self._exc_qq[keep][sel]
-        ai, aj = self._is_alch[pairs[:, 0]], self._is_alch[pairs[:, 1]]
-        na, aa = ai ^ aj, ai & aj
-        c[prefix + "_ster"] = (na | (aa & sc.annihilate_sterics)).astype(np.float64)
-        c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
 
     def _split_lists(self, alch_atoms_np, cols_na, excl, exc_idx, exc_keep, pref0_live):
         """Lists of the lambda split shared by every backend: the intra-
@@ -757,25 +810,12 @@ class NonbondedEnergy:
             self._stage_ea_block(alch_atoms_np, cols_na, na_excl_mask, x0, in_rows_np)
 
     # ------------------------------------------------------------------
-    def pair_factors(self, globals_, dtype, device):
-        g = globals_ or {}
-        lam_s = _lam(g.get("lambda_sterics", 1.0), dtype, device)
-        lam_e = _lam(g.get("lambda_electrostatics", 1.0), dtype, device)
-        f_aa = lam_e if self.sc.annihilate_electrostatics else 1.0
-        return lam_s, lam_e, f_aa
-
     def _pair_kw(self):
         return dict(
             method=self.method, alpha_ewald=self.alpha, k_rf=self.k_rf, c_rf=self.c_rf,
             softcore_alpha=self.sc.softcore_alpha, switch_distance=self.switch_distance,
             cutoff=self.cutoff, alch_coulomb=self.alch_coulomb,
         )
-
-    def _disp(self, x, idx, box):
-        dr = x[:, idx[:, 0]] - x[:, idx[:, 1]]
-        if self.periodic and box is not None:
-            dr = periodic_displacement(dr, box)
-        return dr
 
     def _sub_excluded(self, x, box, prefix, lam_s, f_na, f_aa):
         """-sum of the pair term over the staged exclusion list ``prefix``."""
@@ -792,34 +832,6 @@ class NonbondedEnergy:
         )
         e = torch.where(r2 < self.cutoff * self.cutoff, e, torch.zeros((), dtype=dt, device=x.device))
         return -e.sum(-1)
-
-    def _exceptions(self, x, box, prefix, lam_s, lam_e, scaled=True):
-        c, dt, sc = self.c, x.dtype, self.sc
-        idx = c(prefix + "_idx")
-        if not len(idx):
-            return 0.0
-        dre = self._disp(x, idx, box)
-        re2 = torch.clamp((dre * dre).sum(-1), min=1e-12)
-        re = torch.sqrt(re2)
-        sig, eps, qq = c(prefix + "_sig", dt), c(prefix + "_eps", dt), c(prefix + "_qq", dt)
-        lj = lj_energy_pair(re2, sig, eps)
-        el = units.ONE_4PI_EPS0 * qq / re
-        if scaled:
-            soft = softcore_lj_energy_pair(
-                re2, sig, eps, lam_s, sc.softcore_alpha, sc.softcore_a, sc.softcore_b
-            )
-            ster = c(prefix + "_ster", dt)
-            elec = c(prefix + "_elec", dt)
-            lj = torch.where(ster > 0, soft, lj)
-            el = torch.where(elec > 0, lam_e * el, el)
-        return (lj + el).sum(-1)
-
-    @staticmethod
-    def _volume(box):
-        """(R,) volume of each replica's orthorhombic box, multiplied in the
-        JAX package's order."""
-        L = box_lengths(box)
-        return L[:, 0] * L[:, 1] * L[:, 2]
 
     def _reciprocal(self, x, box):
         """PME reciprocal/self/plasma/erf-exclusion terms with q_std, plus
@@ -943,17 +955,181 @@ class NonbondedEnergy:
         return e + self._exceptions(x, box, "exca", lam_s, lam_e)
 
 
+class DenseNonbondedEnergy(_NonbondedBase):
+    """The JAX package's dense nonbonded path: fn(x (R, N, 3), box, globals)
+    -> (R,) energy over every pair i < j that is not an exclusion, in plain
+    tensor ops with forces from autograd. It is ``auto``'s choice at 4,096
+    atoms and below, and the only path for the methods without a cutoff.
+
+    Methods: NoCutoff (bare Coulomb), CutoffNonPeriodic and CutoffPeriodic
+    (reaction field, the pair cut at ``cutoff``), PME. Alchemical
+    treatments: 'direct-space' (the alchemical charges left out of the
+    reciprocal sums, their pairs lambda-scaled in direct space), 'coulomb'
+    (the same with a bare 1/r under PME) and 'exact' (the alchemical
+    charges scaled by lambda_electrostatics everywhere: NA pairs by lambda,
+    AA pairs by lambda^2, and the reciprocal, self and exclusion terms).
+    Exceptions take their own parameters and a bare Coulomb term; the
+    dispersion tail applies only without an alchemical region. The pairs
+    are held in two lists, those without and those with an alchemical
+    atom, so only the second pays for the softcore form. No lambda split:
+    ``has_split`` is False, as the JAX dense path exposes none."""
+
+    backend = "dense"
+    has_split = False
+    cull_info = None
+
+    def __init__(
+        self,
+        nb: NonbondedParams,
+        *,
+        method: str,
+        cutoff: float,
+        alchemical: Optional[AlchemicalRegion],
+        alchemical_pme_treatment: str,
+        ewald_tolerance: float,
+        rf_dielectric: float,
+        box_for_pme,
+        dispersion_correction: bool,
+        switch_distance,
+        device=DEFAULT_DEVICE,
+    ):
+        if alchemical_pme_treatment not in ("direct-space", "coulomb", "exact"):
+            raise ValueError(
+                f"unsupported alchemical_pme_treatment {alchemical_pme_treatment!r}; "
+                "implemented: 'direct-space', 'coulomb', 'exact'"
+            )
+        if method not in (NO_CUTOFF, CUTOFF_NONPERIODIC, CUTOFF_PERIODIC, PME):
+            raise ValueError(f"unknown nonbonded method {method!r}")
+        self._setup(nb, method, cutoff, alchemical, ewald_tolerance, rf_dielectric, box_for_pme,
+                    dispersion_correction, switch_distance, device)
+        n, sc, is_alch = self.n_atoms, self.sc, self._is_alch
+        charges, sigmas, epsilons = self._charges, self._sigmas, self._epsilons
+        self.exact = alchemical is not None and alchemical_pme_treatment == "exact"
+        self.alch_coulomb = alchemical_pme_treatment == "coulomb" and method == PME
+        self.recip = None if method != PME else make_pme_reciprocal(self.pme_params, device=self.device)
+        q_std = np.where(is_alch, 0.0, charges) if (alchemical is not None and not self.exact) else charges
+
+        # every pair i < j that is not an exclusion, split by whether it
+        # holds an alchemical atom
+        excl = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
+        iu, ju = np.triu_indices(n, k=1)
+        keep = np.ones(len(iu), bool)
+        if len(excl):
+            keys = np.unique(np.minimum(excl[:, 0], excl[:, 1]) * n + np.maximum(excl[:, 0], excl[:, 1]))
+            keep = ~np.isin(iu.astype(np.int64) * n + ju, keys)
+        iu, ju = iu[keep], ju[keep]
+        alch_pair = is_alch[iu] | is_alch[ju]
+        c = self.c
+        for prefix, sel in (("std", ~alch_pair), ("alch", alch_pair)):
+            i, j = iu[sel], ju[sel]
+            c[prefix + "_i"], c[prefix + "_j"] = i, j
+            c[prefix + "_sig"] = 0.5 * (sigmas[i] + sigmas[j])
+            c[prefix + "_eps"] = np.sqrt(epsilons[i] * epsilons[j])
+            c[prefix + "_qq"] = charges[i] * charges[j]
+            na, aa = is_alch[i] ^ is_alch[j], is_alch[i] & is_alch[j]
+            c[prefix + "_ster"] = na | (aa & sc.annihilate_sterics)
+            c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
+            c[prefix + "_aa"] = aa.astype(np.float64)
+        self.n_pairs = len(iu)
+        exc_idx = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
+        self._stage_exc("exc", exc_idx, np.ones(len(exc_idx), bool))
+        c["erf_idx"] = excl
+        c["q_std"] = q_std
+        c["charges"] = charges
+        c["is_alch"] = is_alch
+
+    def _kernel(self, r):
+        """f(r) of U = ke qi qj f(r) for the method."""
+        if self.method == PME:
+            return torch.special.erfc(self.alpha * r) / r
+        if self.method in (CUTOFF_PERIODIC, CUTOFF_NONPERIODIC):
+            return 1.0 / r + self.k_rf * r * r - self.c_rf
+        return 1.0 / r
+
+    def _pairs(self, x, box, prefix, lam_s, lam_e):
+        """(R,) sum of the pair term over the list ``prefix``."""
+        c, dt = self.c, x.dtype
+        i = c(prefix + "_i")
+        if not len(i):
+            return 0.0
+        dr = x.index_select(1, i) - x.index_select(1, c(prefix + "_j"))
+        if self.periodic and box is not None:
+            dr = periodic_displacement(dr, box)
+        r2 = torch.clamp((dr * dr).sum(-1), min=1e-12)
+        r = torch.sqrt(r2)
+        sig, eps, qq = c(prefix + "_sig", dt), c(prefix + "_eps", dt), c(prefix + "_qq", dt)
+        sc, ke = self.sc, units.ONE_4PI_EPS0
+        e_lj = lj_energy_pair(r2, sig, eps)
+        fr = self._kernel(r)
+        if prefix == "std":
+            e_el = ke * qq * fr
+        else:
+            soft = softcore_lj_energy_pair(r2, sig, eps, lam_s, sc.softcore_alpha, sc.softcore_a, sc.softcore_b)
+            e_lj = torch.where(c(prefix + "_ster"), soft, e_lj)
+            elec = c(prefix + "_elec", dt)
+            if self.exact:
+                aa = c(prefix + "_aa", dt)
+                factor = elec * (aa * (lam_e * lam_e) + (1.0 - aa) * lam_e) + (1.0 - elec)
+                e_el = ke * qq * fr * factor
+            else:
+                f_alch = fr
+                if self.method == PME and self.alch_coulomb:
+                    f_alch = 1.0 / r
+                    if self.switch_distance is not None:
+                        f_alch = lj_switch(r2, self.cutoff, self.switch_distance)[0] * f_alch
+                e_alch = ke * qq * f_alch
+                e_el = torch.where(elec > 0, lam_e * e_alch, e_alch)
+        if self.switch_distance is not None:
+            e_lj = lj_switch(r2, self.cutoff, self.switch_distance)[0] * e_lj
+        e = e_lj + e_el
+        if self.method != NO_CUTOFF:
+            e = torch.where(r < self.cutoff, e, torch.zeros((), dtype=dt, device=x.device))
+        return e.sum(-1)
+
+    def _pme(self, x, box, lam_e):
+        """Reciprocal, self, neutralizing-plasma and exclusion-correction
+        terms of each replica, with the alchemical charges left out (the
+        direct-space treatments) or scaled by lambda ('exact')."""
+        c, dt = self.c, x.dtype
+        ke, alpha = units.ONE_4PI_EPS0, self.alpha
+        if self.exact:
+            q = c("charges", dt)
+            q = torch.where(c("is_alch"), q * lam_e, q)
+        else:
+            q = c("q_std", dt)
+        e = self.recip(x, q, box)
+        e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
+        e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / self._volume(box)
+        idx = c("erf_idx")
+        if len(idx):
+            rx = distance(periodic_displacement(x[:, idx[:, 0]] - x[:, idx[:, 1]], box))
+            qq = q[idx[:, 0]] * q[idx[:, 1]]
+            e = e - (ke * qq * torch.erf(alpha * rx) / rx).sum(-1)
+        return e
+
+    def __call__(self, x, box=None, globals_=None):
+        box = replica_boxes(box, x.shape[0])
+        lam_s, lam_e, _ = self.pair_factors(globals_, x.dtype, x.device)
+        e = self._pairs(x, box, "std", lam_s, lam_e) + self._pairs(x, box, "alch", lam_s, lam_e)
+        e = e + self._exceptions(x, box, "exc", lam_s, lam_e)
+        if self.method == PME:
+            e = e + self._pme(x, box, lam_e)
+        if self.disp_coeff:
+            e = e + self.disp_coeff / self._volume(box)
+        return e
+
+
 def make_nonbonded_energy(
     nb: NonbondedParams,
     *,
-    method: str = PME,
+    method: str = NO_CUTOFF,
     cutoff: float = 1.0,
     alchemical: Optional[AlchemicalRegion] = None,
     alchemical_pme_treatment: str = "direct-space",
     ewald_tolerance: float = 5e-4,
     rf_dielectric: float = 78.3,
     box_for_pme=None,
-    backend: str = "sweep",
+    backend: str = "auto",
     masses=None,
     frozen_ref_positions=None,
     dispersion_correction: bool = True,
@@ -963,20 +1139,33 @@ def make_nonbonded_energy(
     bonds_for_cull=None,
     sweep_row_group: Optional[int] = None,
     device=DEFAULT_DEVICE,
-) -> NonbondedEnergy:
-    """``backend``: 'sweep' (frozen systems; 'pallas' where no columns are
-    culled), 'pcells' or 'pallas' (any system), or 'auto': 'sweep' for a
-    mostly-frozen system.
-    The JAX package's 'auto' picks its XLA 'cells' backend for a
-    mostly-mobile one, which is not ported, so the port raises there."""
+):
+    """``backend``: 'dense' (``DenseNonbondedEnergy``, any method and
+    treatment), 'sweep' (frozen systems; 'pallas' where no columns are
+    culled), 'pcells' or 'pallas' (any system, with a cutoff method), or
+    'auto', which follows the JAX package: 'dense' at 4,096 atoms and
+    below; above, 'sweep' for a mostly-frozen system. The JAX package's
+    'auto' picks its XLA 'cells' backend for a larger mostly-mobile one,
+    which is not ported, so the port raises there."""
     if backend == "auto":
-        mobile = np.asarray(masses) > 0 if masses is not None else np.ones(nb.charge.shape[0], bool)
-        if mobile.mean() > 0.5:
+        n = nb.charge.shape[0]
+        mobile = np.asarray(masses) > 0 if masses is not None else np.ones(n, bool)
+        if n <= 4096:
+            backend = "dense"
+        elif mobile.mean() > 0.5:
             raise ValueError(
-                "backend 'auto' on a mostly-mobile system picks the 'cells' backend, "
+                "backend 'auto' on a mostly-mobile system above 4,096 atoms picks the 'cells' backend, "
                 "which is not ported; choose 'pcells' (cell list) or 'pallas' (all pairs)"
             )
-        backend = "sweep"
+        else:
+            backend = "sweep"
+    if backend == "dense":
+        return DenseNonbondedEnergy(
+            nb, method=method, cutoff=cutoff, alchemical=alchemical,
+            alchemical_pme_treatment=alchemical_pme_treatment, ewald_tolerance=ewald_tolerance,
+            rf_dielectric=rf_dielectric, box_for_pme=box_for_pme,
+            dispersion_correction=dispersion_correction, switch_distance=switch_distance, device=device,
+        )
     return NonbondedEnergy(
         nb, method=method, cutoff=cutoff, alchemical=alchemical,
         alchemical_pme_treatment=alchemical_pme_treatment, ewald_tolerance=ewald_tolerance,

@@ -23,13 +23,21 @@ followed by one Monte Carlo volume move per replica
 get no attempt, and the NCMC protocol keeps the box it is given (NPT on
 the MD system only, as in the reference).
 
+Frames: with ``md_report_interval`` set, MD runs in chunks of that many
+steps (each followed by the barostat's attempt under pressure, as in the
+JAX driver) and the positions after each chunk are an MD frame; the NCMC
+snapshots are taken at ``ncmc_frame_indices`` (default: protocol start,
+move step and end). ``run_iteration_frames`` returns them beside the
+stats, in full coordinates also on the compact iteration. A system
+without a box runs in the JAX driver's 999 nm box.
+
 Acceptance (reference semantics):
 
     log_accept = -(protocol_work)/kT + correction
     correction = -[(E_alch(x0) - E_md(x0)) + (E_md(x1) - E_alch(x1))]/kT
 
-Configurations outside the port (segmented dispatch, frame reporters,
-backends other than 'sweep', 'pcells', 'pallas' and 'auto') raise
+Configurations outside the port (segmented dispatch, backends other than
+'dense', 'sweep', 'pcells', 'pallas' and 'auto') raise
 ``ValueError``, and so do the JAX driver's own refusals: pressure with
 frozen atoms under PME, and ``frozen_compact=True`` where compaction is
 ineligible (a barostat makes it so).
@@ -53,7 +61,7 @@ from ..integrators.barostat import MonteCarloBarostat
 from ..integrators.constraints import make_constraint_fns
 from ..integrators.langevin import LangevinParams, make_md_step
 from ..integrators.ncmc import make_ncmc_protocol
-from ..integrators.schedules import build_ncmc_schedule, calculate_ncmc_steps
+from ..integrators.schedules import build_ncmc_schedule, calculate_ncmc_steps, resolve_frame_indices
 from ..moves.base import Move
 from ..potentials.energy import make_energy_fn, make_force_fn
 from .compact import build_mobile_compaction
@@ -110,15 +118,21 @@ class IterationStats(NamedTuple):
     selected_move: torch.Tensor  # (R,) int64: the engine's sub-move (0 without an engine)
 
 
+class NCMCFrames(NamedTuple):
+    """NCMC snapshots and the protocol work at each; their lambdas are
+    ``BLUESSimulation.ncmc_frame_lambdas``."""
+
+    positions: torch.Tensor  # (R, K, N, 3)
+    work: torch.Tensor  # (R, K) kJ/mol
+
+
 def _check_slice(cfg: SimulationConfig, move):
     out = []
     if cfg.max_steps_per_dispatch:
         out.append("max_steps_per_dispatch")
-    if cfg.md_report_interval is not None or cfg.ncmc_frame_indices is not None:
-        out.append("frame reporters (md_report_interval / ncmc_frame_indices)")
     if cfg.use_pallas:
         out.append("use_pallas")
-    if cfg.nonbonded_backend not in ("auto", "sweep", "pcells", "pallas"):
+    if cfg.nonbonded_backend not in ("auto", "dense", "sweep", "pcells", "pallas"):
         out.append(f"nonbonded_backend={cfg.nonbonded_backend!r}")
     if move is not None and not isinstance(move, Move):
         out.append(f"move {type(move).__name__} (not a blues_tpu_torch Move)")
@@ -131,7 +145,8 @@ def initial_state(system, cfg, positions, box, seed, source, dtype, device, velo
     """(source, (x, v, box)): the run's random source (``source``, else a
     ``torch.Generator`` on ``device`` seeded with ``seed``) and the state of
     ``cfg.n_replicas`` replicas: positions (N, 3) broadcast to (R, N, 3), a
-    (3, 3) box (the system's when None) to (R, 3, 3), velocities (N, 3)
+    (3, 3) box (the system's when None, else a 999 nm cube, in effect no
+    periodicity, as in the JAX driver) to (R, 3, 3), velocities (N, 3)
     broadcast, or drawn from Maxwell-Boltzmann when None."""
     R = cfg.n_replicas
     if source is None:
@@ -139,9 +154,7 @@ def initial_state(system, cfg, positions, box, seed, source, dtype, device, velo
         gen.manual_seed(int(seed))
         source = TorchRandomSource(gen)
     if box is None:
-        if system.box is None:
-            raise ValueError("the port's path is periodic: the system needs a box")
-        box = system.box
+        box = system.box if system.box is not None else np.eye(3) * 999.0
 
     def replicas(a):
         t = torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -184,7 +197,7 @@ class BLUESSimulation:
         self.energy_md = make_energy_fn(system.replace(alchemical=None), **common)
         self.energy_alch = (
             make_energy_fn(system, alchemical_pme_treatment=config.alchemical_pme_treatment, **common)
-            if system.alchemical is not None
+            if system.alchemical is not None or system.custom_pairs
             else self.energy_md
         )
         nb = self.energy_alch.nonbonded
@@ -204,6 +217,15 @@ class BLUESSimulation:
             prop_lambda=config.propLambda,
             move_step=self.moveStep,
         )
+        # NCMC snapshots at integrator steps (the reference's frame_indices,
+        # with its sentinels), mapped onto protocol micro-step indices
+        if config.ncmc_frame_indices is None:
+            frame_steps = tuple(sorted({0, min(self.moveStep, self.nstepsNC), self.nstepsNC}))
+        else:
+            frame_steps = resolve_frame_indices(config.ncmc_frame_indices, self.nstepsNC, self.moveStep)
+        self.ncmc_frame_steps = frame_steps
+        self.ncmc_frame_lambdas = tuple(s / self.nstepsNC for s in frame_steps)
+        self._record_micro = tuple(int(self.schedule.micro_of_step[s]) for s in frame_steps)
         self.langevin_params = LangevinParams(config.dt, config.friction, config.temperature)
         self._kT = units.kT(config.temperature)
         if (
@@ -275,7 +297,8 @@ class BLUESSimulation:
         cx, cv = self._constrain_d
         self.protocol_fn = make_ncmc_protocol(
             efn, ffn, masses, lp, cx, cv, self.schedule, src, move=move,
-            splitting=self.cfg.splitting, lambda_split=self.cfg.lambda_split, device=self.device,
+            splitting=self.cfg.splitting, lambda_split=self.cfg.lambda_split,
+            record_micro=self._record_micro, device=self.device,
         )
         self._md_step_d = make_md_step(self._ffn_md_d, masses, lp, cx, cv, src, self.device)
 
@@ -308,9 +331,17 @@ class BLUESSimulation:
         return self.state
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def run_iteration(self) -> IterationStats:
         """One MD <-> NCMC iteration on every replica; returns its stats."""
+        return self.run_iteration_frames()[0]
+
+    @torch.no_grad()
+    def run_iteration_frames(self):
+        """One MD <-> NCMC iteration on every replica, as the JAX driver's
+        ``run_iteration``: (stats, md_frames, ncmc_frames). ``md_frames`` is
+        (R, nstepsMD // md_report_interval, N, 3), or None without an
+        interval; ``ncmc_frames`` is an ``NCMCFrames`` of (R, K, N, 3)
+        positions and (R, K) work at the K frame steps."""
         if self.state is None:
             raise RuntimeError("call initialize() first")
         cfg, src = self.cfg, self.source
@@ -332,17 +363,23 @@ class BLUESSimulation:
         xd = gather(x)
         vd = maxwell_boltzmann_velocities(src, self._masses_d, cfg.temperature, R, dt, dev)
         vd = self._constrain_d[1](vd, xd)
-        xd, vd, box, e_md_end, md_ok = self._run_md(x, xd, vd, box)
-        x = put(x, xd)
+        xd, vd, box, e_md_end, md_ok, md_frames = self._run_md(x, xd, vd, box)
+        x_md = put(x, xd)
+        snaps = res.snapshots
+        if snaps is not None and self._compact is not None:
+            # full coordinates: the frozen entries of the post-Metropolis state
+            K = snaps.shape[1]
+            full = x.unsqueeze(1).expand(-1, K, -1, -1).reshape(R * K, *x.shape[1:])
+            snaps = put(full, snaps.reshape(R * K, *snaps.shape[2:])).reshape(R, K, *x.shape[1:])
         v = put(torch.zeros_like(x), vd)
-        self.state = (x, v, box)
+        self.state = (x_md, v, box)
         self.iteration_count += 1
         aux = res.move_aux
         if isinstance(aux, dict) and "selected" in aux:
             selected = aux["selected"]
         else:
             selected = torch.zeros(R, dtype=torch.long, device=dev)
-        return IterationStats(
+        stats = IterationStats(
             accepted=accepted,
             protocol_work=res.protocol_work,
             correction=correction,
@@ -353,23 +390,29 @@ class BLUESSimulation:
             md_failed=~md_ok,
             selected_move=selected,
         )
+        return stats, md_frames, NCMCFrames(snaps, res.snapshot_work)
 
     def _run_md(self, x, xd, vd, box):
-        """``nstepsMD`` MD steps of the dynamics state from (xd, vd); with a
-        barostat, in chunks of ``barostat_frequency`` steps, each followed
-        by a volume move and a force re-evaluation (the remainder steps get
-        no attempt). A replica whose MD ends non-finite rolls back its
-        positions, velocities, box and barostat state. Returns (xd, vd,
-        box, (R,) MD potential at the end, (R,) md_ok)."""
+        """``nstepsMD`` MD steps of the dynamics state from (xd, vd), in
+        chunks of ``md_report_interval`` steps when it is set, else of
+        ``barostat_frequency`` steps with a barostat; with a barostat each
+        chunk is followed by a volume move and a force re-evaluation (the
+        remainder steps get no attempt, and no frame). A replica whose MD
+        ends non-finite rolls back its positions, velocities, box and
+        barostat state. Returns (xd, vd, box, (R,) MD potential at the end,
+        (R,) md_ok, (R, n_chunks, N, 3) full-coordinate frames after each
+        chunk or None without an interval)."""
         cfg, src, baro = self.cfg, self.source, self._barostat
         R, dt, dev = xd.shape[0], xd.dtype, xd.device
-        n_md = cfg.nstepsMD
+        n_md, interval = cfg.nstepsMD, cfg.md_report_interval
         if baro is not None and self.barostat_state is None:
             self.barostat_state = baro.init_state(box)
         bstate = self.barostat_state
         keep = (xd, vd, box, bstate)
-        chunk = max(min(cfg.barostat_frequency if baro is not None else max(n_md, 1), max(n_md, 1)), 1)
+        chunk = interval if interval is not None else (cfg.barostat_frequency if baro is not None else max(n_md, 1))
+        chunk = max(min(chunk, max(n_md, 1)), 1)
         n_chunks = n_md // chunk if n_md > 0 else 0
+        frames = []
         _, fd = self._ffn_md_d(xd, box, None)
         for _ in range(n_chunks):
             for _ in range(chunk):
@@ -378,6 +421,8 @@ class BLUESSimulation:
                 # no compaction under a barostat: the dynamics state is the full one
                 xd, box, bstate = baro.step(src, xd, box, bstate)
                 _, fd = self._ffn_md_d(xd, box, None)
+            if interval is not None:
+                frames.append(self._put(x, xd))
         for _ in range(n_md - n_chunks * chunk):
             xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
         if cfg.md_fault_injection > 0.0:
@@ -389,7 +434,7 @@ class BLUESSimulation:
         xd, vd, box = (torch.where(ok3, a, b) for a, b in zip((xd, vd, box), keep))
         if baro is not None:
             self.barostat_state = bstate.where(md_ok, keep[3])
-        return xd, vd, box, e_md_end, md_ok
+        return xd, vd, box, e_md_end, md_ok, (torch.stack(frames, 1) if frames else None)
 
     def run(self, n_iter: Optional[int] = None):
         """Run ``n_iter`` iterations (default ``nIter``); returns the

@@ -85,10 +85,28 @@ Phases (each prints its own line; any failure exits non-zero):
  13. check: the MD energy and forces of the final states on the card
      against the port's CPU path (the plain sums) on the same positions
      and boxes, for the frozen slice, the unfrozen box, the darting system
-     and the NPT run (two replicas on different boxes).
+     and the NPT run (two replicas on different boxes);
+ 14. ethylene: the reference's two-state population gate, the JAX gate's
+     configuration (tests/test_ethylene_populations.py) at R = 8:
+     charged_ethylene() with a MoveEngine of RandomLigandRotationMove,
+     nstepsNC = nstepsMD = 20, moveStep 10, 200 K, dt 1 fs, friction
+     1/ps, MD frames every 5 steps, 100 iterations on a seeded
+     TorchRandomSource; the mean populations of d(atom 0, atom 2) <= 0.49
+     nm within 3 * max(mean stderr, 0.03) of [0.25, 0.75], every replica
+     flipping, finite work, 3 NCMC snapshots per iteration with 0 work at
+     the first;
+ 15. dense: the dense nonbonded backend on a 3,000-atom toluene + TIP3P
+     box (PME 1.0 nm, tolerance 0.005, R = 2, perturbed positions), its
+     energies and forces against the same function on the CPU and against
+     K3 ('pcells') on the card, MD and alchemical system at lambda 1, 0.5
+     and 0, with the peak device memory; then toluene in vacuum without a
+     box, NoCutoff, 'auto' resolving to 'dense', R = 8, 2 iterations of
+     50 + 50 steps.
 
 Each path (5-12) must launch its kernels: every count is set to 0 just
-before the path and read just after. Then the card's name and
+before the path and read just after. Phases 14 and 15 have no kernel of
+their own: the ethylene system has no NonbondedParams, and the dense path
+is plain tensor ops, as in the JAX package. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -148,6 +166,14 @@ E_REL, E_ABS, F_REL = 5e-5, 1e-2, 2e-5
 #: term subtracts: composed values are checked to this fraction of the raw
 #: magnitudes (about 17 float32 ulps), as in tests/test_torch_unfrozen.py
 RAW_REL = 2e-6
+#: the ethylene gate: the JAX gate's configuration (tests/test_ethylene_populations.py)
+#: at R = 8 replicas, its populations and criterion
+ETH_R, ETH_ITER, ETH_SEED = 8, 100, 20260816
+ETH_POPULATIONS = (0.25, 0.75)
+#: the dense phase: toluene + TIP3P at 3,000 atoms (PME 1.0 nm, R = 2), then
+#: toluene in vacuum without a box (NoCutoff, 'auto'), R = 8, 2 iterations of
+#: 50 + 50 steps
+DENSE_ATOMS, DENSE_R, VAC_R, VAC_ITER, VAC_STEPS = 3000, 2, 8, 2, 50
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -493,9 +519,10 @@ def bound_of(ps, x, box):
     )
 
 
-def compare(label, ek, fk, ep, fp):
+def compare(label, ek, fk, ep, fp, e_extra=0.0, f_extra=0.0, name="kernels"):
     """Kernel (ek, fk) against reference (ep, fp) at the sweep tests'
-    tolerances; returns (max|dE|, max|dF|), raises when they disagree."""
+    tolerances, widened by ``e_extra`` (per replica, or one number) and
+    ``f_extra``; returns (max|dE|, max|dF|), raises when they disagree."""
     import numpy as np
     import torch
 
@@ -506,11 +533,11 @@ def compare(label, ek, fk, ep, fp):
             raise RuntimeError(f"{label}: non-finite kernel output")
     e_err = np.abs(ek - ep)
     f_err = float(np.abs(fk - fp).max())
-    e_tol = E_REL * np.abs(ep) + E_ABS
-    f_tol = F_REL * (float(np.abs(fp).max()) + 1.0)
+    e_tol = E_REL * np.abs(ep) + E_ABS + e_extra
+    f_tol = F_REL * (float(np.abs(fp).max()) + 1.0) + f_extra
     phase(
-        "kernels",
-        f"{label}: E {ek[0]:.6f} vs {ep[0]:.6f} max|dE| {e_err.max():.3e} (tol {float(e_tol.min()):.3e}); "
+        name,
+        f"{label}: E {ek[0]:.6f} vs {ep[0]:.6f} max|dE| {e_err.max():.3e} (tol {float(np.min(e_tol)):.3e}); "
         f"max|dF| {f_err:.3e} (tol {f_tol:.3e})",
     )
     if not (np.all(e_err <= e_tol) and f_err < f_tol):
@@ -1196,8 +1223,181 @@ def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
         raise RuntimeError(f"{label}: the card's MD energy disagrees with the CPU path")
 
 
+def ethylene_stderr(dist, n_points=10):
+    """The JAX gate's convergence error: std of the running population
+    estimate over checkpoints, scaled by 1/sqrt(n)."""
+    import numpy as np
+
+    fr = np.asarray([(dist[:n] > 0.49).mean() for n in range(n_points, len(dist) + 1, n_points)])
+    return np.std(fr) / np.sqrt(len(fr))
+
+
+def run_ethylene(device, card, n_iter=ETH_ITER):
+    """Phase ethylene, the population gate: charged_ethylene() with a
+    MoveEngine of RandomLigandRotationMove, nstepsNC = nstepsMD = 20,
+    moveStep 10, 200 K, dt 1 fs, friction 1/ps, MD frames every 5 steps,
+    ``n_iter`` iterations at R = 8 on a seeded TorchRandomSource. The mean
+    populations of d(atom 0, atom 2) <= 0.49 nm must come within
+    3 * max(mean stderr, 0.03) of [0.25, 0.75] (the JAX gate's criterion),
+    every replica must flip, the work must be finite, and each iteration
+    must give K = 3 NCMC snapshots whose work at snapshot 0 is 0."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.moves import MoveEngine, RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
+    from blues_tpu_torch.testsystems import charged_ethylene
+
+    t0 = time.perf_counter()
+    system, x0 = charged_ethylene()
+    lig = system.topology.select_resname("LIG")
+    cfg = SimulationConfig(
+        nstepsNC=20, nstepsMD=20, temperature=200.0, dt=0.001, friction=1.0, moveStep=10,
+        md_report_interval=5, n_replicas=ETH_R,
+    )
+    sim = BLUESSimulation(system, MoveEngine(RandomLigandRotationMove(lig, system.masses)), cfg, device=device)
+    if sim._compact is not None or sim.energy_alch.has_split or sim.energy_alch.nonbonded is not None:
+        raise RuntimeError("ethylene: expected the full-array iteration without a lambda split or NonbondedParams")
+    sim.initialize(x0, seed=ETH_SEED)
+    frames, works, acc = [], [], []
+    K = len(sim.ncmc_frame_steps)
+    for _ in range(n_iter):
+        st, fr, nc = sim.run_iteration_frames()
+        frames.append(fr.cpu().numpy())
+        works.append(st.protocol_work.double().cpu().numpy())
+        acc.append(st.accepted.cpu().numpy())
+        for k, t in st._asdict().items():
+            if tuple(t.shape) != (ETH_R,):
+                raise RuntimeError(f"ethylene: stats.{k} has shape {tuple(t.shape)}, expected ({ETH_R},)")
+        if tuple(nc.positions.shape) != (ETH_R, K, system.n_atoms, 3) or tuple(nc.work.shape) != (ETH_R, K):
+            raise RuntimeError(f"ethylene: NCMC frames of shape {tuple(nc.positions.shape)}, {tuple(nc.work.shape)}")
+        if K != 3 or bool((nc.work[:, 0] != 0).any()):
+            raise RuntimeError(f"ethylene: {K} NCMC snapshots, or non-zero work at snapshot 0: {nc.work[:, 0]}")
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    frames = np.concatenate(frames, axis=1)  # (R, T, N, 3)
+    dists = np.linalg.norm(frames[:, :, 0] - frames[:, :, 2], axis=-1)
+    state1 = (dists > 0.49).mean(1)
+    pops = np.array([1.0 - state1.mean(), state1.mean()])
+    err = max(float(np.mean([ethylene_stderr(d) for d in dists])), 0.03)
+    flips = (np.diff((dists > 0.49).astype(int), axis=1) != 0).sum(axis=1)
+    works = np.stack(works)
+    phase(
+        "ethylene",
+        f"R={ETH_R} x {n_iter} iterations of 20 NCMC + 20 MD steps on {card}: populations "
+        f"[{pops[0]:.4f}, {pops[1]:.4f}] (expected {list(ETH_POPULATIONS)}, tolerance 3 x err {3 * err:.4f}, "
+        f"err {err:.4f}), per replica {np.round(1.0 - state1, 3).tolist()}, flips {flips.tolist()}, acceptance "
+        f"{float(np.mean(acc)):.3f}, work median {float(np.median(works)):.3f} kJ/mol, MD frames {frames.shape}, "
+        f"NCMC frames per iteration ({ETH_R}, {K}, {system.n_atoms}, 3) at steps {sim.ncmc_frame_steps}, "
+        f"{t_run:.1f} s",
+    )
+    if not np.allclose(pops, ETH_POPULATIONS, atol=3 * err):
+        raise RuntimeError(f"ethylene: populations {pops} outside 3 x {err:.4f} of {ETH_POPULATIONS}")
+    if not (flips > 0).all() or not np.isfinite(works).all():
+        raise RuntimeError(f"ethylene: a replica never flipped ({flips}), or non-finite work")
+    return dict(populations=pops.tolist(), err=err, seconds=t_run)
+
+
+def run_dense(device, card, n_atoms=DENSE_ATOMS):
+    """Phase dense: the dense backend on toluene + TIP3P (PME 1.0 nm,
+    tolerance 0.005, R = 2 on perturbed positions), its energies and forces
+    held against the same dense function on the CPU and against the K3
+    ('pcells') path on the card, MD system and alchemical system at lambda
+    1, 0.5 and 0, at compare's tolerance plus 4*eps_f32*|Ewald self term|
+    (phase check's; the two devices sum that constant in float32 in
+    different orders) and, against K3, RAW_REL times the raw pair sum's
+    magnitudes (its raw sums hold every excluded pair, as in phase check);
+    then toluene in vacuum without a box, NoCutoff, 'auto' (which must
+    resolve to 'dense'), R = 8, 2 iterations of 50 + 50 steps."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch import units
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
+    from blues_tpu_torch.testsystems import t4_scale_toluene_box
+
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    system, x0 = t4_scale_toluene_box(n_atoms=n_atoms)
+    L = float(np.asarray(system.box)[0, 0])
+    rng = np.random.default_rng(11)
+    xs = perturbed(np.asarray(x0), np.ones(system.n_atoms, bool), DENSE_R, rng, device)
+    box = torch.as_tensor(np.asarray(system.box), dtype=torch.float32, device=device)
+    kw = dict(nonbonded_method="PME", cutoff=1.0, ewald_tolerance=0.005)
+    q = np.asarray(system.nonbonded.charge, np.float64)
+    eps32 = float(np.finfo(np.float32).eps)
+    for which, sysw in (("md", system.replace(alchemical=None)), ("alch", system)):
+        dense = make_energy_fn(sysw, nonbonded_backend="dense", device=device, **kw)
+        dense_cpu = make_energy_fn(sysw, nonbonded_backend="dense", device="cpu", **kw)
+        cells = make_energy_fn(sysw, nonbonded_backend="pcells", device=device, **kw)
+        if dense.nonbonded.backend != "dense" or cells.nonbonded.backend != "pcells":
+            raise RuntimeError("dense: the backends did not resolve as asked")
+        e_self = units.ONE_4PI_EPS0 * dense.nonbonded.alpha / math.sqrt(math.pi) * float((q * q).sum())
+        for lam in (1.0, 0.5, 0.0) if which == "alch" else (1.0,):
+            g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+            e_d, f_d = make_force_fn(dense)(xs, box, g)
+            e_c, f_c = make_force_fn(dense_cpu)(xs.cpu(), box.cpu(), g)
+            compare(f"{which} lambda {lam}: dense on the card vs dense on the CPU", e_d, f_d, e_c, f_c,
+                    e_extra=4.0 * eps32 * e_self, name="dense")
+            e_k, f_k = make_force_fn(cells)(xs, box, g)
+            e_raw, f_raw = cells.nonbonded.pair_sum(xs, box, *cells.nonbonded.pair_factors(g, xs.dtype, device))
+            e_raw, f_raw = e_raw.double().abs().cpu().numpy(), float(f_raw.abs().max())
+            compare(f"{which} lambda {lam}: dense vs K3 ('pcells') on the card, raw pair sum |E| {e_raw.max():.4e} "
+                    f"max|F| {f_raw:.4e}", e_d, f_d, e_k, f_k, e_extra=4.0 * eps32 * e_self + RAW_REL * e_raw,
+                    f_extra=RAW_REL * f_raw, name="dense")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) / 2**20 if device.type == "cuda" else float("nan")
+    t_box = time.perf_counter() - t0
+    phase(
+        "dense",
+        f"{system.n_atoms} atoms, box {L:.4f} nm ({int(L // 1.0)} cells of 1.0 nm a side), "
+        f"{dense.nonbonded.n_pairs} pairs per replica, R = {DENSE_R} on {card}: agrees with the CPU and with K3; "
+        f"peak device memory {peak:.1f} MiB, {t_box:.1f} s",
+    )
+
+    t0 = time.perf_counter()
+    lig_sys, lig_x = toluene_system()
+    li = lig_sys.topology.select_resname("LIG")
+    vac = lig_sys.replace(alchemical=AlchemicalRegion(atoms=li), box=None)
+    cfg = SimulationConfig(nstepsNC=VAC_STEPS, nstepsMD=VAC_STEPS, temperature=300.0, dt=0.002, n_replicas=VAC_R)
+    sim = BLUESSimulation(vac, RandomLigandRotationMove(li, vac.masses), cfg, device=device)
+    resolved = (sim.energy_md.nonbonded.backend, sim.energy_alch.nonbonded.backend)
+    if resolved != ("dense", "dense") or cfg.nonbonded_method != "NoCutoff" or cfg.nonbonded_backend != "auto":
+        raise RuntimeError(f"dense: 'auto' on the boxless toluene resolved to {resolved}")
+    sim.initialize(np.asarray(lig_x), seed=2028)
+    stats = [sim.run_iteration() for _ in range(VAC_ITER)]
+    torch.cuda.synchronize()
+    t_vac = time.perf_counter() - t0
+    for st in stats:
+        for k, t in st._asdict().items():
+            if tuple(t.shape) != (VAC_R,):
+                raise RuntimeError(f"dense vacuum: stats.{k} has shape {tuple(t.shape)}, expected ({VAC_R},)")
+        acc, la = st.accepted.cpu().numpy(), st.log_accept.double().cpu().numpy()
+        if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
+            raise RuntimeError("dense vacuum: accepted is inconsistent with log_accept")
+    work = np.stack([st.protocol_work.double().cpu().numpy() for st in stats])
+    if not np.isfinite(work).all():
+        raise RuntimeError(f"dense vacuum: non-finite work {work}")
+    box_run = float(sim.state[2][0, 0, 0])
+    phase(
+        "dense",
+        f"toluene in vacuum ({vac.n_atoms} atoms, no box: the run's box {box_run:.1f} nm), NoCutoff, 'auto' -> "
+        f"{resolved[0]!r}, R = {VAC_R} x {VAC_ITER} iterations of {VAC_STEPS} + {VAC_STEPS} steps on {card}: "
+        f"acceptance {float(np.mean([st.accepted.float().mean().item() for st in stats])):.3f}, work median "
+        f"{float(np.median(work)):.3f} kJ/mol, {t_vac:.1f} s",
+    )
+    return dict(peak_mib=peak, seconds=t_box + t_vac)
+
+
 def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
-    """Phases 2-11 on ``device``; returns the kernels' JSON entries."""
+    """Phases 2-15 on ``device``; returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -1347,6 +1547,11 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     L_npt = torch.diagonal(sim_n.state[2], dim1=-2, dim2=-1)
     other = int(torch.nonzero((L_npt != L_npt[0]).any(-1))[0])  # check_npt: two boxes differ
     check_against_cpu(sim_n, unfrozen, "npt", raw_anchor=True, replicas=[0, other])
+    # the reference's two-state gate and the dense backend (no kernel of
+    # their own: the ethylene system has no NonbondedParams, and the dense
+    # path is plain tensor ops, as in the JAX package)
+    run_ethylene(device, card)
+    run_dense(device, card)
 
     launches = {}
     for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):

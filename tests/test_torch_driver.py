@@ -6,7 +6,9 @@ replicas: two iterations of NCMC -> correction -> Metropolis -> MD. The
 reported MD potential must equal the JAX package's ``energy_md`` (sweep
 backend, Pallas interpret mode) at the port's positions, the full-array
 iteration (``frozen_compact=False``) must run, and configurations outside
-the slice must raise.
+the slice must raise. An exploded but finite proposal (energies at ~1e15
+kJ/mol) goes through the correction and the Metropolis test of both
+drivers to the same decision.
 """
 
 import warnings
@@ -88,7 +90,7 @@ def test_md_rollback_restores_pre_md_state(frozen):
 
 @pytest.mark.parametrize(
     "bad",
-    [dict(pressure=1.0), dict(max_steps_per_dispatch=10), dict(md_report_interval=5),
+    [dict(pressure=1.0), dict(max_steps_per_dispatch=10), dict(nonbonded_backend="verlet"),
      dict(nonbonded_backend="tiled"), dict(nonbonded_backend="cells"),
      dict(alchemical_pme_treatment="exact")],
 )
@@ -127,8 +129,9 @@ def test_builders_default_to_the_card(frozen, monkeypatch):
     from blues_tpu_torch.integrators.constraints import make_constraint_fns
     from blues_tpu_torch.integrators.langevin import make_baoab_machinery, make_md_step
     from blues_tpu_torch.integrators.ncmc import make_ncmc_protocol
+    from blues_tpu_torch.potentials.custom_pair import CustomPairEnergy
     from blues_tpu_torch.potentials.energy import make_energy_fn
-    from blues_tpu_torch.potentials.nonbonded import NonbondedEnergy, make_nonbonded_energy
+    from blues_tpu_torch.potentials.nonbonded import DenseNonbondedEnergy, NonbondedEnergy, make_nonbonded_energy
     from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
     from blues_tpu_torch.potentials.pcells import CellsPairSum
     from blues_tpu_torch.potentials.pme import PMEReciprocal, make_pme_reciprocal
@@ -139,7 +142,7 @@ def test_builders_default_to_the_card(frozen, monkeypatch):
         BLUESSimulation, make_energy_fn, make_ncmc_protocol, make_baoab_machinery, make_md_step,
         make_constraint_fns, PMEReciprocal, make_pme_reciprocal, build_mobile_compaction,
         maxwell_boltzmann_velocities, NonbondedEnergy, make_nonbonded_energy, SweepPairSum,
-        PallasPairSum, CellsPairSum,
+        PallasPairSum, CellsPairSum, DenseNonbondedEnergy, CustomPairEnergy,
     ]
     for b in builders:
         assert inspect.signature(b).parameters["device"].default == "cuda", b
@@ -150,3 +153,83 @@ def test_builders_default_to_the_card(frozen, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BLUESSimulation(pt, NullMove(), SimulationConfig(**CFG))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_exploded_finite_proposal_gets_the_same_decision_as_jax():
+    """One finite exploded proposal (E ~ 1e15 kJ/mol, where a float32 ulp
+    is 1.3e8 kJ/mol) through the correction and the Metropolis test of the
+    JAX driver and the port's: the same e_initial, e_md0, e_md1, e_final
+    and protocol work, in float32, with the same uniform. Both drivers'
+    own iteration code runs; only the energies and the protocol are
+    stand-ins that return these numbers. The f32 rounding of E_md against
+    E_alch makes the correction +5.4e7 kT, so both accept."""
+    from blues_tpu.integrators.ncmc import NCMCResult as JResult
+    from blues_tpu.moves import NullMove as JNullMove
+    from blues_tpu.simulation import BLUESSimulation as JSim
+    from blues_tpu.simulation import SimulationConfig as JConfig
+    from blues_tpu.testsystems import charged_ethylene
+    from blues_tpu_torch.integrators.ncmc import NCMCResult as TResult
+
+    # E_alch(x0) one float32 ulp (2^27 kJ/mol) below E_md(x0); E_md(x1) = E_alch(x1)
+    e_md0 = np.float32(1.2e15)
+    e_init = e_md0 - np.float32(2**27)
+    e_final = e_md1 = np.float32(1.1e15)
+    work = np.float32(384803.0)
+    assert e_init != e_md0 and np.nextafter(e_init, np.float32(np.inf)) == e_md0
+    js, x0 = charged_ethylene()
+    shift = np.zeros_like(x0)
+    shift[2:] = 100.0  # the proposal: the ligand far away
+    x_prop = (x0 + shift).astype(np.float32)
+    cfg = dict(nstepsNC=2, nstepsMD=0, temperature=300.0)
+
+    # --- the JAX driver ---------------------------------------------------
+    jsim = JSim(js, JNullMove(), JConfig(**cfg))
+    kT = jsim._kT
+
+    def j_energy(x, box=None, g=None):
+        return jnp.where(x[2, 0] > 50.0, e_md1, e_md0) + 0.0 * jnp.sum(x)
+
+    def j_protocol(x, v, box, key):
+        w = jnp.asarray(work)
+        xp = jnp.asarray(x_prop)
+        return JResult(xp, v, key, w, -w / kT, jnp.asarray(e_init), jnp.asarray(e_final), xp, w, None, None, None)
+
+    jsim.energy_md, jsim.protocol_fn = j_energy, j_protocol
+    jsim.force_md = lambda x, box=None, g=None: (j_energy(x), jnp.zeros_like(x))
+    it = jax.jit(jsim._build_iteration())
+    key = jax.random.PRNGKey(7)
+    state_out, jst, _, _ = it((jnp.asarray(x0, jnp.float32), jnp.zeros((8, 3), jnp.float32), jnp.asarray(js.box, jnp.float32)), key)
+    u = float(jax.random.uniform(jax.random.split(key, 3)[1], (), jnp.float32))
+
+    # --- the port's driver ------------------------------------------------
+    pt = system_from_reference(js)
+    tsim = BLUESSimulation(pt, NullMove(), SimulationConfig(**cfg), device=DEVICE)
+
+    class Source:
+        def uniform(self, shape, dtype, device):
+            return torch.full(shape, u, dtype=dtype, device=device)
+
+        def normal(self, shape, dtype, device):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+    tsim.initialize(x0, source=Source())
+
+    def t_energy(x, box=None, g=None):
+        return torch.where(x[:, 2, 0] > 50.0, torch.tensor(e_md1), torch.tensor(e_md0))
+
+    def t_protocol(x, v, box):
+        w = torch.full((1,), float(work))
+        xp = torch.as_tensor(x_prop)[None]
+        return TResult(xp, v, w, -w / tsim._kT, torch.tensor([e_init]), torch.tensor([e_final]), w)
+
+    tsim.energy_md, tsim.protocol_fn = t_energy, t_protocol
+    tsim._ffn_md_d = lambda x, box=None, g=None: (t_energy(x), torch.zeros_like(x))
+    tst = tsim.run_iteration()
+
+    assert tsim._kT == kT
+    for k in ("correction", "log_accept"):
+        a, b = np.float32(getattr(tst, k)[0]), np.asarray(getattr(jst, k))
+        assert np.isfinite(a) and a == b, (k, a, b)
+    assert bool(tst.accepted[0]) == bool(jst.accepted) is True
+    assert float(tst.correction[0]) > 1e7  # the rounding, not the physics, decides
+    np.testing.assert_array_equal(tsim.state[0][0].numpy(), np.asarray(state_out[0]))

@@ -108,7 +108,7 @@ def test_baoab_step_matches(sys_):
         noise = np.asarray(jax.random.normal(jax.random.split(key)[1], x.shape, jnp.float64))
         x1, v1, vj = np.asarray(x1), np.asarray(v1), np.asarray(vj)
     pm = sys_["port"].replace(alchemical=None)
-    efn_t = te.make_energy_fn(pm, **KW, device=DEVICE)
+    efn_t = te.make_energy_fn(pm, nonbonded_backend="sweep", **KW, device=DEVICE)
     ffn_t = te.make_force_fn(efn_t)
     tcx, tcv = tc.make_constraint_fns(pm.constraints, pm.masses, device=DEVICE)
     step_t = tl.make_md_step(ffn_t, pm.masses, tl.LangevinParams(*p), tcx, tcv,
@@ -132,7 +132,7 @@ def _protocols(sys_, n_steps):
             efn, je.make_force_fn(efn), fr.masses, p, cx, cv, sched_j,
             move=JFixedRotation(sys_["lig"], fr.masses), dtype=jnp.float64,
         ))
-    efn_t = te.make_energy_fn(pt, **KW, device=DEVICE)
+    efn_t = te.make_energy_fn(pt, nonbonded_backend="sweep", **KW, device=DEVICE)
     tcx, tcv = tc.make_constraint_fns(pt.constraints, pt.masses, device=DEVICE)
     move = TFixedRotation(sys_["lig"], pt.masses)
     tprot = tn.make_ncmc_protocol(

@@ -54,8 +54,8 @@ def sys_():
     port = system_from_reference(frozen)
     return dict(
         jax=frozen, port=port, x=xp, box=np.asarray(frozen.box),
-        p_alch=te.make_energy_fn(port, **KW, device=DEVICE),
-        p_md=te.make_energy_fn(port.replace(alchemical=None), **KW, device=DEVICE),
+        p_alch=te.make_energy_fn(port, nonbonded_backend="sweep", **KW, device=DEVICE),
+        p_md=te.make_energy_fn(port.replace(alchemical=None), nonbonded_backend="sweep", **KW, device=DEVICE),
     )
 
 

@@ -3,7 +3,8 @@
 The machine with the GPU has no JAX, so ``blues_tpu_torch`` carries its
 own copies of the builders the frozen NCMC slice needs (units, System,
 freeze_radius, exclusions_from_bonds, the TIP3P/solvated-ligand builders,
-the toluene parameters, HMR, the NCMC schedule). These tests pin the copies
+the toluene parameters, HMR, the NCMC schedule, its default alchemical
+strings and frame indices, the charged-ethylene system). These tests pin the copies
 to the originals for the same seeds, and check that importing the port
 never imports JAX.
 """
@@ -23,6 +24,8 @@ from blues_tpu.core.prmtop import repartition_hydrogen_masses as j_hmr
 from blues_tpu.core.system import exclusions_from_bonds as j_excl
 from blues_tpu.integrators import schedules as j_sched
 from blues_tpu.ligands import toluene_system as j_toluene
+from blues_tpu.testsystems import ETHYLENE_ENERGY as J_ETHYLENE_ENERGY
+from blues_tpu.testsystems import charged_ethylene as j_ethylene
 from blues_tpu.testsystems import t4_scale_toluene_box as j_t4
 
 from blues_tpu_torch import units as p_units
@@ -32,6 +35,8 @@ from blues_tpu_torch.core.prmtop import repartition_hydrogen_masses as p_hmr
 from blues_tpu_torch.core.system import exclusions_from_bonds as p_excl
 from blues_tpu_torch.integrators import schedules as p_sched
 from blues_tpu_torch.ligands import toluene_system as p_toluene
+from blues_tpu_torch.testsystems import ETHYLENE_ENERGY as P_ETHYLENE_ENERGY
+from blues_tpu_torch.testsystems import charged_ethylene as p_ethylene
 from blues_tpu_torch.testsystems import t4_scale_toluene_box as p_t4
 
 import _torch_helpers  # noqa: F401  (one intra-op thread per worker)
@@ -138,6 +143,43 @@ def test_ncmc_schedule_matches():
         assert p_sched.calculate_ncmc_steps(*args) == j_sched.calculate_ncmc_steps(*args)
 
 
+def test_default_alchemical_strings_and_frame_indices_match():
+    assert p_sched.DEFAULT_ALCHEMICAL_FUNCTIONS == j_sched.DEFAULT_ALCHEMICAL_FUNCTIONS
+    for n, move, fis in (
+        (20, 10, (0, 0.5, -1)), (20, 10, (-1, 0.5, 3, 3, 0)), (100, 37, (0.5, -2, 1, 99)), (10, 5, (-11,)),
+    ):
+        assert p_sched.resolve_frame_indices(fis, n, move) == j_sched.resolve_frame_indices(fis, n, move)
+    for bad in ((21,), (-12,)):
+        for mod in (p_sched, j_sched):
+            with pytest.raises(ValueError, match="out of range"):
+                mod.resolve_frame_indices(bad, 10, 5)
+
+
+def _assert_fields_equal(a, b):
+    for f in a.__dataclass_fields__:
+        va, vb = getattr(a, f), getattr(b, f)
+        if isinstance(va, np.ndarray):
+            np.testing.assert_array_equal(va, vb)
+            assert va.dtype == vb.dtype, f
+        else:
+            assert va == vb, f
+
+
+def test_charged_ethylene_matches():
+    (js, jx), (ps, px) = j_ethylene(), p_ethylene()
+    assert P_ETHYLENE_ENERGY == J_ETHYLENE_ENERGY
+    np.testing.assert_array_equal(jx, px)
+    np.testing.assert_array_equal(js.masses, ps.masses)
+    np.testing.assert_array_equal(js.box, ps.box)
+    for term in ("bonds", "angles", "torsions", "constraints"):
+        _assert_fields_equal(getattr(js, term), getattr(ps, term))
+    for a, b in zip(js.custom_pairs + js.centroid_restraints, ps.custom_pairs + ps.centroid_restraints, strict=True):
+        _assert_fields_equal(a, b)
+    _assert_fields_equal(js.topology, ps.topology)
+    for f in ("nonbonded", "alchemical", "position_restraints", "frozen_ref_positions"):
+        assert getattr(js, f) is None and getattr(ps, f) is None, f
+
+
 def test_system_from_reference_round_trips():
     js, jx = j_t4(n_atoms=2500, seed=2)
     lig = js.topology.select_resname("LIG")
@@ -149,6 +191,14 @@ def test_system_from_reference_round_trips():
     assert pf.alchemical.softcore_alpha == jf.alchemical.softcore_alpha
     # and back: the port's System is itself a valid reference
     _assert_system_equal(pf, system_from_reference(pf))
+    # restraints and custom pairs are carried; only generalized Born is refused
+    je, _ = j_ethylene()
+    pe = system_from_reference(je.restrain_positions(jx[:8], np.arange(8), 2.0))
+    _assert_fields_equal(pe.custom_pairs[0], je.custom_pairs[0])
+    _assert_fields_equal(pe.centroid_restraints[0], je.centroid_restraints[0])
+    assert pe.position_restraints.k == 2.0 * j_units.KCAL_TO_KJ * 100.0
+    with pytest.raises(ValueError, match="'gb'"):
+        system_from_reference(je.replace(gb=object()))
     x, v, box = state_to_torch(jx, np.zeros_like(jx), jf.box, "cpu")
     assert tuple(x.shape) == (1, jf.n_atoms, 3) and tuple(v.shape) == tuple(x.shape)
     np.testing.assert_array_equal(box.numpy(), np.asarray(jf.box, np.float32))

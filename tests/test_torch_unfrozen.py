@@ -219,8 +219,9 @@ def test_driver_full_iteration_md_potential_matches_jax(sys_):
 @pytest.mark.parametrize("backend,cls", [("pcells", CellsPairSum), ("pallas", PallasPairSum)])
 def test_config_backend_reaches_the_energy(sys_, backend, cls):
     """SimulationConfig.nonbonded_backend reaches make_energy_fn (it used to
-    be checked and then dropped); 'auto' on this mostly-mobile system
-    raises naming the ported backends, and frozen_compact=True raises."""
+    be checked and then dropped); 'auto' on this 2,502-atom system takes
+    'dense', as JAX's does at 4,096 atoms and below, and frozen_compact=True
+    raises."""
     pt = sys_["port"]
     base = dict(nonbonded_method="PME", cutoff=0.9, n_replicas=1)
     sim = BLUESSimulation(pt, NullMove(), SimulationConfig(nonbonded_backend=backend, **base), device=DEVICE)
@@ -229,7 +230,7 @@ def test_config_backend_reaches_the_energy(sys_, backend, cls):
         assert isinstance(efn.nonbonded.pair_sum, cls)
     assert isinstance(sim.energy_alch.nonbonded.pair_sum0, cls)
     assert sim.energy_alch.nonbonded.pair_sum.name.endswith("_main")
-    with pytest.raises(ValueError, match="pcells"):
-        BLUESSimulation(pt, NullMove(), SimulationConfig(**base), device=DEVICE)
+    auto = BLUESSimulation(pt, NullMove(), SimulationConfig(**base), device=DEVICE)
+    assert auto.energy_md.nonbonded.backend == auto.energy_alch.nonbonded.backend == "dense"
     with pytest.raises(ValueError, match="frozen_compact"):
         BLUESSimulation(pt, NullMove(), SimulationConfig(nonbonded_backend=backend, frozen_compact=True, **base), device=DEVICE)
