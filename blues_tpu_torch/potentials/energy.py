@@ -10,6 +10,13 @@ E(x, lam) = E0(x) + Ea(x, lam) is exposed as ``lambda_e0_f0`` and
 ``lambda_ea_fa``, with every bonded and restraint term in E0; custom pair
 forces may read the lambda globals, so a system with any turns the split
 off, as in the JAX package.
+
+Neighbour-list hooks (the 'verlet' backend), as in the JAX package: when
+the nonbonded pair sum has ``build``, the energy function gets
+``nlist_build(x, box)``, ``force_with_nlist(nlist, x, box, globals_)``
+(autograd forces of every other term plus the list's analytic pair forces)
+and ``nlist_skin``; the MD driver builds a list every
+``nlist_rebuild_interval`` steps and applies it in between.
 """
 
 from __future__ import annotations
@@ -57,6 +64,27 @@ class EnergyFunction:
             )
         nb = self.nonbonded
         self.has_split = nb is not None and nb.has_split and not self.custom_pairs
+        ps = getattr(nb, "pair_sum", None)
+        if ps is not None and hasattr(ps, "build"):
+            self.nlist_build = ps.build
+            self.nlist_skin = ps.skin
+
+    def _rest_energy(self, x, box=None, globals_=None):
+        """Every term but the nonbonded pair sum."""
+        e = self.nonbonded.energy_rest(x, box, globals_)
+        if self.bonded:
+            e = e + self.bonded(x, box)
+        for cp in self.custom_pairs:
+            e = e + cp(x, box, globals_)
+        return e
+
+    def force_with_nlist(self, nlist, x, box=None, globals_=None):
+        """(E, F) with the pair sum over the neighbour list ``nlist`` (from
+        ``nlist_build``, which the energy has with the 'verlet' backend)."""
+        e_r, f_r = _value_and_force(self._rest_energy, x, box, globals_)
+        nb = self.nonbonded
+        e_p, f_p = nb.pair_sum.apply(nlist, x, box, *nb.pair_factors(globals_, x.dtype, x.device))
+        return e_r + e_p, f_r + f_p
 
     def __call__(self, x, box=None, globals_=None):
         e = self.bonded(x, box) if self.bonded else x.new_zeros(x.shape[0])

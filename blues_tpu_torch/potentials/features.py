@@ -9,6 +9,9 @@ the original.
 ``active_rows``: with frozen atoms only mobile-or-alchemical rows are
 computed; row-row pairs weigh 0.5 (counted from both sides), row-frozen
 pairs 1.0. Without it every atom is a row.
+
+``Consts`` stages the host arrays of a pair sum or an energy term on its
+device, once per dtype.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 TILE = 256
 
@@ -64,3 +68,29 @@ def build_pair_features(charge, sigma, epsilon, alch_mask, active_rows=None) -> 
         n_atoms=n,
         n_padded=npad,
     )
+
+
+class Consts:
+    """Host arrays staged on a device, converted once per dtype."""
+
+    def __init__(self, device):
+        self.device = device
+        self.host = {}
+        self._cache = {}
+
+    def __setitem__(self, name, value):
+        self.host[name] = np.asarray(value)
+
+    def __call__(self, name, dtype=None):
+        key = (name, dtype)
+        t = self._cache.get(key)
+        if t is None:
+            a = self.host[name]
+            if a.dtype == bool:
+                t = torch.as_tensor(a, device=self.device)
+            elif np.issubdtype(a.dtype, np.integer):
+                t = torch.as_tensor(a.astype(np.int64), device=self.device)
+            else:
+                t = torch.as_tensor(a, dtype=dtype, device=self.device)
+            self._cache[key] = t
+        return t

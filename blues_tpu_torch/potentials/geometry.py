@@ -33,7 +33,9 @@ def box_lengths(box):
 def periodic_displacement(dr, box):
     """Minimum-image displacement vectors (..., 3) for box rows ``box``:
     (3, 3), or (R, 3, 3) with one box per replica along the leading axis of
-    ``dr`` (R, ..., 3)."""
+    ``dr`` (R, ..., 3). This is the staircase of ``triclinic.py`` (c, then
+    b, then a), so it is exact for reduced triclinic boxes as well as for
+    orthorhombic ones."""
     if box is None:
         return dr
     box = box.to(dr.dtype)

@@ -2,31 +2,43 @@
 
 Port of ``blues_tpu.potentials.nonbonded``: its dense path
 (``DenseNonbondedEnergy``, every method and alchemical treatment, chosen by
-'auto' at 4,096 atoms and below) and ``_make_pair_backend_energy`` for
-three pair backends, which share every term around the pair sum
-(exclusion / exception lists, PME reciprocal/self/plasma terms and the
-dispersion correction) and the lambda split E(x, lam) = E0(x) + Ea(x, lam)
-of alchemical systems:
+'auto' at 4,096 atoms and below) and ``_make_pair_backend_energy`` for the
+six pair backends, which share every term around the pair sum (exclusion /
+exception lists, PME reciprocal/self/plasma terms and the dispersion
+correction) and the lambda split E(x, lam) = E0(x) + Ea(x, lam) of
+alchemical systems:
 
   * 'sweep' (frozen production systems): the pair space is statically
     culled to permanent reach balls around the mobile rows, summed by the
     sweep kernel K1 (``potentials/sweep.py``) for MAIN, E0 and EA, with a
     cull guard, a frozen-background PME grid and filtered lists; where
-    culling is off (a teleporting move) or does not engage, the backend
-    resolves to 'pallas', as in the JAX package;
+    culling is off (a teleporting move) or does not engage, or no atom is
+    frozen, the backend resolves to 'pallas', as in the JAX package;
   * 'pcells': the cell-list kernel K3 (``potentials/pcells.py``) for MAIN
     and E0, every atom binned (frozen rows masked on a frozen system);
   * 'pallas': the all-pairs kernel K2 (``potentials/pair_kernel.py``) over
     the rows (every atom, or the mobile ones) x every column (or the culled
-    ones on a frozen system).
+    ones on a frozen system);
+  * 'tiled' (``potentials/tiled.py``): the row-tiled all-pairs sum, with
+    the culled columns, the cull guard and the no-minimum-image fast path
+    on a frozen system;
+  * 'cells' (``potentials/cells.py``): the cell-list sum, frozen rows
+    compacted, orthorhombic or triclinic;
+  * 'verlet' (``potentials/verlet.py``): the neighbour-list sum, every atom
+    mobile; the MD driver builds its list every ``nlist_rebuild_interval``
+    steps (``energy.py``'s hooks).
 
-Off the EA sweep, Ea is a dense alchemical x non-alchemical block. Frozen
-systems on every backend share the frozen-background PME grid and the
-filtered lists (``_build_frozen``); systems without frozen atoms take full
-lists and PME over every atom (``_build_unfrozen``). Positions are (R, N,
-3); every energy is (R,). Other backends, the 'exact' PME treatment and
-the methods without a cutoff on the three kernel backends, and triclinic
-boxes raise ``ValueError``.
+The last three are plain tensor ops on any device, as they are XLA code in
+the JAX package. Off the EA sweep, Ea is a dense alchemical x
+non-alchemical block. Frozen systems on every backend share the
+frozen-background PME grid (orthorhombic boxes) and the filtered lists
+(``_build_frozen``); systems without frozen atoms take full lists and PME
+over every atom (``_build_unfrozen``). The 'exact' PME treatment scales
+the alchemical charges by lambda_electrostatics everywhere (f_aa =
+lambda^2 in the pair sums, q_eff in the reciprocal terms) and has no
+lambda split. A triclinic box (OpenMM's reduced form) takes 'dense' or
+'cells'. Positions are (R, N, 3); every energy is (R,). The methods
+without a cutoff on the kernel backends raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -41,18 +53,24 @@ import torch
 from .. import units
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import AlchemicalRegion, NonbondedParams
-from .features import build_pair_features
+from .features import Consts, build_pair_features
 from .geometry import box_lengths, distance, periodic_displacement, replica_boxes
-from .pairs import lj_switch, pair_energy_force
+from .pairs import lam_scalar, lj_switch, pair_energy_force
+from .cells import CellListPairSum, _grid_shape, _perp_widths
 from .pme import PMEParams, make_pme_reciprocal, precompute_spread_grid
 from .pair_kernel import PallasPairSum
 from .pcells import CellsPairSum
 from .sweep import SweepPairSum, build_row_groups
+from .tiled import TiledPairSum
+from .triclinic import is_triclinic, reduce_box_vectors
+from .verlet import VerletPairSum
 
 NO_CUTOFF = "NoCutoff"
 CUTOFF_PERIODIC = "CutoffPeriodic"
 CUTOFF_NONPERIODIC = "CutoffNonPeriodic"
 PME = "PME"
+#: the backends of ``NonbondedEnergy`` (besides 'dense' and 'auto')
+PAIR_BACKENDS = ("sweep", "pcells", "pallas", "tiled", "cells", "verlet")
 
 
 def ewald_alpha(cutoff: float, tolerance: float = 5e-4) -> float:
@@ -247,38 +265,6 @@ def _excl_mask(excl, n, rows, cols):
     return mask, covered
 
 
-class _Consts:
-    """Host arrays staged on a device, converted once per dtype."""
-
-    def __init__(self, device):
-        self.device = device
-        self.host = {}
-        self._cache = {}
-
-    def __setitem__(self, name, value):
-        self.host[name] = np.asarray(value)
-
-    def __call__(self, name, dtype=None):
-        key = (name, dtype)
-        t = self._cache.get(key)
-        if t is None:
-            a = self.host[name]
-            if a.dtype == bool:
-                t = torch.as_tensor(a, device=self.device)
-            elif np.issubdtype(a.dtype, np.integer):
-                t = torch.as_tensor(a.astype(np.int64), device=self.device)
-            else:
-                t = torch.as_tensor(a, dtype=dtype, device=self.device)
-            self._cache[key] = t
-        return t
-
-
-def _lam(v, dtype, device):
-    if torch.is_tensor(v):
-        return v.to(dtype=dtype, device=device)
-    return float(v)
-
-
 class _NonbondedBase:
     """What every nonbonded path shares: the per-atom parameters, the
     method's constants (PME grid and alpha, reaction field, dispersion
@@ -286,10 +272,7 @@ class _NonbondedBase:
 
     def _setup(self, nb, method, cutoff, alchemical, ewald_tolerance, rf_dielectric, box_for_pme,
                dispersion_correction, switch_distance, device):
-        if box_for_pme is not None:
-            b = np.asarray(box_for_pme, np.float64)
-            if np.abs(b - np.diag(np.diag(b))).max() > 0:
-                raise ValueError("the port supports orthorhombic boxes only")
+        self.triclinic = box_for_pme is not None and is_triclinic(box_for_pme)
         if switch_distance is not None and not (0.0 < switch_distance < cutoff):
             raise ValueError(f"switch_distance {switch_distance} must lie in (0, cutoff={cutoff})")
         self.device = resolve_device(device)
@@ -322,7 +305,7 @@ class _NonbondedBase:
             else 0.0
         )
         self.box0 = None if box_for_pme is None else np.asarray(box_for_pme, np.float64)
-        self.c = _Consts(self.device)
+        self.c = Consts(self.device)
         self._exc_sig = np.asarray(nb.exceptions_sigma, np.float64)
         self._exc_eps = np.asarray(nb.exceptions_epsilon, np.float64)
         self._exc_qq = np.asarray(nb.exceptions_chargeprod, np.float64)
@@ -343,10 +326,15 @@ class _NonbondedBase:
         c[prefix + "_elec"] = (na | (aa & sc.annihilate_electrostatics)).astype(np.float64)
 
     def pair_factors(self, globals_, dtype, device):
+        """(lam_s, f_na, f_aa) of the pair sums: f_na = lambda_electrostatics,
+        f_aa its square under 'exact' (both charges scaled), 1 when the
+        alchemical pairs' electrostatics are not annihilated."""
         g = globals_ or {}
-        lam_s = _lam(g.get("lambda_sterics", 1.0), dtype, device)
-        lam_e = _lam(g.get("lambda_electrostatics", 1.0), dtype, device)
-        f_aa = lam_e if self.sc.annihilate_electrostatics else 1.0
+        lam_s = lam_scalar(g.get("lambda_sterics", 1.0), dtype, device)
+        lam_e = lam_scalar(g.get("lambda_electrostatics", 1.0), dtype, device)
+        f_aa = lam_e * lam_e if self.exact else lam_e
+        if not self.sc.annihilate_electrostatics:
+            f_aa = 1.0
         return lam_s, lam_e, f_aa
 
     def _disp(self, x, idx, box):
@@ -378,8 +366,9 @@ class _NonbondedBase:
 
     @staticmethod
     def _volume(box):
-        """(R,) volume of each replica's orthorhombic box, multiplied in the
-        JAX package's order."""
+        """(R,) volume of each replica's box, multiplied in the JAX
+        package's order: the product of the diagonal, which is the
+        determinant of a lower-triangular (triclinic) box too."""
         L = box_lengths(box)
         return L[:, 0] * L[:, 1] * L[:, 2]
 
@@ -394,9 +383,11 @@ class NonbondedEnergy(_NonbondedBase):
     The rest terms (exclusion and exception lists, PME reciprocal/self/
     plasma, dispersion) are shared by every backend; only the pair sums
     differ. ``_build_frozen`` builds them for frozen systems (every
-    backend), ``_build_unfrozen`` for systems where every atom moves (K3 or
-    K2). ``backend`` is the resolved backend: 'sweep' falls back to
-    'pallas' where it has no culled columns."""
+    backend but 'verlet'), ``_build_unfrozen`` for systems where every atom
+    moves. ``backend`` is the resolved backend: 'sweep' falls back to
+    'pallas' where it has no culled columns. ``no_min_image`` is True where
+    the 'tiled' or 'sweep' pair sum skips the minimum image under the
+    extent proof (``_no_image_geometry``)."""
 
     def __init__(
         self,
@@ -420,19 +411,24 @@ class NonbondedEnergy(_NonbondedBase):
         backend: str = "sweep",
         device=DEFAULT_DEVICE,
     ):
-        if alchemical_pme_treatment not in ("direct-space", "coulomb"):
+        if alchemical_pme_treatment not in ("direct-space", "coulomb", "exact"):
             raise ValueError(
-                f"alchemical_pme_treatment {alchemical_pme_treatment!r} is not ported to the "
-                f"{backend} backend, which implements 'direct-space' and 'coulomb' ('dense' has all three)"
+                f"unsupported alchemical_pme_treatment {alchemical_pme_treatment!r}; "
+                "implemented: 'direct-space', 'coulomb', 'exact'"
             )
-        if method not in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC):
+        if backend not in PAIR_BACKENDS:
+            raise ValueError(f"unknown nonbonded backend {backend!r}; the port has 'dense', " + ", ".join(
+                repr(b) for b in PAIR_BACKENDS) + " and 'auto'")
+        if method not in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC) and backend != "tiled":
             raise ValueError(
-                f"the {backend} backend needs a cutoff method, got {method!r} (backend 'dense' takes every method)"
+                f"the {backend} backend needs a cutoff method, got {method!r} (backends 'dense' and 'tiled' "
+                "take every method)"
             )
         self._setup(nb, method, cutoff, alchemical, ewald_tolerance, rf_dielectric, box_for_pme,
                     dispersion_correction, switch_distance, device)
         dev, n, sc, is_alch, charges = self.device, self.n_atoms, self.sc, self._is_alch, self._charges
         self.backend = backend
+        self.exact = alchemical is not None and alchemical_pme_treatment == "exact"
         self.alch_coulomb = alch_coulomb = (
             alchemical_pme_treatment == "coulomb" and method == PME and alchemical is not None
         )
@@ -444,7 +440,8 @@ class NonbondedEnergy(_NonbondedBase):
         )
         q_std_np = charges * (1.0 - is_alch)
         self._q_std, self._q_alch = q_std_np, charges * is_alch
-        self.c["q_eff"] = q_std_np if alchemical is not None else charges
+        self.c["q_eff"] = q_std_np if (alchemical is not None and not self.exact) else charges
+        self.c["is_alch"] = is_alch
         self.pair_sum0 = self.ea_sweep = None
         self.has_split = False
         self.cull_info = self.cull_bounds = None
@@ -452,19 +449,17 @@ class NonbondedEnergy(_NonbondedBase):
         self._frozen_grid = False  # the frozen-background PME grid's box poison
         self._ea_const = False  # the dense Ea block bakes frozen columns
         self.excl_ff_const = 0.0
+        self.no_min_image = False
 
         m = np.asarray(masses) if masses is not None else np.ones(n)
         frozen = bool((m <= 0).any())
-        if backend not in ("sweep", "pcells", "pallas"):
-            raise ValueError(
-                f"nonbonded backend {backend!r} is not ported; the port has 'dense', 'sweep', "
-                "'pcells' and 'pallas'"
-            )
-        if frozen or backend == "sweep":
-            if not frozen or frozen_ref_positions is None:
+        if backend == "sweep" and not frozen:
+            self.backend = "pallas"  # no frozen atoms, no culled columns: the pair kernel, as in JAX
+        if frozen:
+            if frozen_ref_positions is None:
                 raise ValueError(
-                    f"backend {backend!r} on this system needs frozen atoms with reference positions "
-                    "(freeze_radius); unfrozen systems take backend 'pcells' or 'pallas'"
+                    "a frozen system needs its reference positions (freeze_radius records them) for the "
+                    "frozen-background terms"
                 )
             self._build_frozen(
                 nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
@@ -544,19 +539,51 @@ class NonbondedEnergy(_NonbondedBase):
         return na_excl_mask
 
     # ------------------------------------------------------------------
+    def _split_applies(self, alch_atoms_np):
+        """The JAX package's conditions for the lambda split: an alchemical
+        region of at most 512 atoms, charges that do not depend on lambda
+        (not 'exact'), a backend other than 'verlet'."""
+        return 0 < len(alch_atoms_np) <= 512 and not self.exact and self.backend != "verlet"
+
+    def _alch_atoms(self):
+        a = self.alchemical
+        return np.asarray(a.atoms, np.int64) if (a is not None and len(a.atoms)) else np.zeros(0, np.int64)
+
+    def _make_sum(self, feats, role, col_idx=None, **tiled_kw):
+        """The resolved backend's pair sum over ``feats`` (``role`` 'main'
+        or 'e0' names it): K3, K2, or the plain tiled, cells or verlet sum.
+        ``col_idx`` restricts the columns of K2 and 'tiled';
+        ``tiled_kw`` are the tiled fast path's operands."""
+        be, common, box0 = self.backend, self.common, self.box0
+        if be == "pcells":
+            return CellsPairSum(feats, box0=box0, name=f"cells_{role}", **common)
+        if be == "pallas":
+            return PallasPairSum(feats, col_idx=col_idx, box0=box0, name=f"pair_{role}", **common)
+        if be == "cells":
+            return CellListPairSum(feats, box0=box0, name=f"celllist_{role}", **common)
+        if be == "verlet":
+            return VerletPairSum(feats, box0=box0, name=f"verlet_{role}", **common)
+        return TiledPairSum(feats, col_idx=col_idx, name=f"tiled_{role}", **tiled_kw, **common)
+
+    def _zeroed_e0_features(self, rows0):
+        """E0's features for the cell lists, which have no static column
+        subset: the alchemical atoms' charge and epsilon are zeroed, so
+        every pair they are in is exactly 0."""
+        a = self._is_alch
+        return build_pair_features(
+            self._charges * (1.0 - a), self._sigmas, self._epsilons * (1.0 - a), np.zeros(self.n_atoms, bool),
+            rows0,
+        )
+
     def _build_unfrozen(self, nb):
         """Every atom is a row: no culling, no guard, no frozen-background
-        PME grid; the full exclusion and exception lists; the pair sums are
-        the cells kernel (K3, 'pcells') or the pair kernel (K2, 'pallas')."""
-        c, n, common = self.c, self.n_atoms, self.common
+        PME grid; the full exclusion and exception lists; the pair sums of
+        the backend over every atom."""
+        c, n = self.c, self.n_atoms
         charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
         if self.method == PME:
-            self.recip = make_pme_reciprocal(self.pme_params, device=self.device)
-        feats = build_pair_features(charges, sigmas, epsilons, is_alch)
-        if self.backend == "pcells":
-            self.pair_sum = CellsPairSum(feats, box0=self.box0, name="cells_main", **common)
-        else:
-            self.pair_sum = PallasPairSum(feats, box0=self.box0, name="pair_main", **common)
+            self.recip = make_pme_reciprocal(self.pme_params, device=self.device, triclinic=self.triclinic)
+        self.pair_sum = self._make_sum(build_pair_features(charges, sigmas, epsilons, is_alch), "main")
 
         excl = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
         exc_idx = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
@@ -564,26 +591,16 @@ class NonbondedEnergy(_NonbondedBase):
         self._stage_exc("exc", exc_idx, np.ones(len(exc_idx), bool))
         c["erf_idx"] = excl
 
-        alch_atoms_np = (
-            np.asarray(self.alchemical.atoms, np.int64)
-            if (self.alchemical is not None and len(self.alchemical.atoms))
-            else np.zeros(0, np.int64)
-        )
-        # the JAX package's split bound: larger regions run unsplit
-        if not (0 < len(alch_atoms_np) <= 512):
+        alch_atoms_np = self._alch_atoms()
+        if not self._split_applies(alch_atoms_np):
             return
         cols_na = np.flatnonzero(~is_alch)
         if len(cols_na):
-            if self.backend == "pcells":
-                # no static column subset: the alchemical atoms' charge and
-                # epsilon are zeroed, so every pair they are in is exactly 0
-                feats0 = build_pair_features(
-                    charges * (1.0 - is_alch), sigmas, epsilons * (1.0 - is_alch), np.zeros(n, bool), cols_na,
-                )
-                self.pair_sum0 = CellsPairSum(feats0, box0=self.box0, name="cells_e0", **common)
+            if self.backend in ("pcells", "cells"):
+                self.pair_sum0 = self._make_sum(self._zeroed_e0_features(cols_na), "e0")
             else:
                 feats0 = build_pair_features(charges, sigmas, epsilons, np.zeros(n, bool), cols_na)
-                self.pair_sum0 = PallasPairSum(feats0, col_idx=cols_na, box0=self.box0, name="pair_e0", **common)
+                self.pair_sum0 = self._make_sum(feats0, "e0", col_idx=cols_na)
         na_excl_mask = self._split_lists(
             alch_atoms_np, cols_na, excl, exc_idx, None, np.zeros(len(excl), bool)
         )
@@ -643,10 +660,18 @@ class NonbondedEnergy(_NonbondedBase):
           * 'pallas': K2 over the rows x the culled columns (every atom
             without culling), with the cull guard when culling engages;
           * 'pcells': K3 over every atom with the frozen rows masked, no
+            culling;
+          * 'tiled': the tiled sum over the rows x the culled columns (every
+            atom without culling), frozen columns baked as constants, with
+            the cull guard, and the no-minimum-image fast path with its
+            build-time exclusion mask where the extent proof holds;
+          * 'cells': the cell-list sum with the frozen rows compacted, no
             culling.
 
-        Off the EA sweep, Ea is the dense alchemical x non-alchemical block
-        with the frozen columns baked as constants."""
+        A triclinic box spreads every atom in PME (the frozen-background
+        grid is orthorhombic only, as in the JAX package). Off the EA
+        sweep, Ea is the dense alchemical x non-alchemical block with the
+        frozen columns baked as constants."""
         dev, n, common, alchemical = self.device, self.n_atoms, self.common, self.alchemical
         charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
         method, cutoff, periodic, alpha = self.method, self.cutoff, self.periodic, self.alpha
@@ -657,7 +682,9 @@ class NonbondedEnergy(_NonbondedBase):
         c = self.c
 
         self.recip = None
-        if method == PME:
+        if method == PME and self.triclinic:
+            self.recip = make_pme_reciprocal(self.pme_params, device=dev, triclinic=True)
+        elif method == PME:
             fro_idx = np.where(~in_rows_np)[0]
             base_grid = precompute_spread_grid(self.pme_params, x0[fro_idx], charges[fro_idx], self.box0)
             self.recip = make_pme_reciprocal(
@@ -669,13 +696,13 @@ class NonbondedEnergy(_NonbondedBase):
         # --- static column culling (permanent reach balls) -------------------
         Lnp = np.diag(self.box0) if (periodic and self.box0 is not None) else None
         culled = None
-        if self.backend in ("sweep", "pallas") and frozen_cull_skin is not None and frozen_cull_skin > 0:
+        if self.backend in ("sweep", "pallas", "tiled") and frozen_cull_skin is not None and frozen_cull_skin > 0:
             culled = self._cull_columns(
                 rows_np, x0, Lnp, bonds_for_cull, masses, float(frozen_cull_skin), frozen_cull_cage_margin
             )
         if self.backend == "sweep" and culled is None:
             self.backend = "pallas"  # no culled columns to sweep: the pair kernel
-        col_idx = noimg = col_const = None
+        col_idx = noimg = col_const = col_msel = None
         if culled is not None:
             col_idx, centers, radii = culled
             self.cull_bounds = (rows_np.copy(), centers.copy(), radii.copy())
@@ -684,14 +711,38 @@ class NonbondedEnergy(_NonbondedBase):
             c["guard_centers"] = centers
             c["guard_r2"] = (radii + 1e-3) ** 2
             self._guard = True
-        sweep = self.backend == "sweep"
-        excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
-        excl_prefiltered = np.zeros(len(excl_all), bool)
-        if sweep:
             noimg = _no_image_geometry(x0, col_idx, rows_np, centers, radii, Lnp, cutoff) if Lnp is not None else None
+            # frozen column positions never change: baked with any static
+            # shift, only the mobile columns read from the call's positions
             col_const = x0[col_idx] + (noimg[0] if noimg is not None else 0.0)
             col_msel = np.where(in_rows_np[col_idx])[0]
+        sweep = self.backend == "sweep"
+        tiled = self.backend == "tiled"
+        self.no_min_image = noimg is not None and (sweep or tiled)
+        # build-time exclusion masking: always on the sweep, and on the
+        # tiled fast path (its matmul force identity cannot take excluded
+        # pairs' radial factors)
+        mask_excl = col_idx is not None and (sweep or (tiled and noimg is not None))
+        excl_all = np.asarray(nb.exclusions, np.int64).reshape(-1, 2)
+        excl_prefiltered = np.zeros(len(excl_all), bool)
+        excl_mask_np = None
+        if mask_excl:
             excl_mask_np, excl_prefiltered = _excl_mask(excl_all, n, rows_np, col_idx)
+
+        def tiled_kw(cols, mask):
+            """The tiled sum's culled-column operands over ``cols`` (a subset
+            of the culled columns, in their order)."""
+            if col_const is None:
+                return {}
+            sel = np.searchsorted(col_idx, cols)
+            msel = np.where(in_rows_np[cols])[0]
+            return dict(
+                no_min_image=noimg is not None, col_shift=noimg[0][sel] if noimg is not None else None,
+                center=noimg[1] if noimg is not None else None, excl_mask=mask,
+                col_const_positions=col_const[sel], col_mobile_sel=msel, col_mobile_gid=cols[msel],
+            )
+
+        if sweep:
             per_atom_main = dict(
                 q_std=self._q_std, q_alch=self._q_alch, sigma=sigmas,
                 epsilon=epsilons, alch=is_alch.astype(np.float64), in_rows=in_rows_np.astype(np.float64),
@@ -710,10 +761,8 @@ class NonbondedEnergy(_NonbondedBase):
             )
         else:
             feats = build_pair_features(charges, sigmas, epsilons, is_alch, active_rows)
-            if self.backend == "pcells":
-                self.pair_sum = CellsPairSum(feats, box0=self.box0, name="cells_main", **common)
-            else:
-                self.pair_sum = PallasPairSum(feats, col_idx=col_idx, box0=self.box0, name="pair_main", **common)
+            kw = tiled_kw(col_idx, excl_mask_np) if tiled else {}
+            self.pair_sum = self._make_sum(feats, "main", col_idx=col_idx, **kw)
 
         # --- exclusion / exception lists, filtered to mobile-involving -------
         exc_idx_all = np.asarray(nb.exceptions_idx, np.int64).reshape(-1, 2)
@@ -744,13 +793,8 @@ class NonbondedEnergy(_NonbondedBase):
         c["erf_idx"] = excl
 
         # --- lambda split ------------------------------------------------------
-        alch_atoms_np = (
-            np.asarray(alchemical.atoms, np.int64)
-            if (alchemical is not None and len(alchemical.atoms))
-            else np.zeros(0, np.int64)
-        )
-        # the JAX package's split bound: larger regions run unsplit
-        if not (0 < len(alch_atoms_np) <= 512):
+        alch_atoms_np = self._alch_atoms()
+        if not self._split_applies(alch_atoms_np):
             return
         cols_full = col_idx if col_idx is not None else np.arange(n, dtype=np.int64)
         cols_na = cols_full[~is_alch[cols_full]]
@@ -782,15 +826,17 @@ class NonbondedEnergy(_NonbondedBase):
                 col_mobile_sel=col_msel0, col_mobile_gid=cols_na[col_msel0],
                 skip_min_image=noimg is not None, groups=groups0, name="E0", **common,
             )
-        elif len(rows0) and self.backend == "pcells":
-            # alchemical charge and epsilon zeroed: their pairs are exactly 0
-            feats0 = build_pair_features(
-                charges * (1.0 - is_alch), sigmas, epsilons * (1.0 - is_alch), np.zeros(n, bool), rows0,
-            )
-            self.pair_sum0 = CellsPairSum(feats0, box0=self.box0, name="cells_e0", **common)
+        elif len(rows0) and self.backend in ("pcells", "cells"):
+            self.pair_sum0 = self._make_sum(self._zeroed_e0_features(rows0), "e0")
         elif len(rows0):
             feats0 = build_pair_features(charges, sigmas, epsilons, np.zeros(n, bool), rows0)
-            self.pair_sum0 = PallasPairSum(feats0, col_idx=cols_na, box0=self.box0, name="pair_e0", **common)
+            kw = {}
+            if tiled:
+                mask0 = None
+                if noimg is not None:
+                    mask0, pref0_live = _excl_mask(excl, n, rows0, cols_na)
+                kw = tiled_kw(cols_na, mask0)
+            self.pair_sum0 = self._make_sum(feats0, "e0", col_idx=cols_na, **kw)
         na_excl_mask = self._split_lists(alch_atoms_np, cols_na, excl, exc_idx, live_e, pref0_live)
         if sweep and len(cols_na) and len(alch_atoms_np) <= 128:
             selc = np.searchsorted(col_idx, cols_na)
@@ -833,13 +879,18 @@ class NonbondedEnergy(_NonbondedBase):
         e = torch.where(r2 < self.cutoff * self.cutoff, e, torch.zeros((), dtype=dt, device=x.device))
         return -e.sum(-1)
 
-    def _reciprocal(self, x, box):
-        """PME reciprocal/self/plasma/erf-exclusion terms with q_std, plus
-        (frozen systems) the poison of each replica whose box differs from
-        the frozen grid's."""
+    def _reciprocal(self, x, box, lam_e=1.0):
+        """PME reciprocal/self/plasma/erf-exclusion terms with the effective
+        charges (q_std under the direct-space treatments; under 'exact' the
+        raw charges, the alchemical ones times ``lam_e``), plus (frozen
+        systems) the poison of each replica whose box differs from the
+        frozen grid's. The frozen grid holds raw charges: frozen atoms are
+        never alchemical."""
         c, dt = self.c, x.dtype
         ke, alpha = units.ONE_4PI_EPS0, self.alpha
         q = c("q_eff", dt)
+        if self.exact:
+            q = torch.where(c("is_alch"), q * lam_e, q)
         e = self.recip(x, q, box)
         if self._frozen_grid:
             mismatch = (box - c("box0", dt)).abs().amax((-2, -1)) > 1e-5
@@ -855,10 +906,10 @@ class NonbondedEnergy(_NonbondedBase):
             e = e + self.excl_ff_const
         return e
 
-    def _tail(self, x, box):
+    def _tail(self, x, box, lam_e=1.0):
         e = 0.0
         if self.method == PME:
-            e = self._reciprocal(x, box)
+            e = self._reciprocal(x, box, lam_e)
         if self.disp_coeff:
             e = e + self.disp_coeff / self._volume(box)
         return e
@@ -885,7 +936,7 @@ class NonbondedEnergy(_NonbondedBase):
         lam_s, lam_e, f_aa = self.pair_factors(globals_, x.dtype, x.device)
         e = self._sub_excluded(x, box, "xsub", lam_s, lam_e, f_aa)
         e = e + self._exceptions(x, box, "exc", lam_s, lam_e)
-        return e + self._tail(x, box)
+        return e + self._tail(x, box, lam_e)
 
     def __call__(self, x, box=None, globals_=None):
         box = replica_boxes(box, x.shape[0])
@@ -969,7 +1020,9 @@ class DenseNonbondedEnergy(_NonbondedBase):
     charges scaled by lambda_electrostatics everywhere: NA pairs by lambda,
     AA pairs by lambda^2, and the reciprocal, self and exclusion terms).
     Exceptions take their own parameters and a bare Coulomb term; the
-    dispersion tail applies only without an alchemical region. The pairs
+    dispersion tail applies only without an alchemical region. A triclinic
+    box (reduced form) takes the staircase minimum image and the
+    general-lattice PME. The pairs
     are held in two lists, those without and those with an alchemical
     atom, so only the second pays for the softcore form. No lambda split:
     ``has_split`` is False, as the JAX dense path exposes none."""
@@ -1006,7 +1059,10 @@ class DenseNonbondedEnergy(_NonbondedBase):
         charges, sigmas, epsilons = self._charges, self._sigmas, self._epsilons
         self.exact = alchemical is not None and alchemical_pme_treatment == "exact"
         self.alch_coulomb = alchemical_pme_treatment == "coulomb" and method == PME
-        self.recip = None if method != PME else make_pme_reciprocal(self.pme_params, device=self.device)
+        self.recip = (
+            None if method != PME
+            else make_pme_reciprocal(self.pme_params, device=self.device, triclinic=self.triclinic)
+        )
         q_std = np.where(is_alch, 0.0, charges) if (alchemical is not None and not self.exact) else charges
 
         # every pair i < j that is not an exclusion, split by whether it
@@ -1141,24 +1197,78 @@ def make_nonbonded_energy(
     device=DEFAULT_DEVICE,
 ):
     """``backend``: 'dense' (``DenseNonbondedEnergy``, any method and
-    treatment), 'sweep' (frozen systems; 'pallas' where no columns are
-    culled), 'pcells' or 'pallas' (any system, with a cutoff method), or
-    'auto', which follows the JAX package: 'dense' at 4,096 atoms and
-    below; above, 'sweep' for a mostly-frozen system. The JAX package's
-    'auto' picks its XLA 'cells' backend for a larger mostly-mobile one,
-    which is not ported, so the port raises there."""
+    treatment), or one of ``PAIR_BACKENDS`` (``NonbondedEnergy``), or
+    'auto'. Resolution follows the JAX package's TPU branch, on every
+    device:
+
+      * a triclinic box must be in reduced form; 'auto' takes 'cells' where
+        the fractional grid has >= 3 cells a side (a periodic method), else
+        'dense'; 'pcells' becomes 'cells'; 'sweep', 'pallas', 'tiled' and
+        'verlet' raise;
+      * 'auto': 'dense' at 4,096 atoms and below; above, 'cells' where more
+        than half the atoms move, else 'sweep';
+      * 'pcells' needs an orthorhombic periodic box of >= 3 cells a side,
+        else it becomes 'cells';
+      * 'cells' and 'verlet' need a periodic method and a grid of >= 27
+        cells ('verlet' also every atom mobile), else they become
+        'pallas'."""
+    triclinic = False
+    if box_for_pme is not None:
+        triclinic = is_triclinic(box_for_pme)
+        if triclinic:
+            if not np.allclose(reduce_box_vectors(box_for_pme), np.asarray(box_for_pme), atol=1e-9):
+                raise ValueError(
+                    "triclinic box must be in OpenMM reduced form; call "
+                    "potentials.triclinic.reduce_box_vectors first"
+                )
+            if backend == "auto":
+                eligible = (
+                    method in (PME, CUTOFF_PERIODIC)
+                    and int(_grid_shape(_perp_widths(box_for_pme), cutoff).min()) >= 3
+                )
+                backend = "cells" if eligible else "dense"
+            elif backend == "pcells":
+                backend = "cells"  # K3 is orthorhombic only
+            elif backend not in ("dense", "cells"):
+                raise ValueError(
+                    f"triclinic boxes require backend 'dense' or 'cells' (got {backend!r}); the "
+                    "tiled/pallas/verlet kernels assume an orthorhombic box"
+                )
+    n = nb.charge.shape[0]
     if backend == "auto":
-        n = nb.charge.shape[0]
-        mobile = np.asarray(masses) > 0 if masses is not None else np.ones(n, bool)
+        mobile_frac = float((np.asarray(masses) > 0).mean()) if masses is not None else 1.0
         if n <= 4096:
             backend = "dense"
-        elif mobile.mean() > 0.5:
-            raise ValueError(
-                "backend 'auto' on a mostly-mobile system above 4,096 atoms picks the 'cells' backend, "
-                "which is not ported; choose 'pcells' (cell list) or 'pallas' (all pairs)"
-            )
         else:
-            backend = "sweep"
+            backend = "cells" if mobile_frac > 0.5 else "sweep"
+    if backend == "pcells":
+        ok = (
+            method in (PME, CUTOFF_PERIODIC)
+            and box_for_pme is not None
+            and not triclinic
+            and int(_grid_shape(np.diag(np.asarray(box_for_pme)), cutoff).min()) >= 3
+        )
+        if not ok:
+            backend = "cells"
+    if backend in ("cells", "verlet"):
+        edge = cutoff + (0.1 if backend == "verlet" else 0.0)
+        widths = None
+        if box_for_pme is not None:
+            widths = _perp_widths(box_for_pme) if triclinic else np.diag(np.asarray(box_for_pme))
+        eligible = (
+            method in (PME, CUTOFF_PERIODIC)
+            and widths is not None
+            and int(np.prod(_grid_shape(widths, edge))) >= 27
+            and (not triclinic or int(_grid_shape(widths, edge).min()) >= 3)
+        )
+        if triclinic and not eligible:
+            raise ValueError(
+                f"triclinic cell grid too small for the cells backend at cutoff {cutoff}; use backend='dense'"
+            )
+        if backend == "verlet" and masses is not None:
+            eligible = eligible and bool((np.asarray(masses) > 0).all())
+        if not eligible:
+            backend = "pallas"
     if backend == "dense":
         return DenseNonbondedEnergy(
             nb, method=method, cutoff=cutoff, alchemical=alchemical,

@@ -31,6 +31,12 @@ def _as(v, like):
     return v if torch.is_tensor(v) else torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 
+def lam_scalar(v, dtype, device):
+    """A lambda factor as the pair sums take it: a tensor in ``dtype`` on
+    ``device``, or a Python float."""
+    return v.to(dtype=dtype, device=device) if torch.is_tensor(v) else float(v)
+
+
 def _erfc_poly(x):
     """erfc(x) / exp(-x^2) for x >= 0, Abramowitz & Stegun 7.1.26."""
     t = 1.0 / (1.0 + 0.3275911 * x)

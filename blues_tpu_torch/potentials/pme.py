@@ -1,10 +1,16 @@
-"""Smooth Particle-Mesh Ewald reciprocal space, orthorhombic boxes.
+"""Smooth Particle-Mesh Ewald reciprocal space, orthorhombic and triclinic
+boxes.
 
 Counterpart of ``blues_tpu.potentials.pme`` (``make_pme_reciprocal`` and
 ``precompute_spread_grid``): cardinal B-spline charge spreading of order 5,
 a real FFT of the charge grid (``torch.fft``), and the Essmann et al. (1995)
 influence function with B-spline Euler factors. Forces come from autograd
-through the spread.
+through the spread. With ``triclinic`` the fractional coordinates come from
+each replica's inverse box and the influence function takes |m @ H^-1|^2
+(``triclinic.py``); the volume is the product of the diagonal either way,
+which is the determinant of a lower-triangular box. The frozen background
+grid (``precompute_spread_grid``) is orthorhombic only, as in the JAX
+package: a triclinic frozen system spreads every atom.
 
 The TPU version spreads with one-hot matmuls because its scatter is
 serialised; here the spread is an ``index_add_`` of the 5x5x5 stencil into
@@ -24,6 +30,7 @@ import torch
 from .. import units
 from ..core.device import DEFAULT_DEVICE, device_const, resolve_device
 from .geometry import box_lengths, replica_boxes
+from .triclinic import fractional_coords, reciprocal_m2
 
 
 @dataclass(frozen=True)
@@ -85,10 +92,14 @@ class PMEReciprocal:
 
     ``base_grid``/``spread_subset``: the frozen atoms' spread is a constant
     grid, precomputed once; only ``spread_subset`` atoms are spread per call
-    (requires the build box, NVT)."""
+    (requires the build box, NVT). ``triclinic``: the general-lattice mode."""
 
-    def __init__(self, params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE):
+    def __init__(self, params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE,
+                 triclinic=False):
+        if triclinic and base_grid is not None:
+            raise ValueError("the frozen background PME grid is orthorhombic only")
         self.params = params
+        self.triclinic = bool(triclinic)
         Kx, Ky, Kz = params.grid
         self.K = (Kx, Ky, Kz)
         dev = resolve_device(device)
@@ -130,7 +141,10 @@ class PMEReciprocal:
         R, n, _ = positions.shape
         dt = positions.dtype
         K = device_const((Kx, Ky, Kz), dt, positions.device)
-        u = positions / box_lengths(box).to(dt)[:, None, :] * K
+        if self.triclinic:
+            u = fractional_coords(positions, box) * K
+        else:
+            u = positions / box_lengths(box).to(dt)[:, None, :] * K
         base = torch.floor(u)
         w = u - base
         wts = bspline_weights(w, order).flip(-1)  # (R, n, 3, order) ascending
@@ -160,11 +174,14 @@ class PMEReciprocal:
         blen = box_lengths(box)[:, :, None, None, None]  # (R, 3, 1, 1, 1)
         fq = torch.fft.rfftn(grid, dim=(-3, -2, -1))
         s2 = fq.real**2 + fq.imag**2
-        m2 = (
-            (t["mx"][:, None, None] / blen[:, 0]) ** 2
-            + (t["my"][None, :, None] / blen[:, 1]) ** 2
-            + (t["mz"][None, None, :] / blen[:, 2]) ** 2
-        )
+        if self.triclinic:
+            m2 = reciprocal_m2(t["mx"], t["my"], t["mz"], box)
+        else:
+            m2 = (
+                (t["mx"][:, None, None] / blen[:, 0]) ** 2
+                + (t["my"][None, :, None] / blen[:, 1]) ** 2
+                + (t["mz"][None, None, :] / blen[:, 2]) ** 2
+            )
         pi2 = math.pi * math.pi
         influence = torch.where(
             m2 > 0,
@@ -184,8 +201,9 @@ class PMEReciprocal:
         return self.energy_from_grid(self.spread_grid(positions, charges, box), box)
 
 
-def make_pme_reciprocal(params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE):
-    return PMEReciprocal(params, base_grid, spread_subset, device)
+def make_pme_reciprocal(params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE,
+                        triclinic=False):
+    return PMEReciprocal(params, base_grid, spread_subset, device, triclinic)
 
 
 def precompute_spread_grid(params: PMEParams, positions, charges, box):

@@ -36,11 +36,16 @@ Acceptance (reference semantics):
     log_accept = -(protocol_work)/kT + correction
     correction = -[(E_alch(x0) - E_md(x0)) + (E_md(x1) - E_alch(x1))]/kT
 
-Configurations outside the port (segmented dispatch, backends other than
-'dense', 'sweep', 'pcells', 'pallas' and 'auto') raise
+With the 'verlet' backend the MD energy carries neighbour-list hooks
+(``potentials/energy.py``): MD rebuilds the list every
+``nlist_rebuild_interval`` steps of each chunk (a remainder segment gets its
+own build) and applies it in between, as the JAX driver does;
+``nlist_builds`` counts the builds. NCMC keeps the stateless pair sum.
+
+Configurations outside the port (segmented dispatch, ``use_pallas``) raise
 ``ValueError``, and so do the JAX driver's own refusals: pressure with
 frozen atoms under PME, and ``frozen_compact=True`` where compaction is
-ineligible (a barostat makes it so).
+ineligible (a barostat or neighbour lists make it so).
 """
 
 from __future__ import annotations
@@ -132,8 +137,6 @@ def _check_slice(cfg: SimulationConfig, move):
         out.append("max_steps_per_dispatch")
     if cfg.use_pallas:
         out.append("use_pallas")
-    if cfg.nonbonded_backend not in ("auto", "dense", "sweep", "pcells", "pallas"):
-        out.append(f"nonbonded_backend={cfg.nonbonded_backend!r}")
     if move is not None and not isinstance(move, Move):
         out.append(f"move {type(move).__name__} (not a blues_tpu_torch Move)")
     if out:
@@ -251,16 +254,20 @@ class BLUESSimulation:
         #: across iterations; set at the first iteration
         self.barostat_state = None
 
+        #: neighbour-list builds of the MD segments (the 'verlet' backend)
+        self.nlist_builds = 0
+        self._has_nlist = hasattr(self.energy_md, "nlist_build")
         comp = None
         if config.frozen_compact:
-            # a volume move scales every molecule: a barostat rules compaction out
-            if self._barostat is None:
+            # a volume move scales every molecule, and a neighbour list is
+            # built over the full state: either rules compaction out
+            if self._barostat is None and not self._has_nlist:
                 comp = build_mobile_compaction(system, self.energy_alch, self.force_alch, move, self.device)
             if config.frozen_compact is True and comp is None:
                 raise ValueError(
                     "frozen_compact=True but the system/move is not compaction-eligible "
                     "(needs frozen reference positions, no boundary-straddling "
-                    "constraints, a non-teleporting remappable move, no barostat)"
+                    "constraints, a non-teleporting remappable move, no barostat, no verlet neighbor lists)"
                 )
         self._compact = comp
         self.source = None
@@ -301,6 +308,14 @@ class BLUESSimulation:
             record_micro=self._record_micro, device=self.device,
         )
         self._md_step_d = make_md_step(self._ffn_md_d, masses, lp, cx, cv, src, self.device)
+        self._md_nlist_step = None
+        if self._has_nlist:  # never compact: the dynamics state is the full one
+            self._nlist = None
+
+            def ffn_nlist(x, box=None, globals_=None):
+                return self.energy_md.force_with_nlist(self._nlist, x, box, globals_)
+
+            self._md_nlist_step = make_md_step(ffn_nlist, masses, lp, cx, cv, src, self.device)
 
     # ------------------------------------------------------------------
     def initialize(self, positions, box=None, seed: int = 0, source=None, velocities=None):
@@ -415,16 +430,14 @@ class BLUESSimulation:
         frames = []
         _, fd = self._ffn_md_d(xd, box, None)
         for _ in range(n_chunks):
-            for _ in range(chunk):
-                xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
+            xd, vd, fd = self._md_steps(xd, vd, fd, box, chunk)
             if baro is not None:
                 # no compaction under a barostat: the dynamics state is the full one
                 xd, box, bstate = baro.step(src, xd, box, bstate)
                 _, fd = self._ffn_md_d(xd, box, None)
             if interval is not None:
                 frames.append(self._put(x, xd))
-        for _ in range(n_md - n_chunks * chunk):
-            xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
+        xd, vd, fd = self._md_steps(xd, vd, fd, box, n_md - n_chunks * chunk)
         if cfg.md_fault_injection > 0.0:
             fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
             xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
@@ -435,6 +448,22 @@ class BLUESSimulation:
         if baro is not None:
             self.barostat_state = bstate.where(md_ok, keep[3])
         return xd, vd, box, e_md_end, md_ok, (torch.stack(frames, 1) if frames else None)
+
+    def _md_steps(self, xd, vd, fd, box, k):
+        """k MD steps; with neighbour lists the list is built at the first
+        step and every ``nlist_rebuild_interval`` steps after it, and the
+        steps in between apply it."""
+        if self._md_nlist_step is None:
+            for _ in range(k):
+                xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
+            return xd, vd, fd
+        every = max(1, self.cfg.nlist_rebuild_interval)
+        for s in range(k):
+            if s % every == 0:
+                self._nlist = self.energy_md.nlist_build(xd, box)
+                self.nlist_builds += 1
+            xd, vd, fd, _e = self._md_nlist_step(xd, vd, fd, box)
+        return xd, vd, fd
 
     def run(self, n_iter: Optional[int] = None):
         """Run ``n_iter`` iterations (default ``nIter``); returns the

@@ -101,12 +101,34 @@ Phases (each prints its own line; any failure exits non-zero):
      K3 ('pcells') on the card, MD and alchemical system at lambda 1, 0.5
      and 0, with the peak device memory; then toluene in vacuum without a
      box, NoCutoff, 'auto' resolving to 'dense', R = 8, 2 iterations of
-     50 + 50 steps.
+     50 + 50 steps;
+ 16. backends: the plain pair backends on the unfrozen box at R = 2 from
+     the unfrozen phase's minimised positions: 'cells', 'tiled' and
+     'verlet' composed, and the half-neighbourhood cell list's raw pair
+     sum, against K3 at lambda 1, 0.5 and 0 with phase check's
+     raw-anchored tolerance; each one's ms per call, peak memory and pair
+     slots visited beside K3's; 'auto' resolving to 'cells' with one
+     iteration of 10 + 10 steps, and 'verlet' with one iteration of 10 +
+     20 steps that must rebuild its MD list 4 times (every 5 steps);
+ 17. tiled_frozen: 'tiled' on the frozen slice (culled columns, and the
+     no-minimum-image fast path where it engages) against K1, composed,
+     at lambda 1, 0.5 and 0;
+ 18. exact: the 'exact' PME treatment at lambda 0.3 (f_aa = lambda^2): K1
+     (frozen slice), K2 and K3 (unfrozen box) each against its plain
+     version at R = 2 with its time and bound, each composed energy
+     against 'tiled' under 'exact', and one NCMC iteration (10 + 10
+     steps) on each with no lambda split and finite work;
+ 19. triclinic: a 3,200-atom box sheared onto a reduced triclinic lattice
+     (PME 0.8 nm): 'cells' against 'dense' on the card (float64) and
+     against the CPU (float32) at lambda 1 and 0.4; the full-width box sheared (molecules moved
+     rigidly): 'auto' and 'pcells' resolve to 'cells', and after 100 FIRE
+     steps one iteration of 10 + 10 steps ends finite.
 
-Each path (5-12) must launch its kernels: every count is set to 0 just
-before the path and read just after. Phases 14 and 15 have no kernel of
-their own: the ethylene system has no NonbondedParams, and the dense path
-is plain tensor ops, as in the JAX package. Then the card's name and
+Each path (5-12, and the three runs of phase 18) must launch its kernels:
+every count is set to 0 just before the path and read just after. Phases
+14-17 and 19 have no kernel of their own: the ethylene system has no
+NonbondedParams, and the dense, tiled, cells and verlet paths are plain
+tensor ops, as they are XLA code in the JAX package. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -174,6 +196,17 @@ ETH_POPULATIONS = (0.25, 0.75)
 #: toluene in vacuum without a box (NoCutoff, 'auto'), R = 8, 2 iterations of
 #: 50 + 50 steps
 DENSE_ATOMS, DENSE_R, VAC_R, VAC_ITER, VAC_STEPS = 3000, 2, 8, 2, 50
+#: the backends, tiled_frozen, exact and triclinic phases: replicas and NCMC
+#: (and MD) steps of their runs; the verlet run's MD steps and rebuild
+#: interval; the 'exact' phase's lambda
+BACKENDS_R, BACKENDS_STEPS, VERLET_MD_STEPS, VERLET_EVERY, EXACT_LAMBDA = 2, 10, 20, 5, 0.3
+#: the verlet run's time step (ps): with a 0.1 nm skin the list goes stale
+#: (poison, rollback) once an atom has moved 0.05 nm, which a fast light
+#: hydrogen (HMR 3.024 Da) can do in 5 steps of 4 fs at 300 K
+VERLET_DT = 0.002
+#: the triclinic phase: the small skewed box (atoms, cutoff, shear as in
+#: tests/test_triclinic_cells.py) and the FIRE steps of the sheared full box
+TRI_ATOMS, TRI_CUTOFF, TRI_SKEW, TRI_MIN = 3200, 0.8, 0.55, 100
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -220,8 +253,7 @@ def _config(**kw):
     from blues_tpu_torch.simulation import SimulationConfig
 
     return SimulationConfig(
-        temperature=300.0, dt=0.004, friction=1.0, nonbonded_method="PME",
-        ewald_tolerance=0.005, **kw,
+        **{**dict(temperature=300.0, dt=0.004, friction=1.0, nonbonded_method="PME", ewald_tolerance=0.005), **kw}
     )
 
 
@@ -1177,12 +1209,9 @@ def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
     devices sum it in float32 in different orders. With ``raw_anchor`` (the
     unfrozen sums, which carry the excluded pairs) both tolerances also get
     RAW_REL times the raw pair sum's magnitudes."""
-    import math
-
     import numpy as np
     import torch
 
-    from blues_tpu_torch import units
     from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
 
     cfg, nb = sim.cfg, sim.energy_md.nonbonded
@@ -1200,14 +1229,12 @@ def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
     xc, bc = x.cpu(), box.cpu()
     e_p, f_p = make_force_fn(efn_cpu)(xc, bc, None)
     e_k, f_k, e_p, f_p = (t.double().cpu().numpy() for t in (e_k, f_k, e_p, f_p))
-    q = np.asarray(system.nonbonded.charge, np.float64)
-    e_self = units.ONE_4PI_EPS0 * efn_cpu.nonbonded.alpha / math.sqrt(math.pi) * float((q * q).sum())
+    e_self = _e_self(efn_cpu, system)
     e_tol = E_REL * np.abs(e_p) + E_ABS + 4.0 * float(np.finfo(np.float32).eps) * e_self
     f_tol = F_REL * (float(np.abs(f_p).max()) + 1.0)
     raw = ""
     if raw_anchor:
-        e_raw, f_raw = efn_cpu.nonbonded.pair_sum(xc, bc, 1.0, 1.0, 1.0)
-        e_raw, f_raw = e_raw.double().abs().numpy(), float(f_raw.abs().max())
+        e_raw, f_raw = raw_magnitudes(efn_cpu, xc, bc, None)
         e_tol += RAW_REL * e_raw
         f_tol += RAW_REL * f_raw
         raw = f", raw pair sum |E| {e_raw.max():.4e} max|F| {f_raw:.4e}"
@@ -1309,12 +1336,9 @@ def run_dense(device, card, n_atoms=DENSE_ATOMS):
     magnitudes (its raw sums hold every excluded pair, as in phase check);
     then toluene in vacuum without a box, NoCutoff, 'auto' (which must
     resolve to 'dense'), R = 8, 2 iterations of 50 + 50 steps."""
-    import math
-
     import numpy as np
     import torch
 
-    from blues_tpu_torch import units
     from blues_tpu_torch.core.system import AlchemicalRegion
     from blues_tpu_torch.ligands import toluene_system
     from blues_tpu_torch.moves import RandomLigandRotationMove
@@ -1331,7 +1355,6 @@ def run_dense(device, card, n_atoms=DENSE_ATOMS):
     xs = perturbed(np.asarray(x0), np.ones(system.n_atoms, bool), DENSE_R, rng, device)
     box = torch.as_tensor(np.asarray(system.box), dtype=torch.float32, device=device)
     kw = dict(nonbonded_method="PME", cutoff=1.0, ewald_tolerance=0.005)
-    q = np.asarray(system.nonbonded.charge, np.float64)
     eps32 = float(np.finfo(np.float32).eps)
     for which, sysw in (("md", system.replace(alchemical=None)), ("alch", system)):
         dense = make_energy_fn(sysw, nonbonded_backend="dense", device=device, **kw)
@@ -1339,7 +1362,7 @@ def run_dense(device, card, n_atoms=DENSE_ATOMS):
         cells = make_energy_fn(sysw, nonbonded_backend="pcells", device=device, **kw)
         if dense.nonbonded.backend != "dense" or cells.nonbonded.backend != "pcells":
             raise RuntimeError("dense: the backends did not resolve as asked")
-        e_self = units.ONE_4PI_EPS0 * dense.nonbonded.alpha / math.sqrt(math.pi) * float((q * q).sum())
+        e_self = _e_self(dense, system)
         for lam in (1.0, 0.5, 0.0) if which == "alch" else (1.0,):
             g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
             e_d, f_d = make_force_fn(dense)(xs, box, g)
@@ -1347,8 +1370,7 @@ def run_dense(device, card, n_atoms=DENSE_ATOMS):
             compare(f"{which} lambda {lam}: dense on the card vs dense on the CPU", e_d, f_d, e_c, f_c,
                     e_extra=4.0 * eps32 * e_self, name="dense")
             e_k, f_k = make_force_fn(cells)(xs, box, g)
-            e_raw, f_raw = cells.nonbonded.pair_sum(xs, box, *cells.nonbonded.pair_factors(g, xs.dtype, device))
-            e_raw, f_raw = e_raw.double().abs().cpu().numpy(), float(f_raw.abs().max())
+            e_raw, f_raw = raw_magnitudes(cells, xs, box, g)
             compare(f"{which} lambda {lam}: dense vs K3 ('pcells') on the card, raw pair sum |E| {e_raw.max():.4e} "
                     f"max|F| {f_raw:.4e}", e_d, f_d, e_k, f_k, e_extra=4.0 * eps32 * e_self + RAW_REL * e_raw,
                     f_extra=RAW_REL * f_raw, name="dense")
@@ -1375,16 +1397,8 @@ def run_dense(device, card, n_atoms=DENSE_ATOMS):
     stats = [sim.run_iteration() for _ in range(VAC_ITER)]
     torch.cuda.synchronize()
     t_vac = time.perf_counter() - t0
-    for st in stats:
-        for k, t in st._asdict().items():
-            if tuple(t.shape) != (VAC_R,):
-                raise RuntimeError(f"dense vacuum: stats.{k} has shape {tuple(t.shape)}, expected ({VAC_R},)")
-        acc, la = st.accepted.cpu().numpy(), st.log_accept.double().cpu().numpy()
-        if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
-            raise RuntimeError("dense vacuum: accepted is inconsistent with log_accept")
+    check_run(sim, stats, "dense vacuum")
     work = np.stack([st.protocol_work.double().cpu().numpy() for st in stats])
-    if not np.isfinite(work).all():
-        raise RuntimeError(f"dense vacuum: non-finite work {work}")
     box_run = float(sim.state[2][0, 0, 0])
     phase(
         "dense",
@@ -1396,8 +1410,457 @@ def run_dense(device, card, n_atoms=DENSE_ATOMS):
     return dict(peak_mib=peak, seconds=t_box + t_vac)
 
 
+def _e_self(efn, system):
+    """The Ewald self term of ``system``'s charges: the largest constant of
+    a full-box energy, which two devices sum in float32 in different
+    orders (phase check's tolerance adds 4*eps_f32 times it)."""
+    import math
+
+    import numpy as np
+
+    from blues_tpu_torch import units
+
+    q = np.asarray(system.nonbonded.charge, np.float64)
+    return units.ONE_4PI_EPS0 * efn.nonbonded.alpha / math.sqrt(math.pi) * float((q * q).sum())
+
+
+def raw_magnitudes(efn, xs, box, g):
+    """((R,) |E|, max|F|) of the raw pair sum of ``efn`` at globals ``g``:
+    the unfrozen sums hold every excluded bonded pair, so composed values
+    are held to RAW_REL of these, as in phase check."""
+    nb = efn.nonbonded
+    e, f = nb.pair_sum(xs, box, *nb.pair_factors(g, xs.dtype, xs.device))
+    return e.double().abs().cpu().numpy(), float(f.abs().max())
+
+
+def peak_ms(fn, reps, device):
+    """(ms per call by CUDA events, peak MiB the calls allocated above what
+    was resident before them)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    ms = time_ms(fn, reps)
+    return ms, (torch.cuda.max_memory_allocated(device) - base) / 2**20
+
+
+def check_run(sim, stats, label):
+    """Finite work on every replica, finite MD potentials where MD was not
+    rolled back, and accepted consistent with log_accept."""
+    import numpy as np
+
+    R = sim.cfg.n_replicas
+    for st in stats:
+        for k, t in st._asdict().items():
+            if tuple(t.shape) != (R,):
+                raise RuntimeError(f"{label}: stats.{k} has shape {tuple(t.shape)}, expected ({R},)")
+        acc, la = st.accepted.cpu().numpy(), st.log_accept.double().cpu().numpy()
+        if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
+            raise RuntimeError(f"{label}: accepted is inconsistent with log_accept")
+        if not np.isfinite(st.protocol_work.double().cpu().numpy()).all():
+            raise RuntimeError(f"{label}: non-finite protocol work {st.protocol_work}")
+        kept = ~st.md_failed.cpu().numpy()
+        if not kept.any() or not np.isfinite(st.md_potential.double().cpu().numpy()[kept]).all():
+            raise RuntimeError(f"{label}: MD rolled back everywhere, or a non-finite MD potential")
+
+
+def run_backends(device, card, system, x_min, cutoff=1.0):
+    """Phase backends: the plain pair backends 'cells' (full and half
+    neighbourhood), 'tiled' and 'verlet' on the unfrozen box (every atom
+    mobile, PME, tolerance 0.005) at R = BACKENDS_R from the unfrozen
+    phase's minimised positions, held against K3 ('pcells') at lambda 1,
+    0.5 and 0 with phase check's raw-anchored tolerance: the composed
+    energies and forces of 'cells', 'tiled' and 'verlet' through
+    make_energy_fn, the half-neighbourhood cell list's raw pair sum against
+    K3's. Each backend's ms per call (CUDA events), peak memory and pair
+    slots visited, beside K3's call at the same R. Then 'auto' (which must
+    resolve to 'cells'), 1 iteration of 10 + 10 steps, and 'verlet', 1
+    iteration of 10 + VERLET_MD_STEPS steps rebuilding every VERLET_EVERY:
+    the MD must build its list VERLET_MD_STEPS / VERLET_EVERY times."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.potentials.cells import CellListPairSum
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+    from blues_tpu_torch.potentials.features import build_pair_features
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    t0 = time.perf_counter()
+    R = BACKENDS_R
+    lig = system.topology.select_resname("LIG")
+    xs = perturbed(x_min, np.ones(system.n_atoms, bool), R, np.random.default_rng(13), device)
+    box = torch.as_tensor(np.asarray(system.box), dtype=torch.float32, device=device)
+    kw = dict(nonbonded_method="PME", cutoff=cutoff, ewald_tolerance=0.005, device=device)
+    ref = make_energy_fn(system, nonbonded_backend="pcells", **kw)
+    k3 = ref.nonbonded.pair_sum
+    eps32 = float(np.finfo(np.float32).eps)
+    e_self = _e_self(ref, system)
+    lams = (1.0, 0.5, 0.0)
+    refs = {}
+    for lam in lams:
+        g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+        refs[lam] = (*make_force_fn(ref)(xs, box, g), *raw_magnitudes(ref, xs, box, g))
+    k3_visited, n_in = k3.pair_counts(xs, box)
+    k3_ms, k3_mib = peak_ms(lambda: k3(xs, box, 1.0, 1.0, 1.0), 10, device)
+    phase(
+        "backends",
+        f"K3 ('pcells', the reference) at R = {R} on {card}: {k3_ms:.3f} ms per call, peak {k3_mib:.1f} MiB, "
+        f"{k3_visited:.0f} slots visited per replica for {n_in:.0f} pairs inside the cutoff",
+    )
+    out = {"k3": dict(ms=k3_ms, mib=k3_mib, slots=k3_visited, in_cutoff=n_in)}
+
+    def report(name, ps, slots, reps, extra=""):
+        ms, mib = peak_ms(lambda: ps(xs, box, 1.0, 1.0, 1.0), reps, device)
+        out[name] = dict(ms=ms, mib=mib, slots=slots, ratio=ms / k3_ms)
+        phase(
+            "backends",
+            f"{name}: {ms:.3f} ms per call at R = {R} ({ms / k3_ms:.2f}x K3's), peak {mib:.1f} MiB, {slots:.0f} "
+            f"slots visited per replica ({slots / n_in:.2f}x the pairs inside the cutoff){extra}",
+        )
+
+    for be in ("cells", "tiled", "verlet"):
+        efn = make_energy_fn(system, nonbonded_backend=be, **kw)
+        nb = efn.nonbonded
+        if nb.backend != be:
+            raise RuntimeError(f"backends: {be!r} resolved to {nb.backend!r}")
+        for lam in lams:
+            g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+            e_k, f_k, e_raw, f_raw = refs[lam]
+            compare(f"{be} lambda {lam} vs K3, composed", *make_force_fn(efn)(xs, box, g), e_k, f_k,
+                    e_extra=4.0 * eps32 * e_self + RAW_REL * e_raw, f_extra=RAW_REL * f_raw, name="backends")
+        ps = nb.pair_sum
+        if be == "cells":
+            report("cells", ps, ps.shape_info["pair_slots"], 5,
+                   f"; grid {ps.grid}, capacities {ps.capacities}, {ps.chunk_cells(R, device)} cells a step")
+            feats = build_pair_features(nb._charges, nb._sigmas, nb._epsilons, nb._is_alch)
+            half = CellListPairSum(feats, box0=system.box, half_neighborhood=True, name="celllist_half", **nb.common)
+            if not half.half:
+                raise RuntimeError("backends: the half neighbourhood did not engage")
+            for lam in lams:
+                g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+                lam3 = nb.pair_factors(g, torch.float32, device)
+                e_r, f_r = k3(xs, box, *lam3)
+                e_raw, f_raw = e_r.double().abs().cpu().numpy(), float(f_r.abs().max())
+                compare(f"cells half neighbourhood lambda {lam} vs K3, raw pair sums", *half(xs, box, *lam3),
+                        e_r, f_r, e_extra=RAW_REL * e_raw, f_extra=RAW_REL * f_raw, name="backends")
+            report("cells_half", half, half.shape_info["pair_slots"], 5)
+        elif be == "tiled":
+            report("tiled", ps, ps.shape_info["all_pairs_slots"], 3)
+        else:
+            nl = ps.build(xs, box)
+            apply_ms, _ = peak_ms(lambda: ps.apply(nl, xs, box, 1.0, 1.0, 1.0), 10, device)
+            build_ms, _ = peak_ms(lambda: ps.build(xs, box), 5, device)
+            filled = float((nl.idx < ps.n_atoms).sum()) / R
+            report("verlet", ps, ps.shape_info["list_slots"], 5,
+                   f" (the list; the build scans {ps.shape_info['candidates']} candidates per row); build "
+                   f"{build_ms:.3f} ms, apply {apply_ms:.3f} ms, K = {ps.K}, {filled:.0f} list entries per replica "
+                   f"filled, grid {ps.grid}")
+            out["verlet"].update(build_ms=build_ms, apply_ms=apply_ms)
+    t_check = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    sim = BLUESSimulation(
+        system, RandomLigandRotationMove(lig, system.masses),
+        _config(nstepsNC=BACKENDS_STEPS, nstepsMD=BACKENDS_STEPS, cutoff=cutoff, nonbonded_backend="auto",
+                n_replicas=R),
+        device=device,
+    )
+    resolved = (sim.energy_md.nonbonded.backend, sim.energy_alch.nonbonded.backend)
+    if resolved != ("cells", "cells"):
+        raise RuntimeError(f"backends: 'auto' on the {system.n_atoms}-atom unfrozen box resolved to {resolved}")
+    sim.initialize(x_min, seed=2029)
+    stats = [sim.run_iteration()]
+    torch.cuda.synchronize()
+    check_run(sim, stats, "backends auto")
+    t_auto = time.perf_counter() - t1
+    phase(
+        "backends",
+        f"'auto' on {system.n_atoms} atoms, every one mobile -> {resolved[0]!r}: 1 iteration of {BACKENDS_STEPS} + "
+        f"{BACKENDS_STEPS} steps at R = {R}, work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_auto:.1f} s",
+    )
+
+    t1 = time.perf_counter()
+    sim = BLUESSimulation(
+        system, RandomLigandRotationMove(lig, system.masses),
+        _config(nstepsNC=BACKENDS_STEPS, nstepsMD=VERLET_MD_STEPS, cutoff=cutoff, nonbonded_backend="verlet",
+                nlist_rebuild_interval=VERLET_EVERY, n_replicas=R, dt=VERLET_DT),
+        device=device,
+    )
+    if not hasattr(sim.energy_md, "nlist_build") or sim.energy_md.nonbonded.backend != "verlet":
+        raise RuntimeError("backends: the verlet MD energy has no neighbour-list hooks")
+    sim.initialize(x_min, seed=2030)
+    stats = [sim.run_iteration()]
+    torch.cuda.synchronize()
+    check_run(sim, stats, "backends verlet")
+    want = -(-VERLET_MD_STEPS // VERLET_EVERY)
+    t_verlet = time.perf_counter() - t1
+    phase(
+        "backends",
+        f"'verlet': 1 iteration of {BACKENDS_STEPS} + {VERLET_MD_STEPS} steps at R = {R}, list rebuilt every "
+        f"{VERLET_EVERY} MD steps: {sim.nlist_builds} builds (expected {want}), MD failed "
+        f"{stats[0].md_failed.cpu().numpy()}, work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_verlet:.1f} s",
+    )
+    if sim.nlist_builds != want:
+        raise RuntimeError(f"backends: the verlet MD built its list {sim.nlist_builds} times, expected {want}")
+    phase("backends", f"phase time {time.perf_counter() - t0:.1f} s (checks {t_check:.1f} s)")
+    return out
+
+
+def run_tiled_frozen(device, card, frozen, x_min, cutoff=1.0):
+    """Phase tiled_frozen: backend 'tiled' on the frozen slice (culled
+    columns, the cull guard and, where the extent proof holds, the
+    no-minimum-image fast path) against K1 ('sweep') at the same positions,
+    R = 2, lambda 1, 0.5 and 0, the composed energies at compare's
+    tolerance plus 4*eps_f32*|Ewald self term| and RAW_REL times tiled's
+    raw pair sum (which holds the excluded pairs where the fast path is
+    off: K1 masks them at build time)."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+
+    t0 = time.perf_counter()
+    R = BACKENDS_R
+    xs = perturbed(x_min, np.asarray(frozen.masses) > 0, R, np.random.default_rng(17), device)
+    box = torch.as_tensor(np.asarray(frozen.box), dtype=torch.float32, device=device)
+    kw = dict(nonbonded_method="PME", cutoff=cutoff, ewald_tolerance=0.005, frozen_cull_skin=0.45,
+              sweep_row_group=32, device=device)
+    k1 = make_energy_fn(frozen, nonbonded_backend="sweep", **kw)
+    tiled = make_energy_fn(frozen, nonbonded_backend="tiled", **kw)
+    nb = tiled.nonbonded
+    if nb.backend != "tiled" or k1.nonbonded.backend != "sweep":
+        raise RuntimeError(f"tiled_frozen: resolved to {nb.backend!r} and {k1.nonbonded.backend!r}")
+    e_self = _e_self(k1, frozen)
+    for lam in (1.0, 0.5, 0.0):
+        g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+        e_raw, f_raw = raw_magnitudes(tiled, xs, box, g)
+        compare(f"tiled vs K1 lambda {lam}, composed (tiled raw |E| {e_raw.max():.4e} max|F| {f_raw:.4e})",
+                *make_force_fn(tiled)(xs, box, g), *make_force_fn(k1)(xs, box, g),
+                e_extra=4.0 * float(np.finfo(np.float32).eps) * e_self + RAW_REL * e_raw, f_extra=RAW_REL * f_raw,
+                name="tiled_frozen")
+    ps = nb.pair_sum
+    ms, mib = peak_ms(lambda: ps(xs, box, 1.0, 1.0, 1.0), 10, device)
+    k1_ms = time_ms(lambda: k1.nonbonded.pair_sum(xs, box, 1.0, 1.0, 1.0), 20)
+    phase(
+        "tiled_frozen",
+        f"{frozen.n_atoms} atoms, {ps.n_rows} rows x {ps.nc} culled columns (cull {nb.cull_info}); fast path "
+        f"(no minimum image) engaged: {nb.no_min_image}; tiled {ms:.3f} ms per call at R = {R}, peak {mib:.1f} MiB, "
+        f"K1 {k1_ms:.3f} ms, on {card}; {time.perf_counter() - t0:.1f} s",
+    )
+    return dict(ms=ms, k1_ms=k1_ms, mib=mib, fast_path=bool(nb.no_min_image))
+
+
+def check_exact(name, ps, x, box, lam, reps=(20, 3)):
+    """One kernel instance under 'exact' (f_aa = lambda_e^2 != f_na)
+    against its plain version at positions ``x``; its time, its plain
+    version's and its bound at this R."""
+    e_err, f_err = compare(f"{name} R={x.shape[0]} (lam_s, f_na, f_aa) = {tuple(round(float(v), 4) for v in lam)}",
+                           *ps.kernel(x, box, *lam), *ps.plain(x, box, *lam), name="exact")
+    import torch
+
+    res = dict(max_abs_err=f_err, max_e_err=e_err)
+    res["ms"] = time_ms(lambda: ps.kernel(x, box, *lam), reps[0])
+    res["plain_ms"] = time_ms(lambda: ps.plain(x, box, *lam), reps[1])
+    # the kernels alone: K1's on checked operands, K2's / K3's on a prebuilt layout
+    ops = ps.operands(x, box) if hasattr(ps, "operands") else ps.layout(x, box, torch.float32, kernel=True)
+    res["kernel_only_ms"] = time_ms(lambda: ps.launch(ops, *lam), reps[0])
+    res.update(bound_of(ps, x, box))
+    phase(
+        "exact",
+        f"{name} R={x.shape[0]}: kernel {res['ms']:.4f} ms/call (alone {res['kernel_only_ms']:.4f}), plain "
+        f"{res['plain_ms']:.4f} ms/call; bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+        f"{100 * res['bound_ms'] / res['kernel_only_ms']:.2f} % of bound alone",
+    )
+    return res
+
+
+def run_exact(device, card, frozen, xf_min, unfrozen, xu_min, every, cutoff=1.0):
+    """Phase exact: the 'exact' PME treatment (the alchemical charges scaled
+    by lambda_electrostatics everywhere, no lambda split) at lambda =
+    EXACT_LAMBDA on K1 (the frozen slice), K2 and K3 (the unfrozen box),
+    R = 2: each kernel against its plain version under f_aa = lambda^2,
+    each composed energy against 'tiled' under 'exact' on the card, then
+    one NCMC iteration (10 + 10 steps) on each, with every count 0 just
+    before and the exact instance's read just after: the work must be
+    finite and the energies must have no lambda split. Returns the kernel
+    entries of the three instances."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    t0 = time.perf_counter()
+    R = BACKENDS_R
+    lamx = EXACT_LAMBDA
+    g = {"lambda_sterics": lamx, "lambda_electrostatics": lamx}
+    eps32 = float(np.finfo(np.float32).eps)
+    rng = np.random.default_rng(19)
+    kernels = {}
+    cases = (
+        ("sweep", frozen, xf_min, dict(sweep_row_group=32, frozen_cull_skin=0.45)),
+        ("pallas", unfrozen, xu_min, {}),
+        ("pcells", unfrozen, xu_min, {}),
+    )
+    for backend, system, x0, extra in cases:
+        lig = system.topology.select_resname("LIG")
+        cfg = _config(nstepsNC=BACKENDS_STEPS, nstepsMD=BACKENDS_STEPS, cutoff=cutoff, nonbonded_backend=backend,
+                      alchemical_pme_treatment="exact", n_replicas=R, **extra)
+        sim = BLUESSimulation(system, RandomLigandRotationMove(lig, system.masses), cfg, device=device)
+        alch = sim.energy_alch
+        nb = alch.nonbonded
+        if nb.backend != backend or alch.has_split or nb.pair_sum0 is not None or nb.ea_sweep is not None:
+            raise RuntimeError(f"exact: {backend!r} resolved to {nb.backend!r}, or kept a lambda split")
+        ps = nb.pair_sum
+        name = {"sweep": "sweep", "pallas": "pair", "pcells": "cells"}[backend] + "_exact_main"
+        xs = perturbed(x0, np.asarray(system.masses) > 0, R, rng, device)
+        box = torch.as_tensor(np.asarray(system.box), dtype=torch.float32, device=device)
+        lam = nb.pair_factors(g, torch.float32, device)
+        if not (abs(lam[2] - lamx * lamx) < 1e-12 and abs(lam[1] - lamx) < 1e-12):
+            raise RuntimeError(f"exact: pair factors {lam}, expected f_aa = lambda^2")
+        kernels[name] = check_exact(name, ps, xs, box, lam)
+        tiled = make_energy_fn(
+            system, nonbonded_method="PME", cutoff=cutoff, ewald_tolerance=0.005, nonbonded_backend="tiled",
+            alchemical_pme_treatment="exact", device=device,
+            **({"frozen_cull_skin": 0.45} if backend == "sweep" else {}),
+        )
+        # the raw sums of K2, K3 and (off its fast path) tiled hold every
+        # excluded pair, which their rest term subtracts; K1 masks them
+        e_extra, f_extra = 4.0 * eps32 * _e_self(alch, system), 0.0
+        for efn in (alch, tiled) if backend != "sweep" else (tiled,):
+            e_raw, f_raw = raw_magnitudes(efn, xs, box, g)
+            e_extra, f_extra = e_extra + RAW_REL * e_raw, f_extra + RAW_REL * f_raw
+        compare(f"{backend} 'exact' vs tiled 'exact' at lambda {lamx}, composed", *make_force_fn(alch)(xs, box, g),
+                *make_force_fn(tiled)(xs, box, g), e_extra=e_extra, f_extra=f_extra, name="exact")
+        sims = [alch.nonbonded.pair_sum, sim.energy_md.nonbonded.pair_sum]
+        res, _ = run_path(sim, x0, {name: [ps]}, every + [sims], 0, 1, f"exact_{backend}", card)
+        kernels[name]["launches"] = res["launches"][name]
+    phase("exact", f"phase time {time.perf_counter() - t0:.1f} s on {card}")
+    return kernels
+
+
+def skewed_box(system, x, skew):
+    """``system`` on a reduced triclinic box sheared from its orthorhombic
+    one as tests/test_triclinic_cells.py shears it, and its positions: each
+    molecule moved rigidly with its centre of mass, whose fractional
+    coordinates are carried onto the new lattice (the test carries every
+    atom's, which stretches bonds and constraints; dynamics needs them
+    intact)."""
+    import numpy as np
+
+    from blues_tpu_torch.integrators.barostat import molecule_ids
+    from blues_tpu_torch.potentials.triclinic import is_triclinic, reduce_box_vectors
+
+    L = np.diag(np.asarray(system.box))
+    box = reduce_box_vectors(np.array([
+        [L[0], 0.0, 0.0],
+        [skew * L[0] * 0.45, L[1], 0.0],
+        [-skew * L[0] * 0.3, skew * L[1] * 0.4, L[2]],
+    ]))
+    if not is_triclinic(box):
+        raise RuntimeError("triclinic: the sheared box reduced to an orthorhombic one")
+    x = np.asarray(x, np.float64)
+    mol = molecule_ids(system)
+    m = np.asarray(system.masses, np.float64)
+    m = np.where(m > 0, m, 1.0)
+    n_mol = int(mol.max()) + 1
+    com = np.zeros((n_mol, 3))
+    np.add.at(com, mol, x * m[:, None])
+    com /= np.bincount(mol, weights=m, minlength=n_mol)[:, None]
+    return system.replace(box=box), x + ((com / L) @ box - com)[mol]
+
+
+def run_triclinic(device, card, n_atoms=N_ATOMS, cutoff=1.0):
+    """Phase triclinic: a TRI_ATOMS-atom toluene + TIP3P box sheared onto a
+    reduced triclinic lattice (``skewed_box``; PME at TRI_CUTOFF, tolerance
+    0.005, R = 2, lambda 1 and 0.4): 'cells' against 'dense' on the card
+    in float64 (compare's tolerance) and 'cells' on the card against the
+    CPU in float32 (raw-anchored); then the
+    full-width box sheared alike: 'auto' and 'pcells' must both resolve to
+    'cells', and after FIRE (TRI_MIN steps) one iteration of 10 + 10 steps
+    must end finite."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.core.build import solvated_ligand_box
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    t0 = time.perf_counter()
+    R = BACKENDS_R
+    eps32 = float(np.finfo(np.float32).eps)
+    lig_sys, lig_x = toluene_system()
+    small, xsm = solvated_ligand_box(lig_sys, lig_x, TRI_ATOMS, seed=3)
+    small = small.replace(alchemical=AlchemicalRegion(atoms=small.topology.select_resname("LIG")))
+    small, xsm = skewed_box(small, xsm, TRI_SKEW)
+    xs = perturbed(xsm, np.ones(small.n_atoms, bool), R, np.random.default_rng(23), device)
+    box = torch.as_tensor(np.asarray(small.box), dtype=torch.float32, device=device)
+    kw = dict(nonbonded_method="PME", cutoff=TRI_CUTOFF, ewald_tolerance=0.005)
+    cells = make_energy_fn(small, nonbonded_backend="cells", device=device, **kw)
+    dense = make_energy_fn(small, nonbonded_backend="dense", device=device, **kw)
+    cells_cpu = make_energy_fn(small, nonbonded_backend="cells", device="cpu", **kw)
+    if not cells.nonbonded.pair_sum.triclinic:
+        raise RuntimeError("triclinic: the cell list did not bin in fractional space")
+    e_self = _e_self(cells, small)
+    x64, box64 = xs.double(), box.double()
+    for lam in (1.0, 0.4):
+        g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+        # the two backends in float64: in float32 their sums round apart by
+        # about the raw-anchored tolerance (dense sums 5.1 M pair energies)
+        compare(f"{small.n_atoms} atoms lambda {lam}: cells vs dense on the card, float64",
+                *make_force_fn(cells)(x64, box64, g), *make_force_fn(dense)(x64, box64, g), name="triclinic")
+        e_c, f_c = make_force_fn(cells)(xs, box, g)
+        e_raw, f_raw = raw_magnitudes(cells, xs, box, g)
+        compare(f"{small.n_atoms} atoms lambda {lam}: cells on the card vs the CPU, float32", e_c, f_c,
+                *make_force_fn(cells_cpu)(xs.cpu(), box.cpu(), g), e_extra=4.0 * eps32 * e_self + RAW_REL * e_raw,
+                f_extra=RAW_REL * f_raw, name="triclinic")
+    t_small = time.perf_counter() - t0
+    phase(
+        "triclinic",
+        f"{small.n_atoms} atoms on box rows {np.round(np.asarray(small.box), 4).tolist()}: cell grid "
+        f"{cells.nonbonded.pair_sum.grid}, agrees with dense and with the CPU; {t_small:.1f} s",
+    )
+
+    t1 = time.perf_counter()
+    system, x0, lig = _box(n_atoms)
+    sheared, xsh = skewed_box(system, x0, TRI_SKEW)
+    pc = make_energy_fn(sheared, nonbonded_backend="pcells", nonbonded_method="PME", cutoff=cutoff,
+                        ewald_tolerance=0.005, device=device)
+    sim = BLUESSimulation(
+        sheared, RandomLigandRotationMove(lig, sheared.masses),
+        _config(nstepsNC=BACKENDS_STEPS, nstepsMD=BACKENDS_STEPS, cutoff=cutoff, nonbonded_backend="auto",
+                n_replicas=R),
+        device=device,
+    )
+    resolved = (pc.nonbonded.backend, sim.energy_md.nonbonded.backend, sim.energy_alch.nonbonded.backend)
+    if resolved != ("cells",) * 3:
+        raise RuntimeError(f"triclinic: 'pcells' and 'auto' on the sheared box resolved to {resolved}")
+    sim.initialize(xsh, seed=2031)
+    sim.minimize(TRI_MIN)
+    stats = [sim.run_iteration()]
+    torch.cuda.synchronize()
+    check_run(sim, stats, "triclinic")
+    xe, ve, be = sim.state
+    if not (torch.isfinite(xe).all() and torch.isfinite(ve).all()):
+        raise RuntimeError("triclinic: non-finite state after the iteration")
+    phase(
+        "triclinic",
+        f"{sheared.n_atoms} atoms sheared, grid {sim.energy_md.nonbonded.pair_sum.grid}: "
+        f"'pcells' and 'auto' -> 'cells'; FIRE {TRI_MIN} steps, 1 iteration of {BACKENDS_STEPS} + {BACKENDS_STEPS} "
+        f"steps at R = {R}: work {stats[0].protocol_work.cpu().numpy()} kJ/mol, MD failed "
+        f"{stats[0].md_failed.cpu().numpy()}, MD potential {stats[0].md_potential.cpu().numpy()}, "
+        f"{time.perf_counter() - t1:.1f} s; phase time {time.perf_counter() - t0:.1f} s on {card}",
+    )
+
+
 def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
-    """Phases 2-15 on ``device``; returns the kernels' JSON entries."""
+    """Phases 2-19 on ``device``; returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -1552,8 +2015,15 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     # path is plain tensor ops, as in the JAX package)
     run_ethylene(device, card)
     run_dense(device, card)
+    # the plain pair backends, triclinic boxes, and the 'exact' treatment on
+    # the three kernels
+    run_backends(device, card, unfrozen, xu_min, cutoff)
+    run_tiled_frozen(device, card, frozen, xf_min, cutoff)
+    exact = run_exact(device, card, frozen, xf_min, unfrozen, xu_min, every, cutoff)
+    run_triclinic(device, card, n_atoms, cutoff)
 
-    launches = {}
+    launches = {k: v.pop("launches") for k, v in exact.items()}
+    kres.update(exact)
     for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):
         launches.update(r["launches"])
     kernels = [

@@ -18,8 +18,7 @@ atom mobile), the toluene alchemical, two replicas on perturbed positions:
     2e-6*|E_raw| + 1e-2 in energy, 2e-6*max|F_raw| + 1e-3 in forces;
   * 'auto' resolves as JAX's does: 'dense' at 4,096 atoms and below,
     above that the card's rule (JAX's TPU rule: 'sweep' for a mostly-frozen
-    system, 'cells', which the port does not have, for a mostly-mobile
-    one);
+    system, 'cells' for a mostly-mobile one);
   * a boxless NoCutoff ``BLUESSimulation`` iteration on toluene in vacuum
     runs on 'dense' in the JAX driver's 999 nm box.
 """
@@ -132,8 +131,7 @@ def test_auto_resolves_as_jax(n, mostly, monkeypatch):
     """At 4,096 atoms and below both packages take 'dense'; above, the port
     follows JAX's rule on the TPU (the card's counterpart): 'sweep' for a
     mostly-frozen system (here its culled columns engage: the mobile atoms
-    sit within 0.6 nm of the centre), 'cells' for a mostly-mobile one,
-    which the port refuses, naming it."""
+    sit within 0.6 nm of the centre), 'cells' for a mostly-mobile one."""
     nb = _synthetic_nb(n)
     rng = np.random.default_rng(2)
     L = (n / 100.0) ** (1 / 3)
@@ -145,13 +143,9 @@ def test_auto_resolves_as_jax(n, mostly, monkeypatch):
               frozen_cull_skin=0.05, frozen_cull_cage_margin=0.1)
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     j_backend = getattr(jnb.make_nonbonded_energy(nb, **kw), "backend", "dense")
-    if j_backend == "cells":
-        assert n > 4096 and mostly == "mobile"
-        with pytest.raises(ValueError, match="'cells'"):
-            tnb.make_nonbonded_energy(nb, device=DEVICE, **kw)
-        return
     t = tnb.make_nonbonded_energy(nb, device=DEVICE, **kw)
-    assert t.backend == j_backend == ("dense" if n <= 4096 else "sweep")
+    expected = "dense" if n <= 4096 else ("cells" if mostly == "mobile" else "sweep")
+    assert t.backend == j_backend == expected
 
 
 def test_boxless_nocutoff_simulation_runs_on_dense():

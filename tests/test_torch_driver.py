@@ -6,7 +6,11 @@ replicas: two iterations of NCMC -> correction -> Metropolis -> MD. The
 reported MD potential must equal the JAX package's ``energy_md`` (sweep
 backend, Pallas interpret mode) at the port's positions, the full-array
 iteration (``frozen_compact=False``) must run, and configurations outside
-the slice must raise. An exploded but finite proposal (energies at ~1e15
+the slice must raise. The plain backends resolve on the frozen system as
+JAX's do, 'exact' runs the compact iteration without a lambda split, and
+on a small unfrozen box the 'verlet' MD rebuilds its list every
+``nlist_rebuild_interval`` steps and ends where the JAX driver's MD runner
+ends from the same start. An exploded but finite proposal (energies at ~1e15
 kJ/mol) goes through the correction and the Metropolis test of both
 drivers to the same decision.
 """
@@ -90,11 +94,15 @@ def test_md_rollback_restores_pre_md_state(frozen):
 
 @pytest.mark.parametrize(
     "bad",
-    [dict(pressure=1.0), dict(max_steps_per_dispatch=10), dict(nonbonded_backend="verlet"),
-     dict(nonbonded_backend="tiled"), dict(nonbonded_backend="cells"),
-     dict(alchemical_pme_treatment="exact")],
+    [dict(pressure=1.0), dict(max_steps_per_dispatch=10), dict(use_pallas=True),
+     dict(nonbonded_backend="bogus"), dict(alchemical_pme_treatment="bogus"),
+     dict(switch_distance=0.8)],
 )
 def test_outside_the_slice_raises(frozen, bad):
+    """The JAX driver's own refusals (pressure with frozen atoms under PME, a
+    switch distance outside the cutoff, an unknown treatment), the options
+    outside the port (segmented dispatch, ``use_pallas``), and an unknown
+    backend name."""
     fr, x, li = frozen
     pt = system_from_reference(fr)
     with pytest.raises(ValueError):
@@ -233,3 +241,93 @@ def test_exploded_finite_proposal_gets_the_same_decision_as_jax():
     assert bool(tst.accepted[0]) == bool(jst.accepted) is True
     assert float(tst.correction[0]) > 1e7  # the rounding, not the physics, decides
     np.testing.assert_array_equal(tsim.state[0][0].numpy(), np.asarray(state_out[0]))
+
+
+@pytest.mark.parametrize("backend", ["tiled", "cells", "verlet"])
+def test_plain_backends_resolve_on_the_frozen_system_as_jax(frozen, backend, monkeypatch):
+    """The driver takes every backend of the JAX package: on this frozen
+    system 'tiled' and 'cells' stay, and 'verlet' (no frozen-row
+    compaction) falls back as JAX's TPU branch does, to 'pallas'; both
+    energies resolve as JAX's MD energy does on the TPU."""
+    fr, x, li = frozen
+    pt = system_from_reference(fr)
+    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(CFG, nonbonded_backend=backend)), device=DEVICE)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")  # the branch the port takes
+    jax_md = je.make_energy_fn(
+        fr.replace(alchemical=None), nonbonded_method="PME", cutoff=0.65, nonbonded_backend=backend,
+    )
+    resolved = (sim.energy_md.nonbonded.backend, sim.energy_alch.nonbonded.backend)
+    assert resolved == (jax_md.nonbonded.backend,) * 2 == ({"verlet": "pallas"}.get(backend, backend),) * 2
+    assert not hasattr(sim.energy_md, "nlist_build")
+
+
+def test_exact_runs_the_monolithic_micro_step_on_the_compact_path(frozen):
+    """'exact' has no lambda split, so the compact iteration's protocol
+    takes the monolithic micro-step; the work is finite."""
+    fr, x, li = frozen
+    pt = system_from_reference(fr)
+    cfg = SimulationConfig(**dict(CFG, nstepsNC=4, nstepsMD=2, alchemical_pme_treatment="exact"))
+    sim = BLUESSimulation(pt, RandomLigandRotationMove(li, pt.masses), cfg, device=DEVICE)
+    assert sim._compact is not None and not sim.energy_alch.has_split and sim.energy_alch.nonbonded.exact
+    assert sim.energy_alch.nonbonded.pair_sum0 is None and sim.energy_alch.nonbonded.ea_sweep is None
+    sim.initialize(x, seed=8)
+    st = sim.run_iteration()
+    assert torch.isfinite(st.protocol_work).all() and torch.isfinite(st.md_potential).all()
+
+
+def test_verlet_md_rebuilds_its_list_and_matches_jax(monkeypatch):
+    """A 1,200-atom unfrozen box on 'verlet' (PME 0.6 nm, so a 3x3x3 grid
+    of 0.7 nm list cells), float64, friction 0, R = 1: one iteration of
+    NCMC (2 steps) and 12 MD steps rebuilding the list every 5 steps. The
+    MD builds its list 3 times (steps 0, 5 and 10; a remainder segment
+    gets its own), and the MD segment, replayed from the port's positions
+    and drawn velocities through the JAX driver's own MD runner, ends at
+    the same positions and MD energy."""
+    from blues_tpu.moves import NullMove as JNullMove
+    from blues_tpu.potentials import pme as jpme
+    from blues_tpu.simulation import BLUESSimulation as JSim
+    from blues_tpu.simulation import SimulationConfig as JConfig
+    from _torch_helpers import F64Jnp
+
+    lig, lig_x = toluene_system()
+    system, x = solvated_ligand_box(lig, lig_x, 1200, seed=4)
+    li = system.topology.select_resname("LIG")
+    system = system.replace(alchemical=AlchemicalRegion(atoms=li))
+    cfg = dict(nstepsNC=2, nstepsMD=12, dt=0.001, friction=0.0, nonbonded_method="PME", cutoff=0.6,
+               nonbonded_backend="verlet", nlist_rebuild_interval=5)
+    pt = system_from_reference(system)
+    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(**cfg), device=DEVICE, dtype=torch.float64)
+    assert sim.energy_md.nonbonded.backend == "verlet" and hasattr(sim.energy_md, "nlist_build")
+    assert sim.energy_md.nonbonded.pair_sum.grid == (3, 3, 3)
+    seen = {}
+    run_md = sim._run_md
+
+    def spy(x_, xd, vd, box):
+        seen["in"] = (xd.clone(), vd.clone(), box.clone())
+        out = run_md(x_, xd, vd, box)
+        seen["out"] = out
+        return out
+
+    sim._run_md = spy
+    sim.initialize(np.asarray(x, np.float64), seed=9)
+    st = sim.run_iteration()
+    assert sim.nlist_builds == 3
+    assert bool(torch.isfinite(st.md_potential).all()) and not bool(st.md_failed.any())
+    xd, vd, box = (t[0].numpy() for t in seen["in"])
+    x_end = seen["out"][0][0].numpy()
+
+    monkeypatch.setattr(jpme, "jnp", F64Jnp())
+    with jax.enable_x64(True):
+        jsim = JSim(system, JNullMove(), JConfig(**cfg))
+        runner = jsim._make_md_runner()
+
+        @jax.jit
+        def md_segment(x0, v0, b):
+            _, f0 = jsim.force_md(x0, b, None)
+            out = runner((x0, v0, f0, jax.random.PRNGKey(0), b), 12)
+            return out[0], jsim.energy_md(out[0], b, None)
+
+        xj, e_j = md_segment(jnp.asarray(xd), jnp.asarray(vd), jnp.asarray(box))
+        xj, e_j = np.asarray(xj), float(e_j)
+    assert np.abs(x_end - xj).max() < 1e-8
+    assert abs(float(st.md_potential[0]) - e_j) <= 1e-8 * abs(e_j) + 1e-6

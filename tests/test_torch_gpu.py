@@ -12,7 +12,10 @@ its row clusters; K2 and K3 as frozen systems build them (K2 over every
 column and over culled columns, K3 with the frozen rows masked; MAIN and
 E0) at R = 1 and 8, their layout kernels bit for bit; K1, K2 and K3 at
 R = 4 with a box per replica (NPT), and K3's poison of the one replica
-whose box shrank below cutoff-wide cells.
+whose box shrank below cutoff-wide cells. Under the 'exact' PME treatment
+(f_aa = lambda_e^2 != f_na) K1, K2 and K3 against their plain versions;
+and the plain cell-list (full and half neighbourhood) and verlet pair sums
+on the card against K3 at water density.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -28,11 +31,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cluster_case import COMMON as CLUSTER_COMMON
 from _torch_cluster_case import as_torch, build, build_frozen, density_box
 from _torch_sweep_case import LAM, port_ea, port_main
+from blues_tpu_torch.potentials.cells import CellListPairSum
 from blues_tpu_torch.potentials.features import build_pair_features
 from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
 from blues_tpu_torch.potentials.pcells import CellsPairSum
+from blues_tpu_torch.potentials.verlet import VerletPairSum
 
 pytestmark = pytest.mark.gpu
 
@@ -356,3 +362,41 @@ def test_cells_kernel_poisons_only_the_shrunken_replica():
     assert torch.isnan(ek[2]) and torch.isnan(fk[2]).all() and torch.isnan(ep[2])
     keep = torch.tensor([0, 1, 3], device=dev)
     _assert_close(ek[keep], fk[keep], ep[keep], fp[keep])
+
+
+#: (lam_s, f_na, f_aa) of the 'exact' treatment at lambda 0.3: the
+#: alchemical-alchemical pairs scale by lambda^2
+EXACT = (0.3, 0.3, 0.09)
+
+
+@pytest.mark.parametrize("kind", ["sweep", "pair", "cells"])
+def test_kernels_under_exact_match_plain(kind):
+    dev = _cuda()
+    if kind == "sweep":
+        ps, x, box = port_main(device=dev, replicas=2)
+    else:
+        xs, fa, L = density_box(3000, 98.8, seed=5, replicas=2)
+        x, box = as_torch(xs, L, dev)
+        ps = build(kind, fa, L, 1.0, dev)
+    ek, fk = ps(x, box, *EXACT)
+    torch.cuda.synchronize()
+    assert ps.launches == 1
+    _assert_close(ek, fk, *ps.plain(x, box, *EXACT))
+
+
+@pytest.mark.parametrize("kind", ["cells", "cells_half", "verlet"])
+def test_plain_backends_on_the_card_match_cells_kernel(kind):
+    """The plain cell-list and verlet sums run on CUDA tensors as tensor
+    ops (they are XLA code in the JAX package): the same E and F as K3."""
+    dev = _cuda()
+    xs, fa, L = density_box(6000, 98.8, seed=6, replicas=2)
+    x, box = as_torch(xs, L, dev)
+    k3 = build("cells", fa, L, 1.0, dev)
+    feats = build_pair_features(*fa)
+    common = dict(CLUSTER_COMMON, cutoff=1.0, box0=np.eye(3) * L, device=dev)
+    if kind == "verlet":
+        ps = VerletPairSum(feats, **common)
+    else:
+        ps = CellListPairSum(feats, half_neighborhood=kind == "cells_half", **common)
+        assert ps.half == (kind == "cells_half")
+    _assert_close(*ps(x, box, *LAM), *k3(x, box, *LAM))
