@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..potentials.gb import GBParams
 from .system import (
     AlchemicalRegion,
     CentroidRestraint,
@@ -24,11 +25,6 @@ from .system import (
     System,
     Topology,
 )
-
-#: reference System fields the port has no counterpart for; a non-empty
-#: value is refused
-_UNSUPPORTED = ("gb",)
-
 
 def _copy_fields(obj, cls):
     return cls(**{f: np.array(getattr(obj, f)) for f in cls.__dataclass_fields__})
@@ -47,10 +43,6 @@ def _copy_mixed(obj, cls):
 
 def system_from_reference(obj) -> System:
     """The port's System holding copies of ``obj``'s arrays."""
-    for name in _UNSUPPORTED:
-        val = getattr(obj, name, None)
-        if val is not None and not (isinstance(val, (list, tuple)) and len(val) == 0):
-            raise ValueError(f"reference system field {name!r} is outside the port's slice")
     alch = None
     if obj.alchemical is not None:
         ref = obj.alchemical
@@ -92,6 +84,7 @@ def system_from_reference(obj) -> System:
         frozen_ref_positions=(
             None if obj.frozen_ref_positions is None else np.array(obj.frozen_ref_positions)
         ),
+        gb=None if getattr(obj, "gb", None) is None else _copy_mixed(obj.gb, GBParams),
     )
 
 

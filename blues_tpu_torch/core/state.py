@@ -1,12 +1,23 @@
-"""Compensated work accumulation and Maxwell-Boltzmann velocities."""
+"""The simulation state, compensated work accumulation and
+Maxwell-Boltzmann velocities."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import units
 from .device import DEFAULT_DEVICE
+
+
+class SimState(NamedTuple):
+    """The dynamic state of R replicas; unpacks as (x, v, box)."""
+
+    positions: torch.Tensor  # (R, N, 3) nm
+    velocities: torch.Tensor  # (R, N, 3) nm/ps
+    box: torch.Tensor  # (R, 3, 3) nm
 
 
 class KahanAccumulator:

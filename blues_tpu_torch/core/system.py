@@ -1,7 +1,6 @@
 """System specification: topology and force-field parameters as numpy arrays.
 
-The port's copy of ``blues_tpu.core.system`` (all but the generalized-Born
-field), with the same field names, so a reference ``System`` maps onto this
+The port's copy of ``blues_tpu.core.system``, with the same field names, so a reference ``System`` maps onto this
 one field by field (``core/convert.py``). Energy builders close
 over these arrays and stage them on the device once.
 
@@ -194,6 +193,9 @@ class System:
     topology: Optional[Topology] = None
     #: positions captured when atoms were frozen (freeze_radius)
     frozen_ref_positions: Optional[np.ndarray] = None
+    #: generalized-Born implicit solvent (potentials.gb.GBParams, from the
+    #: prmtop RADII/SCREEN sections); None = no GB term
+    gb: Optional[object] = None
 
     @property
     def n_atoms(self) -> int:

@@ -11,6 +11,11 @@ E(x, lam) = E0(x) + Ea(x, lam) is exposed as ``lambda_e0_f0`` and
 forces may read the lambda globals, so a system with any turns the split
 off, as in the JAX package.
 
+Generalized Born (``potentials/gb.py``, ``system.gb``) runs with
+NoCutoff only, as in the JAX package. Without an alchemical region it is
+lambda-independent and joins E0 of the split; with one, its polarization
+sum reads ``lambda_electrostatics``, so the split is off.
+
 Neighbour-list hooks (the 'verlet' backend), as in the JAX package: when
 the nonbonded pair sum has ``build``, the energy function gets
 ``nlist_build(x, box)``, ``force_with_nlist(nlist, x, box, globals_)``
@@ -30,6 +35,7 @@ from ..core.device import DEFAULT_DEVICE
 from ..core.system import System
 from .bonded import BondedTerms
 from .custom_pair import CustomPairEnergy
+from .gb import GBEnergy
 from .nonbonded import NO_CUTOFF, make_nonbonded_energy
 
 
@@ -49,6 +55,22 @@ class EnergyFunction:
     def __init__(self, system: System, device, **nb_kwargs):
         self.bonded = BondedTerms(system, device)
         self.custom_pairs = [CustomPairEnergy(cp, device) for cp in system.custom_pairs]
+        self.gb = None
+        if system.gb is not None:
+            method = nb_kwargs.get("method", NO_CUTOFF)
+            if method != NO_CUTOFF:
+                # the truncated GBSAOBC variant is not implemented, and OpenMM
+                # refuses GB with periodic methods (the JAX package's refusal)
+                raise ValueError(
+                    f"implicit solvent (GB) is implemented for nonbonded_method 'NoCutoff' only, got {method!r}"
+                )
+            if system.nonbonded is None:
+                raise ValueError("implicit solvent (GB) needs the system's charges (NonbondedParams)")
+            alch = system.alchemical
+            self.gb = GBEnergy(
+                system.gb, system.nonbonded.charge,
+                alchemical_atoms=alch.atoms if alch is not None and len(alch.atoms) else None, device=device,
+            )
         self.nonbonded = None
         if system.nonbonded is not None:
             cull_bonds = [np.asarray(e.idx).reshape(-1, 2) for e in (system.bonds, system.constraints) if len(e)]
@@ -63,7 +85,10 @@ class EnergyFunction:
                 **nb_kwargs,
             )
         nb = self.nonbonded
-        self.has_split = nb is not None and nb.has_split and not self.custom_pairs
+        self.has_split = (
+            nb is not None and nb.has_split and not self.custom_pairs
+            and not (self.gb is not None and self.gb.has_alchemical)
+        )
         ps = getattr(nb, "pair_sum", None)
         if ps is not None and hasattr(ps, "build"):
             self.nlist_build = ps.build
@@ -76,6 +101,8 @@ class EnergyFunction:
             e = e + self.bonded(x, box)
         for cp in self.custom_pairs:
             e = e + cp(x, box, globals_)
+        if self.gb is not None:
+            e = e + self.gb(x, box, globals_)
         return e
 
     def force_with_nlist(self, nlist, x, box=None, globals_=None):
@@ -90,12 +117,16 @@ class EnergyFunction:
         e = self.bonded(x, box) if self.bonded else x.new_zeros(x.shape[0])
         for cp in self.custom_pairs:
             e = e + cp(x, box, globals_)
+        if self.gb is not None:
+            e = e + self.gb(x, box, globals_)
         if self.nonbonded is not None:
             e = e + self.nonbonded(x, box, globals_)
         return e
 
     def _e0_total(self, x, box=None):
         e = self.nonbonded.lambda_e0(x, box)
+        if self.gb is not None:  # the split is on: GB is lambda-independent
+            e = e + self.gb(x, box)
         return e + self.bonded(x, box) if self.bonded else e
 
     def lambda_e0_f0(self, x, box=None):

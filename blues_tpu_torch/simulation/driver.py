@@ -60,7 +60,7 @@ import torch
 from .. import units
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.rng import TorchRandomSource
-from ..core.state import maxwell_boltzmann_velocities
+from ..core.state import SimState, maxwell_boltzmann_velocities
 from ..core.system import System
 from ..integrators.barostat import MonteCarloBarostat
 from ..integrators.constraints import make_constraint_fns
@@ -145,7 +145,7 @@ def _check_slice(cfg: SimulationConfig, move):
 
 
 def initial_state(system, cfg, positions, box, seed, source, dtype, device, velocities=None):
-    """(source, (x, v, box)): the run's random source (``source``, else a
+    """(source, SimState(x, v, box)): the run's random source (``source``, else a
     ``torch.Generator`` on ``device`` seeded with ``seed``) and the state of
     ``cfg.n_replicas`` replicas: positions (N, 3) broadcast to (R, N, 3), a
     (3, 3) box (the system's when None, else a 999 nm cube, in effect no
@@ -167,7 +167,7 @@ def initial_state(system, cfg, positions, box, seed, source, dtype, device, velo
         v = maxwell_boltzmann_velocities(source, system.masses, cfg.temperature, R, dtype, device)
     else:
         v = replicas(velocities)
-    return source, (replicas(positions), v, replicas(box))
+    return source, SimState(replicas(positions), v, replicas(box))
 
 
 class BLUESSimulation:
@@ -342,7 +342,7 @@ class BLUESSimulation:
             self.force_md, self.system.masses, x, box, n_steps=n_steps,
             constrain_x=self._constrain[0],
         )
-        self.state = (xm, v, box)
+        self.state = SimState(xm, v, box)
         return self.state
 
     # ------------------------------------------------------------------
@@ -387,7 +387,7 @@ class BLUESSimulation:
             full = x.unsqueeze(1).expand(-1, K, -1, -1).reshape(R * K, *x.shape[1:])
             snaps = put(full, snaps.reshape(R * K, *snaps.shape[2:])).reshape(R, K, *x.shape[1:])
         v = put(torch.zeros_like(x), vd)
-        self.state = (x_md, v, box)
+        self.state = SimState(x_md, v, box)
         self.iteration_count += 1
         aux = res.move_aux
         if isinstance(aux, dict) and "selected" in aux:
@@ -413,8 +413,8 @@ class BLUESSimulation:
         ``barostat_frequency`` steps with a barostat; with a barostat each
         chunk is followed by a volume move and a force re-evaluation (the
         remainder steps get no attempt, and no frame). A replica whose MD
-        ends non-finite rolls back its positions, velocities, box and
-        barostat state. Returns (xd, vd, box, (R,) MD potential at the end,
+        ends non-finite (its energy, positions or velocities) rolls back
+        its positions, velocities, box and barostat state. Returns (xd, vd, box, (R,) MD potential at the end,
         (R,) md_ok, (R, n_chunks, N, 3) full-coordinate frames after each
         chunk or None without an interval)."""
         cfg, src, baro = self.cfg, self.source, self._barostat
@@ -442,7 +442,9 @@ class BLUESSimulation:
             fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
             xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
         e_md_end = self.energy_md(self._put(x, xd), box, None)
-        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1)
+        # velocities too: a neighbour list found stale at the last step's
+        # forces poisons only the last half-kick
+        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1) & torch.isfinite(vd).all(-1).all(-1)
         ok3 = md_ok[:, None, None]
         xd, vd, box = (torch.where(ok3, a, b) for a, b in zip((xd, vd, box), keep))
         if baro is not None:
@@ -465,14 +467,16 @@ class BLUESSimulation:
             xd, vd, fd, _e = self._md_nlist_step(xd, vd, fd, box)
         return xd, vd, fd
 
-    def run(self, n_iter: Optional[int] = None):
-        """Run ``n_iter`` iterations (default ``nIter``); returns the
-        acceptance ratio over all replicas and iterations, and logs each
-        sub-move's acceptance when the move has several."""
+    def run(self, n_iter: Optional[int] = None, reporters=()):
+        """Run ``n_iter`` iterations (default ``nIter``) and hand each
+        reporter ``(self, it, stats, md_frames, ncmc_frames)`` after
+        iteration ``it`` (MD frames with ``md_report_interval`` set);
+        returns the acceptance ratio over all replicas and iterations, and
+        logs each sub-move's acceptance when the move has several."""
         n_iter = n_iter if n_iter is not None else self.cfg.nIter
         n_accept = n_total = 0.0
-        for _ in range(n_iter):
-            stats = self.run_iteration()
+        for it in range(n_iter):
+            stats, md_frames, ncmc_frames = self.run_iteration_frames()
             acc = stats.accepted.cpu().numpy()
             sel = stats.selected_move.cpu().numpy()
             n_accept += float(acc.sum())
@@ -481,6 +485,8 @@ class BLUESSimulation:
             np.add.at(self.move_stats[:, 0], sel, 1.0)
             np.add.at(self.move_stats[:, 1], sel, acc.astype(np.float64))
             self.stats_history.append({k: t.cpu().numpy() for k, t in stats._asdict().items()})
+            for rep in reporters:
+                rep.report(self, it, stats, md_frames, ncmc_frames)
         ratio = n_accept / max(n_total, 1.0)
         logger.info("Acceptance Ratio: %s", ratio)
         logger.info("nIter: %s", n_iter)

@@ -19,7 +19,7 @@ import torch
 
 from .. import units
 from ..core.device import DEFAULT_DEVICE, resolve_device
-from ..core.state import maxwell_boltzmann_velocities
+from ..core.state import SimState, maxwell_boltzmann_velocities
 from ..integrators.constraints import make_constraint_fns
 from ..integrators.langevin import LangevinParams, make_md_step
 from ..potentials.energy import make_energy_fn, make_force_fn
@@ -94,7 +94,7 @@ class MonteCarloSimulation:
         for _ in range(self.cfg.nstepsMD):
             x, v, f, _e = self._md_step(x, v, f, box)
         stats = MCStats(torch.stack(accepts), torch.stack(dpes), energy(x, box, None))
-        self.state = (x, v, box)
+        self.state = SimState(x, v, box)
         return stats
 
     def run(self, n_iter: Optional[int] = None):

@@ -18,6 +18,8 @@ ONE_4PI_EPS0 = 138.93545764438198
 AVOGADRO = 6.02214076e23
 #: 1 bar in kJ/(mol*nm^3)
 BAR_TO_KJMOL_PER_NM3 = 1.0e5 * 1e-27 * AVOGADRO / 1000.0
+#: Amber prmtop charges are stored multiplied by 18.2223 = sqrt(kcal*A/mol/e^2)
+AMBER_CHARGE_SCALE = 18.2223
 KCAL_TO_KJ = 4.184
 
 
@@ -50,6 +52,22 @@ _UNIT_TABLE = {
     "bar": (BAR_TO_KJMOL_PER_NM3, "pressure"),
     "atmosphere": (1.01325 * BAR_TO_KJMOL_PER_NM3, "pressure"),
     "atmospheres": (1.01325 * BAR_TO_KJMOL_PER_NM3, "pressure"),
+}
+
+
+#: the unit of a bare number per config key (the reference's per-key table)
+DEFAULT_UNITS = {
+    "dt": "picoseconds",
+    "friction": "/picosecond",
+    "temperature": "kelvin",
+    "pressure": "bar",
+    "hydrogenMass": "daltons",
+    "nonbondedCutoff": "angstroms",
+    "switchDistance": "angstroms",
+    "cutoff": "angstroms",
+    "freeze_distance": "angstroms",
+    "weight": "kilocalories_per_mole",  # restraint weight per A^2 handled at use site
+    "radius": "angstroms",
 }
 
 

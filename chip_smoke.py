@@ -122,13 +122,41 @@ Phases (each prints its own line; any failure exits non-zero):
      (PME 0.8 nm): 'cells' against 'dense' on the card (float64) and
      against the CPU (float32) at lambda 1 and 0.4; the full-width box sheared (molecules moved
      rigidly): 'auto' and 'pcells' resolve to 'cells', and after 100 FIRE
-     steps one iteration of 10 + 10 steps ends finite.
+     steps one iteration of 10 + 10 steps ends finite;
+ 20. cli: the YAML entry point on the main path. The 22,341-atom box is
+     written as an Amber prmtop and inpcrd (tests/_torch_amber.py) with a
+     JSON config equal to examples/rotmove.yml but for the main path's
+     settings (PME 10 A, tolerance 0.005, HMR 3.024 Da, dt 4 fs, the waters
+     within 0.5 nm of the ligand mobile: 132 atoms, 'sweep' with row groups
+     of 32, 2 iterations of 50 + 50 steps after FIRE 100, MD frames every 25
+     steps, restart and stream rows, NCMC frames at [1, 0.5, -1] with their
+     work); ``python -m blues_tpu_torch run cfg.json --replicas 8`` in a
+     subprocess must exit 0 with an acceptance line, and ``info`` must print
+     the builder's counts; in process, ``create_simulation``: the System
+     read from the prmtop against the builder's in energy and forces (phase
+     check's tolerance), the native tokenizer, K1 MAIN, E0 and EA launched
+     in two iterations with the config's reporters, every replica's work
+     finite in an iteration and no non-finite work accepted (as phase
+     main: the culling guard vetoes with a NaN), the NetCDF files (the
+     last NCMC frame's work equal to the iteration's) and the rst7 read back, and a checkpoint saved after
+     iteration 1 and loaded into a fresh simulation making the same
+     decisions in iteration 2; the load, create and step times beside phase
+     main's;
+ 21. gb: generalized Born on a 2,541-atom droplet (toluene and its 842
+     nearest waters, mbondi2 radii), OBC2 with 0.1 M salt, NoCutoff, HBonds,
+     dt 2 fs, R = 8, FIRE 100 and 2 iterations of 50 + 50 steps through
+     ``create_simulation``: work as phase 20's (an overlap blows a
+     protocol up to a non-finite, rejected work), no lambda split; the GB term on
+     the card against the CPU in float64 (HCT, OBC1, OBC2 at lambda_e 1,
+     0.5, 0), float32 against float64, and its time, launches and peak
+     memory per energy + forces call at R = 8.
 
-Each path (5-12, and the three runs of phase 18) must launch its kernels:
-every count is set to 0 just before the path and read just after. Phases
-14-17 and 19 have no kernel of their own: the ethylene system has no
-NonbondedParams, and the dense, tiled, cells and verlet paths are plain
-tensor ops, as they are XLA code in the JAX package. Then the card's name and
+Each path (5-12, the three runs of phase 18 and phase 20's run) must
+launch its kernels: every count is set to 0 just before the path and read just after. Phases
+14-17, 19 and 21 have no kernel of their own: the ethylene system has no
+NonbondedParams, and the dense, tiled, cells and verlet paths and
+generalized Born are plain tensor ops, as they are XLA code in the JAX
+package. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -207,6 +235,16 @@ VERLET_DT = 0.002
 #: the triclinic phase: the small skewed box (atoms, cutoff, shear as in
 #: tests/test_triclinic_cells.py) and the FIRE steps of the sheared full box
 TRI_ATOMS, TRI_CUTOFF, TRI_SKEW, TRI_MIN = 3200, 0.8, 0.55, 100
+#: the cli phase: FIRE steps and MD frame interval (the main path's widths)
+CLI_MIN, CLI_FRAME_EVERY = 100, 25
+#: the gb phase: waters of the droplet (with toluene 2,541 atoms), FIRE
+#: steps, fp32 operations per ordered pair of one GB energy + forces (forward
+#: about 65: Born radii about 40, polarisation about 25, exp, log, sqrt and
+#: reciprocals counted once each; backward twice that), and the float32
+#: card vs float64 CPU tolerance (energy relative, forces / (max|F| + 1))
+GB_WATERS, GB_MIN, GB_PAIR_FLOPS, GB_F32_REL = 842, 100, 200, (1e-5, 2e-4)
+#: the most a restored iteration's positions may differ from the original's (nm)
+RESTORE_DX_NM = 1e-2
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -1100,45 +1138,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     t_min = time.perf_counter() - t0
     x_min = sim.state[0][0].cpu().numpy()
 
-    timers = {"ncmc": 0.0, "md": 0.0, "md_steps": 0}
-    protocol, md_step = sim.protocol_fn, sim._md_step_d
-
-    auxes = []
-
-    def timed_protocol(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = protocol(*args)
-        torch.cuda.synchronize()
-        timers["ncmc"] += time.perf_counter() - t
-        auxes.append(out.move_aux)
-        return out
-
-    def timed_md_step(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = md_step(*args)
-        torch.cuda.synchronize()
-        timers["md"] += time.perf_counter() - t
-        timers["md_steps"] += 1
-        return out
-
-    baro = getattr(sim, "_barostat", None)
-    baro_step = baro.step if baro is not None else None
-    timers.update(baro=0.0, baro_steps=0)
-
-    def timed_baro_step(*args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = baro_step(*args)
-        torch.cuda.synchronize()
-        timers["baro"] += time.perf_counter() - t
-        timers["baro_steps"] += 1
-        return out
-
-    sim.protocol_fn, sim._md_step_d = timed_protocol, timed_md_step
-    if baro is not None:
-        baro.step = timed_baro_step
+    timers, auxes, restore = step_timers(sim)
     stats = []
     t0 = time.perf_counter()
     for _ in range(n_iter):
@@ -1148,23 +1148,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     launches = read_counts(counted)
 
     R = sim.cfg.n_replicas
-    work = np.stack([s.protocol_work.cpu().numpy() for s in stats])
-    for s in stats:
-        for k, t in s._asdict().items():
-            if tuple(t.shape) != (R,):
-                raise RuntimeError(f"{label}: stats.{k} has shape {tuple(t.shape)}, expected ({R},)")
-        acc = s.accepted.cpu().numpy()
-        la = s.log_accept.double().cpu().numpy()
-        if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
-            raise RuntimeError(f"{label}: accepted is inconsistent with log_accept")
-        kept = ~s.md_failed.cpu().numpy()  # a rolled-back replica reports its failed segment
-        if not np.all(np.isfinite(s.md_potential.cpu().numpy()[kept])):
-            raise RuntimeError(f"{label}: non-finite MD potential without a rollback")
-    x_end, v_end, _ = sim.state
-    if not (torch.isfinite(x_end).all() and torch.isfinite(v_end).all()):
-        raise RuntimeError(f"{label}: non-finite positions or velocities after the iterations")
-    if not np.all(np.isfinite(work).any(0)):
-        raise RuntimeError(f"{label}: a replica has non-finite work in every iteration: {work}")
+    work = check_iterations(sim, stats, label)
     for k, n in launches.items():
         if n <= 0:
             raise RuntimeError(f"{label}: kernel {k} was not launched on its path")
@@ -1192,10 +1176,40 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         f"NCMC micro-step {res['micro_ms']:.2f} ms, MD step {res['md_ms']:.2f} ms (synchronised per step), "
         f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}",
     )
-    sim.protocol_fn, sim._md_step_d = protocol, md_step
-    if baro is not None:
-        baro.step = baro_step
+    restore()
     return res, x_min
+
+
+def check_iterations(sim, stats, label):
+    """The checks every path's iterations get: each stat of shape (R,),
+    ``accepted`` consistent with ``log_accept``, a finite MD potential
+    where no replica rolled back, finite final positions and velocities,
+    and every replica's work finite in some iteration. Returns the
+    (n_iter, R) work."""
+    import numpy as np
+    import torch
+
+    R = sim.cfg.n_replicas
+    for s in stats:
+        for k, t in s._asdict().items():
+            if tuple(t.shape) != (R,):
+                raise RuntimeError(f"{label}: stats.{k} has shape {tuple(t.shape)}, expected ({R},)")
+        acc = s.accepted.cpu().numpy()
+        la = s.log_accept.double().cpu().numpy()
+        if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
+            raise RuntimeError(f"{label}: accepted is inconsistent with log_accept")
+        kept = ~s.md_failed.cpu().numpy()  # a rolled-back replica reports its failed segment
+        if not np.all(np.isfinite(s.md_potential.cpu().numpy()[kept])):
+            raise RuntimeError(f"{label}: non-finite MD potential without a rollback")
+    x_end, v_end, _ = sim.state
+    if not (torch.isfinite(x_end).all() and torch.isfinite(v_end).all()):
+        bad = [(~torch.isfinite(t)).flatten(1).any(1).cpu().numpy().astype(int).tolist() for t in (x_end, v_end)]
+        raise RuntimeError(f"{label}: non-finite positions (replicas {bad[0]}) or velocities ({bad[1]}) after "
+                           f"the iterations; MD rolled back {stats[-1].md_failed.cpu().numpy().astype(int).tolist()}")
+    work = np.stack([s.protocol_work.double().cpu().numpy() for s in stats])
+    if not np.all(np.isfinite(work).any(0)):
+        raise RuntimeError(f"{label}: a replica has non-finite work in every iteration: {work}")
+    return work
 
 
 def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
@@ -1446,23 +1460,15 @@ def peak_ms(fn, reps, device):
 
 
 def check_run(sim, stats, label):
-    """Finite work on every replica, finite MD potentials where MD was not
-    rolled back, and accepted consistent with log_accept."""
+    """``check_iterations``, and beyond it finite work on every replica in
+    every iteration and MD kept on some replica in each."""
     import numpy as np
 
-    R = sim.cfg.n_replicas
-    for st in stats:
-        for k, t in st._asdict().items():
-            if tuple(t.shape) != (R,):
-                raise RuntimeError(f"{label}: stats.{k} has shape {tuple(t.shape)}, expected ({R},)")
-        acc, la = st.accepted.cpu().numpy(), st.log_accept.double().cpu().numpy()
-        if np.any(acc & ~np.isfinite(la)) or np.any(~acc & np.isfinite(la) & (la > 0)):
-            raise RuntimeError(f"{label}: accepted is inconsistent with log_accept")
-        if not np.isfinite(st.protocol_work.double().cpu().numpy()).all():
-            raise RuntimeError(f"{label}: non-finite protocol work {st.protocol_work}")
-        kept = ~st.md_failed.cpu().numpy()
-        if not kept.any() or not np.isfinite(st.md_potential.double().cpu().numpy()[kept]).all():
-            raise RuntimeError(f"{label}: MD rolled back everywhere, or a non-finite MD potential")
+    work = check_iterations(sim, stats, label)
+    if not np.isfinite(work).all():
+        raise RuntimeError(f"{label}: non-finite protocol work {work}")
+    if any(bool(st.md_failed.all()) for st in stats):
+        raise RuntimeError(f"{label}: MD rolled back everywhere")
 
 
 def run_backends(device, card, system, x_min, cutoff=1.0):
@@ -1859,8 +1865,470 @@ def run_triclinic(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     )
 
 
+def cli_config(d, outfname, minimize=CLI_MIN, cutoff=1.0):
+    """``examples/rotmove.yml`` on the written box, with the main path's
+    settings: PME 10 A (tolerance 0.005), HMR 3.024 Da, dt 4 fs, the waters
+    within 0.5 nm of the ligand mobile, 'sweep' with row groups of 32, two
+    iterations of 50 + 50 steps after ``minimize`` FIRE steps; MD frames
+    every 25 steps, a restart and stream rows, NCMC frames at [1, 0.5, -1]
+    with their protocol work."""
+    return {
+        "output_dir": d, "outfname": outfname, "logger": {"level": "info", "stream": True},
+        "structure": {"filename": os.path.join(d, "box.prmtop"), "xyz": os.path.join(d, "box.inpcrd")},
+        "system": {
+            "nonbondedMethod": "PME", "nonbondedCutoff": f"{10.0 * cutoff:g} * angstroms", "ewaldErrorTolerance": 0.005,
+            "constraints": "HBonds", "rigidWater": True, "hydrogenMass": "3.024 * daltons",
+            "alchemical": {"softcore_alpha": 0.5, "softcore_beta": 0.0, "annihilate_electrostatics": True,
+                           "annihilate_sterics": False},
+        },
+        "freeze": {"freeze_center": ":LIG", "freeze_distance": "5 * angstroms", "freeze_solvent": ""},
+        "simulation": {
+            "dt": "0.004 * picoseconds", "friction": "1 * 1/picoseconds", "temperature": "300 * kelvin",
+            "nIter": N_ITER_SHORT, "nstepsMD": NSTEPS, "nstepsNC": NSTEPS, "minimize": minimize, "nprop": 1,
+            "propLambda": 0.3, "nonbonded_backend": "sweep", "sweep_row_group": 32,
+        },
+        "md_reporters": {
+            "traj_netcdf": {"reportInterval": CLI_FRAME_EVERY}, "restart": {"reportInterval": 10},
+            "stream": {"title": "md", "reportInterval": 1, "totalSteps": N_ITER_SHORT * NSTEPS},
+        },
+        "ncmc_reporters": {
+            "traj_netcdf": {"frame_indices": [1, 0.5, -1], "protocolWork": True, "alchemicalLambda": True},
+            "stream": {"title": "ncmc", "reportInterval": 1, "totalSteps": N_ITER_SHORT * NSTEPS, "protocolWork": True},
+        },
+    }
+
+
+def step_timers(sim):
+    """Wrap ``sim``'s NCMC protocol, MD step and barostat step (where it
+    has one) with synchronised host timers, keeping each protocol's
+    ``move_aux``: (timers, auxes, restore)."""
+    import torch
+
+    timers = {"ncmc": 0.0, "protocols": 0, "md": 0.0, "md_steps": 0, "baro": 0.0, "baro_steps": 0}
+    auxes = []
+    protocol, md_step = sim.protocol_fn, sim._md_step_d
+    baro = getattr(sim, "_barostat", None)
+    baro_step = baro.step if baro is not None else None
+
+    def timed(fn, key, count):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            timers[key] += time.perf_counter() - t
+            timers[count] += 1
+            if key == "ncmc":
+                auxes.append(out.move_aux)
+            return out
+
+        return call
+
+    sim.protocol_fn, sim._md_step_d = timed(protocol, "ncmc", "protocols"), timed(md_step, "md", "md_steps")
+    if baro is not None:
+        baro.step = timed(baro_step, "baro", "baro_steps")
+
+    def restore():
+        sim.protocol_fn, sim._md_step_d = protocol, md_step
+        if baro is not None:
+            baro.step = baro_step
+
+    return timers, auxes, restore
+
+
+class KeepStats:
+    """A reporter that keeps each iteration's stats."""
+
+    def __init__(self):
+        self.stats = []
+
+    def report(self, sim, it, stats, md_frames, ncmc_frames):
+        self.stats.append(stats)
+
+
+def snapshot(sim):
+    """What a checkpoint must carry: the state, the counters, the move
+    statistics and the generator's state, copied."""
+    import numpy as np
+
+    x, v, box = sim.state
+    return dict(positions=x.clone(), velocities=v.clone(), box=box.clone(), iteration_count=sim.iteration_count,
+                accept_counter=sim.accept_counter, move_stats=np.array(sim.move_stats),
+                rng_state=sim.source.generator.get_state())
+
+
+def check_restore(sim, ckpt, saved, acc_orig, work_orig, make_sim):
+    """A checkpoint written after iteration 1 (``saved``: its ``snapshot``
+    then) and loaded into a fresh simulation from ``make_sim``: the loaded
+    state, counters and generator equal the saved ones bit for bit.
+    Iteration 2 from it draws the original's stream (both generators end
+    equal), accepts what the original accepted, and ends within
+    RESTORE_DX_NM of the original's positions and within a tenth of what
+    iteration 2 on another noise stream from the same checkpoint gives.
+    The same iteration once more from the checkpoint measures the card's
+    run-to-run spread beside the gap. Returns the summary."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.core.checkpoint import load_checkpoint
+
+    def same(a, b):
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else np.array_equal(a, b)
+
+    sim2 = make_sim()
+    load_checkpoint(ckpt, sim2)
+    loaded = snapshot(sim2)
+    wrong = [k for k, v in saved.items() if not same(loaded[k], v)]
+    if wrong:
+        raise RuntimeError(f"cli: the loaded checkpoint differs from the saved state in {wrong}")
+    runs = {}
+    for run in ("restored", "again", "other stream"):
+        if run != "restored":
+            load_checkpoint(ckpt, sim2)
+        if run == "other stream":
+            sim2.source.generator.manual_seed(99)
+        st = sim2.run_iteration()
+        runs[run] = (st, sim2.state.positions.clone(), sim2.source.generator.get_state())
+    x_orig, gen_orig = sim.state.positions, sim.source.generator.get_state()
+    dx = {k: float((x - x_orig).abs().max()) for k, (_, x, _) in runs.items()}
+    dx_again = float((runs["again"][1] - runs["restored"][1]).abs().max())
+    for run in ("restored", "again"):
+        st, _, gen = runs[run]
+        if not torch.equal(gen, gen_orig) or not np.array_equal(st.accepted.cpu().numpy(), acc_orig):
+            raise RuntimeError(f"cli: the {run} iteration 2 drew another stream ({not torch.equal(gen, gen_orig)}) "
+                               f"or accepted {st.accepted.cpu().numpy()} where the original accepted {acc_orig}")
+    if sim2.iteration_count != 2 or not (dx["restored"] <= RESTORE_DX_NM and dx["restored"] <= 0.1 * dx["other stream"]):
+        raise RuntimeError(f"cli: after the restored iteration 2: count {sim2.iteration_count}, max |dx| from the "
+                           f"original {dx} nm (limit {RESTORE_DX_NM} and a tenth of the other stream's)")
+    w2 = runs["restored"][0].protocol_work.double().cpu().numpy()
+    both = np.isfinite(w2) & np.isfinite(work_orig)
+    dw = float(np.abs(w2 - work_orig)[both].max()) if both.any() else float("nan")
+    return (f"loaded state, counters, move_stats and generator equal the saved ones; the restored iteration 2 "
+            f"accepted {acc_orig.astype(int).tolist()} as the original and drew the same stream, twice; positions "
+            f"max |dx| from the original {dx['restored']:.3e} nm, between the two restored runs {dx_again:.3e} nm, "
+            f"another noise stream's {dx['other stream']:.3e} nm; protocol work max |dW| {dw:.3e} kJ/mol where both "
+            f"finite ({int(both.sum())} of {both.size})")
+
+
+def _fixtures():
+    """tests/_torch_amber.py: the Amber writer and the droplet cutter."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_amber
+
+    return _torch_amber
+
+
+def run_cli(device, card, every, main_res, n_atoms=N_ATOMS, cutoff=1.0):
+    """Phase cli: the YAML entry point on the main path. The 22,341-atom box
+    is written as an Amber prmtop and inpcrd (tests/_torch_amber.py) beside
+    a JSON ``cli_config``; ``python -m blues_tpu_torch run cfg.json
+    --replicas 8`` runs it in a subprocess (exit 0, an acceptance line), and
+    ``info`` prints the builder's counts. In process, ``create_simulation``:
+    the prmtop's System agrees in energy with the builder's at the same
+    positions (phase check's tolerance), 132 atoms are mobile, the native
+    tokenizer reads the file by default, K1 MAIN, E0 and EA launch in two
+    iterations with the config's reporters (``check_iterations``, as every
+    path: the culling guard vetoes a proposal with a NaN work, never
+    accepted), whose NetCDF files (the subprocess's) and rst7 (this run's)
+    read back; a checkpoint saved after the first iteration restores into
+    a fresh simulation (``check_restore``)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import netcdf_file
+
+    from blues_tpu_torch import units
+    from blues_tpu_torch.config import create_simulation
+    from blues_tpu_torch.core import native
+    from blues_tpu_torch.core.amber_coords import load_inpcrd
+    from blues_tpu_torch.core.checkpoint import save_checkpoint
+    from blues_tpu_torch.core.prmtop import Prmtop, load_prmtop
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+    from blues_tpu_torch.testsystems import t4_scale_toluene_box
+
+    amber = _fixtures()
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        system, x0 = t4_scale_toluene_box(n_atoms=n_atoms)
+        t0 = time.perf_counter()
+        amber.write_amber(system, x0, os.path.join(d, "box.prmtop"), os.path.join(d, "box.inpcrd"))
+        t_write = time.perf_counter() - t0
+        prmtop = os.path.join(d, "box.prmtop")
+        with open(os.path.join(d, "cfg.json"), "w") as f:
+            json.dump(cli_config(d, "cli", cutoff=cutoff), f, indent=1)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "blues_tpu_torch", "run", "cfg.json", "--replicas", str(R_MAIN),
+             "--device", device.type],
+            cwd=d, env=env, capture_output=True, text=True, timeout=600,
+        )
+        t_run = time.perf_counter() - t0
+        last = run.stdout.strip().splitlines()[-1] if run.stdout.strip() else ""
+        if run.returncode != 0 or not last.startswith("Acceptance ratio: "):
+            raise RuntimeError(f"cli: the run exited {run.returncode}; stdout ends {run.stdout[-2000:]!r}, "
+                               f"stderr ends {run.stderr[-4000:]!r}")
+        info = subprocess.run([sys.executable, "-m", "blues_tpu_torch", "info", prmtop], cwd=d, env=env,
+                              capture_output=True, text=True, timeout=300)
+        if info.returncode != 0:
+            raise RuntimeError(f"cli: info exited {info.returncode}: {info.stderr[-2000:]}")
+        counts = json.loads(info.stdout[info.stdout.index("{"):])
+        expect = {
+            "n_atoms": system.n_atoms, "n_bonds": len(system.bonds), "n_angles": len(system.angles),
+            "n_torsions": len(system.torsions), "n_constraints": len(system.constraints),
+            "n_exclusions": len(system.nonbonded.exclusions), "n_exceptions": len(system.nonbonded.exceptions_idx),
+            "residue_names": sorted(set(system.topology.residue_names)),
+        }
+        wrong = {k: (counts[k], v) for k, v in expect.items() if counts[k] != v}
+        if wrong:
+            raise RuntimeError(f"cli: info's counts differ from the builder's: {wrong}")
+        phase("cli", f"wrote {system.n_atoms} atoms as box.prmtop + box.inpcrd in {t_write:.2f} s; "
+                     f"`python -m blues_tpu_torch run cfg.json --replicas {R_MAIN}` exit 0, {last!r}, "
+                     f"{t_run:.1f} s; `info` counts equal the builder's: {expect}")
+        with netcdf_file(os.path.join(d, "cli-md.nc"), mmap=False) as nc:
+            md_shape = nc.variables["coordinates"].shape
+            md_ok = bool(np.isfinite(nc.variables["coordinates"][:]).all())
+        with netcdf_file(os.path.join(d, "cli-ncmc.nc"), mmap=False) as nc:
+            nc_shape = nc.variables["coordinates"].shape
+            work = np.array(nc.variables["protocolWork"][:])
+        n_md = N_ITER_SHORT * NSTEPS // CLI_FRAME_EVERY
+        if md_shape != (n_md, system.n_atoms, 3) or nc_shape != (3 * N_ITER_SHORT, system.n_atoms, 3) \
+                or not md_ok:
+            raise RuntimeError(f"cli: NetCDF frames {md_shape}, {nc_shape}, finite {md_ok}, protocolWork {work}")
+
+        # the loaders' times: the whole load, and the sections by each tokenizer
+        t0 = time.perf_counter()
+        read = load_prmtop(prmtop)
+        t_load = time.perf_counter() - t0
+        t_tok = {}
+        for no_compiler in (False, True):
+            saved = native._tried, native._lib
+            if no_compiler:  # the loader as on a host without g++
+                native._tried, native._lib = True, None
+            try:
+                t0 = time.perf_counter()
+                tok = Prmtop.load(prmtop).tokenizer
+                t_tok[tok] = time.perf_counter() - t0
+            finally:
+                native._tried, native._lib = saved
+        if list(t_tok) != ["native", "python"]:
+            raise RuntimeError(f"cli: the tokenizers that ran: {list(t_tok)}, expected native by default")
+
+        t0 = time.perf_counter()
+        sim, md_reps, nc_reps = create_simulation(cli_config(d, "inproc", cutoff=cutoff), n_replicas=R_MAIN,
+                                                  device=device, seed=2032)
+        torch.cuda.synchronize()
+        t_create = time.perf_counter() - t0
+        # the prmtop's System against the builder's, frozen alike, at the file's positions
+        crd = load_inpcrd(os.path.join(d, "box.inpcrd"))
+        lig = system.topology.select_resname("LIG")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # freezing more than 98 % of the atoms
+            built = system.replace(alchemical=None, box=crd.box).freeze_radius(
+                crd.positions, lig, 0.5, solvent_resnames=())
+        n_mobile = int((sim.system.masses > 0).sum())
+        if n_mobile != int((built.masses > 0).sum()) or (n_atoms == N_ATOMS and n_mobile != 132) \
+                or sim.energy_alch.nonbonded.backend != "sweep":
+            raise RuntimeError(f"cli: {n_mobile} mobile atoms, backend {sim.energy_alch.nonbonded.backend!r}")
+        kw = dict(nonbonded_method="PME", cutoff=cutoff, ewald_tolerance=0.005, nonbonded_backend="sweep",
+                  sweep_row_group=32, device=device)
+        xb = torch.as_tensor(crd.positions, dtype=torch.float32, device=device)[None]
+        bb = torch.as_tensor(crd.box, dtype=torch.float32, device=device)
+        e_b, f_b = make_force_fn(make_energy_fn(built, **kw))(xb, bb)
+        e_p, f_p = make_force_fn(sim.energy_md)(xb, bb)
+        e_self = _e_self(sim.energy_md, read)
+        e_tol = E_REL * abs(float(e_b)) + E_ABS + 4.0 * float(np.finfo(np.float32).eps) * e_self
+        f_tol = F_REL * (float(f_b.abs().max()) + 1.0)
+        e_err, f_err = abs(float(e_p) - float(e_b)), float((f_p - f_b).abs().max())
+        if not (e_err <= e_tol and f_err <= f_tol):
+            raise RuntimeError(f"cli: the prmtop's MD energy {float(e_p)} vs the builder's {float(e_b)} "
+                               f"(|dE| {e_err:.3e}, tol {e_tol:.3e}; max|dF| {f_err:.3e}, tol {f_tol:.3e})")
+
+        sums = {("" if k.startswith("cli_") else "cli_") + k: v for k, v in sums_of(sim, "sweep", "cli_sweep").items()}
+        zero_counts(every + list(sums.values()))
+        timers, _, restore = step_timers(sim)
+        ckpt = os.path.join(d, "cli.npz")
+        kept = KeepStats()
+        sim.run(1, reporters=md_reps + nc_reps + [kept])
+        save_checkpoint(ckpt, sim)
+        saved = snapshot(sim)
+        sim.run(1, reporters=md_reps + nc_reps + [kept])
+        torch.cuda.synchronize()
+        restore()
+        launches = read_counts(sums)
+        for rep in md_reps + nc_reps:
+            rep.close()
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"cli: a K1 instance was not launched on the path: {launches}")
+        # as every path: a culling guard's veto is a NaN work, never accepted
+        work_in = check_iterations(sim, kept.stats, "cli")
+        acc = [st.accepted.cpu().numpy() for st in kept.stats]
+        # this run's NCMC frames (steps 1, nstepsNC / 2 and nstepsNC): replica
+        # 0's work, the iteration's protocol work (kT) at the last, NaN where vetoed
+        with netcdf_file(os.path.join(d, "inproc-ncmc.nc"), mmap=False) as nc:
+            w_nc = np.array(nc.variables["protocolWork"][:], np.float64).reshape(N_ITER_SHORT, 3)
+        w_kt = work_in[:, 0] / (units.kT(sim.cfg.temperature))
+        same = np.where(np.isfinite(w_kt), np.abs(w_nc[:, 2] - w_kt) <= 1e-5 * np.abs(w_kt) + 1e-5,
+                        np.isnan(w_nc[:, 2]))
+        if not same.all():
+            raise RuntimeError(f"cli: NCMC frame work {w_nc} against the iterations' {w_kt} kT")
+        rst = load_inpcrd(os.path.join(d, "inproc-md.rst7"))
+        x_end = sim.state.positions[0].double().cpu().numpy()
+        rst_err = float(np.abs(rst.positions - x_end).max())
+        if rst_err > 0.5e-8 + 1e-10:  # half the last of 7 decimals of an Angstrom
+            raise RuntimeError(f"cli: the rst7 positions differ from the state by {rst_err} nm")
+        ck = check_restore(sim, ckpt, saved, acc[1], work_in[1],
+                           lambda: create_simulation(cli_config(d, "restored", minimize=0, cutoff=cutoff),
+                                                     n_replicas=R_MAIN, device=device, seed=7)[0])
+        micro_ms = 1e3 * timers["ncmc"] / (sim.schedule.n_micro * timers["protocols"])
+        md_ms = 1e3 * timers["md"] / max(timers["md_steps"], 1)
+        phase(
+            "cli",
+            f"create_simulation {t_create:.1f} s (R = {R_MAIN}, FIRE {CLI_MIN} steps); load_prmtop {t_load:.2f} s; "
+            f"sections alone: native tokenizer {t_tok['native']:.3f} s, Python {t_tok['python']:.3f} s; "
+            f"{n_mobile} mobile atoms; MD energy from the prmtop {float(e_p):.3f} vs the builder's "
+            f"{float(e_b):.3f} kJ/mol (|dE| {e_err:.3e}, tol {e_tol:.3e}; max|dF| {f_err:.3e}, tol {f_tol:.3e}); "
+            f"2 iterations with reporters: acceptance {np.mean(acc):.3f}, work {work_in.tolist()} kJ/mol, "
+            f"launches {launches}; NCMC micro-step {micro_ms:.2f} ms, MD step {md_ms:.2f} ms (phase main in this "
+            f"run: {main_res['micro_ms']:.2f} ms, {main_res['md_ms']:.2f} ms); NetCDF {md_shape} + {nc_shape}, "
+            f"the subprocess's NCMC frame work (kT, replica 0) {work.tolist()}, this run's as its iterations'; "
+            f"rst7 within {rst_err:.2e} nm; checkpoint after iteration 1: {ck}; "
+            f"phase {time.perf_counter() - t_phase:.1f} s on {card}",
+        )
+        return dict(launches=launches, micro_ms=micro_ms, md_ms=md_ms)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def runtime_launches(fn):
+    """The kernel launches (CUDA runtime calls, host side) of one call of
+    ``fn`` under torch.profiler. The host's record of a call of several
+    hundred launches is complete where its device trace is not always (a
+    trace late in a long run lost 29 of 479 kernels, which
+    ``profile_call`` refuses)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU and e.key.startswith("cudaLaunchKernel"))
+
+
+def run_gb(device, card, every, n_atoms=N_ATOMS):
+    """Phase gb: generalized Born on a droplet, toluene and its GB_WATERS
+    nearest waters cut from the box (2,541 atoms, the size of T4 lysozyme
+    in implicit solvent), written with mbondi2 radii: OBC2 with 0.1 M salt,
+    NoCutoff ('dense'), HBonds, dt 2 fs, R = 8, built by
+    ``create_simulation`` (no lambda split with the ligand alchemical),
+    then through ``run_path``: FIRE 100 steps and 2 iterations of 50 + 50
+    steps with every path's checks; the GB term on the card against the
+    CPU in float64 for HCT, OBC1 and OBC2 at lambda_e 1, 0.5 and 0 (energy
+    1e-9 relative, forces 1e-8*(max|F| + 1)), the card's float32 against
+    the CPU's float64 (GB_F32_REL); and the GB term's ms per energy+forces
+    call at R = 8, its kernel launches, peak memory and bound."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.config import create_simulation
+    from blues_tpu_torch.potentials.energy import make_force_fn
+    from blues_tpu_torch.potentials.gb import GB_MODELS, GBEnergy
+    from blues_tpu_torch.testsystems import t4_scale_toluene_box
+
+    amber = _fixtures()
+    t_phase = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_gb_")
+    try:
+        system, x0 = t4_scale_toluene_box(n_atoms=n_atoms)
+        drop, xd = amber.droplet(system, x0, GB_WATERS)
+        amber.write_amber(drop, xd, os.path.join(d, "drop.prmtop"), os.path.join(d, "drop.inpcrd"), gb=True)
+        cfg = {
+            "output_dir": d, "outfname": "gb", "logger": {"level": "warning", "stream": True},
+            "structure": {"filename": os.path.join(d, "drop.prmtop"), "xyz": os.path.join(d, "drop.inpcrd")},
+            "system": {"nonbondedMethod": "NoCutoff", "constraints": "HBonds", "implicitSolvent": "OBC2",
+                       "implicitSolventSaltConc": 0.1},
+            "simulation": {"dt": "0.002 * picoseconds", "friction": "1 * 1/picoseconds", "temperature": "300 * kelvin",
+                           "nIter": N_ITER_SHORT, "nstepsNC": NSTEPS, "nstepsMD": NSTEPS, "minimize": 0},
+        }
+        t0 = time.perf_counter()
+        sim, _, _ = create_simulation(cfg, n_replicas=R_MAIN, device=device, seed=2033)
+        torch.cuda.synchronize()
+        t_create = time.perf_counter() - t0
+        efn = sim.energy_alch
+        if efn.gb is None or efn.has_split or sim.protocol_fn.use_split or efn.nonbonded.backend != "dense":
+            raise RuntimeError(f"gb: GB term {efn.gb is not None}, split {efn.has_split}/{sim.protocol_fn.use_split}, "
+                               f"backend {efn.nonbonded.backend!r}")
+        res, _ = run_path(sim, sim.state.positions[0].cpu().numpy(), {}, every, GB_MIN, N_ITER_SHORT, "gb", card)
+        work = np.stack([s.protocol_work.double().cpu().numpy() for s in res["stats"]])
+
+        # the GB term alone: the card against the CPU, float64, replica 0
+        gb, q = sim.system.gb, sim.system.nonbonded.charge
+        lig = sim.system.alchemical.atoms
+        x64 = sim.state.positions[:1].double()
+        worst = (0.0, 0.0)
+        for model in GB_MODELS:
+            params = dataclasses.replace(gb, model=model)
+            fns = [GBEnergy(params, q, alchemical_atoms=lig, device=dev) for dev in (device, "cpu")]
+            for lam in (1.0, 0.5, 0.0):
+                g = {"lambda_electrostatics": lam}
+                ek, fk = make_force_fn(fns[0])(x64, None, g)
+                ec, fc = make_force_fn(fns[1])(x64.cpu(), None, g)
+                e_rel = float(((ek.cpu() - ec).abs() / ec.abs()).max())
+                f_err = float((fk.cpu() - fc).abs().max()) / (float(fc.abs().max()) + 1.0)
+                if not (e_rel <= 1e-9 and f_err <= 1e-8):
+                    raise RuntimeError(f"gb: {model} lambda {lam}: card vs CPU in float64, energy rel {e_rel:.3e}, "
+                                       f"forces {f_err:.3e} of max|F| + 1")
+                worst = (max(worst[0], e_rel), max(worst[1], f_err))
+        # the card's float32 against the CPU's float64 (OBC2, lambda 0.5)
+        g = {"lambda_electrostatics": 0.5}
+        e32, f32 = make_force_fn(efn.gb)(sim.state.positions[:1], None, g)
+        e64, f64 = make_force_fn(GBEnergy(gb, q, alchemical_atoms=lig, device="cpu"))(x64.cpu(), None, g)
+        e32_rel = float(((e32.double().cpu() - e64).abs() / e64.abs()).max())
+        f32_err = float((f32.double().cpu() - f64).abs().max()) / (float(f64.abs().max()) + 1.0)
+        if not (e32_rel <= GB_F32_REL[0] and f32_err <= GB_F32_REL[1]):
+            raise RuntimeError(f"gb: float32 on the card vs float64: energy rel {e32_rel:.3e}, forces {f32_err:.3e}")
+
+        # the GB term's energy + forces at R = 8 (float32): time, launches, memory, bound
+        x8 = sim.state.positions
+        call = lambda: make_force_fn(efn.gb)(x8, None, g)  # noqa: E731
+        ms, peak = peak_ms(call, 10, device)
+        n_launch = runtime_launches(call)
+        n = drop.n_atoms
+        t_ops = R_MAIN * n * n * GB_PAIR_FLOPS / PEAK_FP32 * 1e3
+        t_bytes = (R_MAIN * n * 3 * 4 * 2 + n * 4 * 4) / PEAK_BYTES * 1e3
+        phase(
+            "gb",
+            f"droplet {n} atoms (toluene + {GB_WATERS} waters), OBC2 kappa {gb.kappa:.4f}/nm, NoCutoff -> 'dense', "
+            f"R = {R_MAIN}: create_simulation {t_create:.1f} s, FIRE {GB_MIN} {res['t_min']:.1f} s, {N_ITER_SHORT} "
+            f"iterations of {NSTEPS} + {NSTEPS} steps {res['t_iter']:.1f} s (NCMC micro-step {res['micro_ms']:.2f} ms, "
+            f"MD step {res['md_ms']:.2f} ms), acceptance {res['acceptance']:.3f}, work {work.tolist()} kJ/mol "
+            f"({int((~np.isfinite(work)).sum())} non-finite, rejected), no "
+            f"lambda split; GB card vs CPU float64, HCT/OBC1/OBC2 x lambda_e "
+            f"1/0.5/0: worst energy rel {worst[0]:.3e}, forces {worst[1]:.3e} of max|F| + 1; float32 card vs float64: "
+            f"energy rel {e32_rel:.3e} (tol {GB_F32_REL[0]:.0e}), forces {f32_err:.3e} (tol {GB_F32_REL[1]:.0e}); GB "
+            f"energy+forces at R = {R_MAIN}: {ms:.3f} ms per call, {n_launch} kernel launches, peak {peak:.1f} MiB, chunk {efn.gb.chunk} replicas, bound {max(t_ops, t_bytes):.4f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}: {GB_PAIR_FLOPS} flops per ordered pair); "
+            f"phase {time.perf_counter() - t_phase:.1f} s on {card}",
+        )
+        return dict(ms=ms, launches=n_launch, peak_mib=peak, bound_ms=max(t_ops, t_bytes))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
-    """Phases 2-19 on ``device``; returns the kernels' JSON entries."""
+    """Phases 2-21 on ``device``; returns the kernels' JSON entries."""
     import numpy as np
     import torch
 
@@ -2021,6 +2489,9 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     run_tiled_frozen(device, card, frozen, xf_min, cutoff)
     exact = run_exact(device, card, frozen, xf_min, unfrozen, xu_min, every, cutoff)
     run_triclinic(device, card, n_atoms, cutoff)
+    # the YAML entry point on the main path, and generalized Born
+    run_cli(device, card, every, main_res, n_atoms, cutoff)
+    run_gb(device, card, every, n_atoms)
 
     launches = {k: v.pop("launches") for k, v in exact.items()}
     kres.update(exact)
@@ -2232,16 +2703,19 @@ def profile_call(fn):
     call: so a one-element int16 fill (the sentinel) is the profile's first
     launch, and its kernel and its ``cudaLaunchKernel`` are left out of
     what is returned. A profile whose device trace still holds fewer of the
-    call's kernels than it launched is incomplete and is taken again, and
-    refused the third time (no device event at all was also seen once,
-    right after a profile of 300,000 launches)."""
+    call's kernels than it launched is incomplete and is taken again, after
+    a pause, and refused the sixth time (a trace with no device event at
+    all came three times in a row early in one run, and once right after a
+    profile of 300,000 launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sentinel = torch.empty(1, dtype=torch.int16, device="cuda")
     fn()
-    for _ in range(3):
+    for attempt in range(6):
+        if attempt:
+            time.sleep(0.5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             sentinel.fill_(1)
@@ -2261,7 +2735,7 @@ def profile_call(fn):
             break
     else:
         raise RuntimeError(
-            "torch.profiler recorded fewer device kernels than the call launched, in three profiles of it; the "
+            "torch.profiler recorded fewer device kernels than the call launched, in six profiles of it; the "
             f"last: {[(e.key[:60], e.count) for e in kern]}, runtime calls {runtime}"
         )
     return (

@@ -34,3 +34,26 @@ class F64Jnp:
     @staticmethod
     def einsum(*args, preferred_element_type=None, **kw):
         return jnp.einsum(*args, **kw)
+
+
+def assert_same_fields(p, j, path="system"):
+    """Every dataclass field of ``p`` (a port object) equal to the field of
+    the same name of ``j`` (the JAX package's): arrays exactly, values and
+    dtype; lists, scalars and nested dataclasses recursively."""
+    import dataclasses
+
+    import numpy as np
+
+    if dataclasses.is_dataclass(p):
+        assert dataclasses.is_dataclass(j), path
+        for f in dataclasses.fields(p):
+            assert_same_fields(getattr(p, f.name), getattr(j, f.name), f"{path}.{f.name}")
+    elif isinstance(p, np.ndarray) or isinstance(j, np.ndarray):
+        np.testing.assert_array_equal(p, j, err_msg=path)
+        assert np.asarray(p).dtype == np.asarray(j).dtype, path
+    elif isinstance(p, (list, tuple)):
+        assert len(p) == len(j), path
+        for k, (a, b) in enumerate(zip(p, j)):
+            assert_same_fields(a, b, f"{path}[{k}]")
+    else:
+        assert p == j, (path, p, j)

@@ -92,6 +92,27 @@ def test_md_rollback_restores_pre_md_state(frozen):
     assert torch.isfinite(sim.energy_md(*sim.state[::2])).all()
 
 
+def test_md_rollback_on_non_finite_velocities(frozen):
+    """MD that ends with finite positions and energy but non-finite
+    velocities (a neighbour list found stale at the last step's forces
+    poisons only the last half-kick) rolls that replica back too."""
+    fr, x, li = frozen
+    pt = system_from_reference(fr)
+    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(**CFG), device=DEVICE)
+    sim.initialize(x, seed=4)
+    md_steps = sim._md_steps
+
+    def poisoned(xd, vd, fd, box, k):
+        xd, vd, fd = md_steps(xd, vd, fd, box, k)
+        return xd, vd.index_fill(0, torch.tensor([0]), float("nan")), fd
+
+    sim._md_steps = poisoned
+    st = sim.run_iteration()
+    assert st.md_failed.tolist() == [True, False]
+    assert torch.isfinite(st.md_potential).all()
+    assert torch.isfinite(sim.state[0]).all() and torch.isfinite(sim.state[1]).all()
+
+
 @pytest.mark.parametrize(
     "bad",
     [dict(pressure=1.0), dict(max_steps_per_dispatch=10), dict(use_pallas=True),
@@ -132,6 +153,7 @@ def test_builders_default_to_the_card(frozen, monkeypatch):
     asking for the card without one raises (no fallback to the CPU)."""
     import inspect
 
+    from blues_tpu_torch.config import create_simulation
     from blues_tpu_torch.core.device import resolve_device
     from blues_tpu_torch.core.state import maxwell_boltzmann_velocities
     from blues_tpu_torch.integrators.constraints import make_constraint_fns
@@ -139,6 +161,7 @@ def test_builders_default_to_the_card(frozen, monkeypatch):
     from blues_tpu_torch.integrators.ncmc import make_ncmc_protocol
     from blues_tpu_torch.potentials.custom_pair import CustomPairEnergy
     from blues_tpu_torch.potentials.energy import make_energy_fn
+    from blues_tpu_torch.potentials.gb import GBEnergy
     from blues_tpu_torch.potentials.nonbonded import DenseNonbondedEnergy, NonbondedEnergy, make_nonbonded_energy
     from blues_tpu_torch.potentials.pair_kernel import PallasPairSum
     from blues_tpu_torch.potentials.pcells import CellsPairSum
@@ -150,7 +173,7 @@ def test_builders_default_to_the_card(frozen, monkeypatch):
         BLUESSimulation, make_energy_fn, make_ncmc_protocol, make_baoab_machinery, make_md_step,
         make_constraint_fns, PMEReciprocal, make_pme_reciprocal, build_mobile_compaction,
         maxwell_boltzmann_velocities, NonbondedEnergy, make_nonbonded_energy, SweepPairSum,
-        PallasPairSum, CellsPairSum, DenseNonbondedEnergy, CustomPairEnergy,
+        PallasPairSum, CellsPairSum, DenseNonbondedEnergy, CustomPairEnergy, GBEnergy, create_simulation,
     ]
     for b in builders:
         assert inspect.signature(b).parameters["device"].default == "cuda", b

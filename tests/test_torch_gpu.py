@@ -15,7 +15,10 @@ R = 4 with a box per replica (NPT), and K3's poison of the one replica
 whose box shrank below cutoff-wide cells. Under the 'exact' PME treatment
 (f_aa = lambda_e^2 != f_na) K1, K2 and K3 against their plain versions;
 and the plain cell-list (full and half neighbourhood) and verlet pair sums
-on the card against K3 at water density.
+on the card against K3 at water density. Generalized Born (plain tensor
+ops) on the card against the CPU in float64 (energy 1e-9 relative, forces
+1e-8*(max|F| + 1)), and ``create_simulation`` of a GB droplet read from a
+prmtop on the card, its energies against the CPU's.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -23,8 +26,8 @@ so it runs on a machine that has only PyTorch and the CUDA toolkit
 
     python -m pytest --noconftest tests/test_torch_gpu.py
 
-Tolerances are the sweep tests' own: energy 5e-5*|E| + 1e-2, forces
-2e-5*(max|F| + 1).
+Tolerances of the kernels are the sweep tests' own: energy 5e-5*|E| + 1e-2,
+forces 2e-5*(max|F| + 1).
 """
 
 import numpy as np
@@ -400,3 +403,64 @@ def test_plain_backends_on_the_card_match_cells_kernel(kind):
         ps = CellListPairSum(feats, half_neighborhood=kind == "cells_half", **common)
         assert ps.half == (kind == "cells_half")
     _assert_close(*ps(x, box, *LAM), *k3(x, box, *LAM))
+
+
+@pytest.mark.parametrize("model", ["HCT", "OBC1", "OBC2"])
+def test_gb_on_the_card_matches_the_cpu(model):
+    """float64, R = 3 in chunks of 2, alchemical charges at lambda 1, 0.5, 0."""
+    from blues_tpu_torch.potentials.gb import GBEnergy, GBParams
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    n = 400
+    x = torch.as_tensor(rng.uniform(0, 2.5, (3, n, 3)), dtype=torch.float64)
+    params = GBParams(radii=rng.uniform(0.11, 0.21, n), screen=rng.uniform(0.7, 1.1, n), model=model, kappa=0.7)
+    q = rng.normal(0, 0.4, n)
+    fns = {d: GBEnergy(params, q, alchemical_atoms=np.arange(10), device=d) for d in (dev, "cpu")}
+    for fn in fns.values():
+        fn.chunk = 2
+    for lam in (1.0, 0.5, 0.0):
+        out = {}
+        for d, fn in fns.items():
+            xg = x.to(d).requires_grad_(True)
+            e = fn(xg, None, {"lambda_electrostatics": lam})
+            (g,) = torch.autograd.grad(e.sum(), xg)
+            out[str(d)[:3]] = (e.detach().cpu(), -g.cpu())
+        (ek, fk), (ep, fp) = out["cud"], out["cpu"]
+        torch.testing.assert_close(ek, ep, rtol=1e-9, atol=0)
+        assert float((fk - fp).abs().max()) <= 1e-8 * (float(fp.abs().max()) + 1.0)
+
+
+def test_create_simulation_on_the_card(tmp_path):
+    """A GB droplet written as a prmtop, a JSON config (HBonds, 2 fs, FIRE
+    100 steps, 50 + 50 steps), R = 2 on the card: the energies equal the
+    CPU's at the same positions; one iteration ends in a finite state with
+    finite protocol work on every replica."""
+    import json
+
+    from _torch_amber import droplet, write_amber
+    from blues_tpu_torch.config import create_simulation
+    from blues_tpu_torch.testsystems import t4_scale_toluene_box
+
+    dev = _cuda()
+    system, x = t4_scale_toluene_box(n_atoms=1500)
+    d, xd = droplet(system, x, 95)
+    write_amber(d, xd, tmp_path / "drop.prmtop", tmp_path / "drop.inpcrd", gb=True)
+    cfg = {
+        "output_dir": str(tmp_path / "out"), "logger": {"level": "warning", "stream": False},
+        "structure": {"filename": str(tmp_path / "drop.prmtop"), "xyz": str(tmp_path / "drop.inpcrd")},
+        "system": {"nonbondedMethod": "NoCutoff", "constraints": "HBonds", "implicitSolvent": "OBC2",
+                   "implicitSolventSaltConc": 0.1},
+        "simulation": {"dt": "0.002 * picoseconds", "nstepsNC": 50, "nstepsMD": 50, "minimize": 100},
+    }
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    sims = {dd: create_simulation(str(tmp_path / "cfg.json"), n_replicas=2, device=dd, seed=1)[0] for dd in (dev, "cpu")}
+    xs, _, box = sims[dev].state
+    g = {"lambda_sterics": 0.5, "lambda_electrostatics": 0.5}
+    for which in ("energy_md", "energy_alch"):
+        ek = getattr(sims[dev], which)(xs, box, g).double().cpu()
+        ep = getattr(sims["cpu"], which)(xs.cpu(), box.cpu(), g).double()
+        torch.testing.assert_close(ek, ep, rtol=5e-5, atol=1e-2)
+    st = sims[dev].run_iteration()
+    assert torch.isfinite(sims[dev].state[0]).all()
+    assert torch.isfinite(st.protocol_work).all(), st.protocol_work

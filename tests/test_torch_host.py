@@ -191,14 +191,18 @@ def test_system_from_reference_round_trips():
     assert pf.alchemical.softcore_alpha == jf.alchemical.softcore_alpha
     # and back: the port's System is itself a valid reference
     _assert_system_equal(pf, system_from_reference(pf))
-    # restraints and custom pairs are carried; only generalized Born is refused
+    # restraints, custom pairs and generalized Born are carried
     je, _ = j_ethylene()
     pe = system_from_reference(je.restrain_positions(jx[:8], np.arange(8), 2.0))
     _assert_fields_equal(pe.custom_pairs[0], je.custom_pairs[0])
     _assert_fields_equal(pe.centroid_restraints[0], je.centroid_restraints[0])
     assert pe.position_restraints.k == 2.0 * j_units.KCAL_TO_KJ * 100.0
-    with pytest.raises(ValueError, match="'gb'"):
-        system_from_reference(je.replace(gb=object()))
+    from blues_tpu.potentials.gb import GBParams as JGBParams
+
+    jgb = JGBParams(radii=np.full(8, 0.15), screen=np.full(8, 0.8), model="OBC1", kappa=0.7)
+    pgb = system_from_reference(je.replace(gb=jgb)).gb
+    _assert_fields_equal(pgb, jgb)
+    assert type(pgb).__module__ == "blues_tpu_torch.potentials.gb"
     x, v, box = state_to_torch(jx, np.zeros_like(jx), jf.box, "cpu")
     assert tuple(x.shape) == (1, jf.n_atoms, 3) and tuple(v.shape) == tuple(x.shape)
     np.testing.assert_array_equal(box.numpy(), np.asarray(jf.box, np.float32))
@@ -206,15 +210,19 @@ def test_system_from_reference_round_trips():
 
 def test_port_never_imports_jax():
     """Every module of blues_tpu_torch imports with JAX absent from
-    sys.modules (the GPU machine has no JAX)."""
+    sys.modules (the GPU machine has no JAX), and with pyyaml and h5py
+    hidden (it has neither)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.modules['yaml'] = None\n"
+        "sys.modules['h5py'] = None\n"
         "import blues_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(blues_tpu_torch.__path__, 'blues_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m.startswith('blues_tpu.') or m == 'blues_tpu']\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 35, names\n"
+        "assert 'blues_tpu_torch.config.settings' in names and 'blues_tpu_torch.__main__' in names, names\n"
         "print(len(names))\n"
     )
     out = subprocess.run(
