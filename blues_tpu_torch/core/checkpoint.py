@@ -64,7 +64,9 @@ def save_checkpoint(path: str, sim) -> None:
 def load_checkpoint(path: str, sim, seed=None) -> SimState:
     """Restore state, counters and the random stream into ``sim``
     (initialised or not); a JAX checkpoint needs ``seed`` (see the module
-    docstring)."""
+    docstring). ``initialize`` drops a graphed simulation's graphs, so its
+    next iteration captures them again, registering the generator restored
+    here."""
     data = np.load(path, allow_pickle=False)
     meta = json.loads(str(data["meta"]))
     if meta["n_atoms"] != sim.system.n_atoms:

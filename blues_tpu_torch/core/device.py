@@ -41,3 +41,20 @@ def device_const(values, dtype, device):
             _CONSTS.clear()
         t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
     return t
+
+
+def cached_consts():
+    """Every tensor ``device_const`` holds now: a CUDA graph that read them
+    keeps them, since the cache may drop them later."""
+    return list(_CONSTS.values())
+
+
+def staged(cache: dict, name, array, dtype, device):
+    """``array`` (numpy) as a tensor on ``device``, made once per (name,
+    dtype, device) and kept in ``cache``: a phase that runs every step, or
+    inside a CUDA graph, copies nothing from the host."""
+    key = (name, dtype, torch.device(device))
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = torch.as_tensor(array, dtype=dtype, device=device)
+    return t

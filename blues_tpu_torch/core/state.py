@@ -46,12 +46,20 @@ class KahanAccumulator:
         return self.total
 
 
-def maxwell_boltzmann_velocities(source, masses, temperature: float, n_replicas: int,
-                                 dtype=torch.float32, device=DEFAULT_DEVICE):
-    """(R, N, 3) velocities from the Maxwell-Boltzmann distribution; frozen
-    (zero-mass) atoms get zero velocity."""
+def velocity_scale(masses, temperature: float, dtype=torch.float32, device=DEFAULT_DEVICE):
+    """(N,) sqrt(kT / m), 0 for frozen (zero-mass) atoms: the standard
+    deviation of each Maxwell-Boltzmann velocity component."""
     masses = np.asarray(masses, np.float64)
     inv_mass = np.where(masses > 0, 1.0 / np.maximum(masses, 1e-30), 0.0)
-    sigma = torch.as_tensor(np.sqrt(units.kT(temperature) * inv_mass), dtype=dtype, device=device)
+    return torch.as_tensor(np.sqrt(units.kT(temperature) * inv_mass), dtype=dtype, device=device)
+
+
+def maxwell_boltzmann_velocities(source, masses, temperature: float, n_replicas: int,
+                                 dtype=torch.float32, device=DEFAULT_DEVICE, scale=None):
+    """(R, N, 3) velocities from the Maxwell-Boltzmann distribution; frozen
+    (zero-mass) atoms get zero velocity. ``scale``: ``velocity_scale``'s
+    tensor, staged once by a caller that draws every iteration."""
+    if scale is None:
+        scale = velocity_scale(masses, temperature, dtype, device)
     noise = source.normal((n_replicas, len(masses), 3), dtype, device)
-    return sigma[None, :, None] * noise
+    return scale[None, :, None] * noise

@@ -2,7 +2,8 @@
 
 Counterpart of ``blues_tpu.integrators.schedules`` (``build_ncmc_schedule``,
 ``resolve_frame_indices`` and ``calculate_ncmc_steps``): the whole protocol
-is precomputed into flat per-micro-step arrays. The alchemical functions
+is precomputed into flat per-micro-step arrays, and staged on the device as
+one table of every lambda the protocol reads (``lambda_table``). The alchemical functions
 are Lepton strings of the master lambda, compiled by ``core/expressions``,
 or Python callables of it.
 """
@@ -55,6 +56,26 @@ class NCMCSchedule:
     n_micro: int
     n_lambda_steps: int
     micro_of_step: np.ndarray = None
+
+    @property
+    def global_names(self):
+        """The globals' names, in the order of ``lambda_table``'s columns."""
+        return tuple(self.globals_per_step)
+
+    def lambda_table(self, dtype, device):
+        """(n_micro + 3, k) tensor of the k globals: one row per micro-step,
+        then the initial, pre-move and final rows. The protocol reads a
+        micro-step's row at a step counter on the device, so a captured
+        micro-step reads each replay's lambdas from here."""
+        import torch
+
+        names = self.global_names
+        rows = np.zeros((self.n_micro + 3, len(names)))
+        for j, k in enumerate(names):
+            rows[: self.n_micro, j] = self.globals_per_step[k]
+            for r, fixed in enumerate((self.globals_initial, self.globals_pre_move, self.globals_final)):
+                rows[self.n_micro + r, j] = fixed[k]
+        return torch.as_tensor(rows, dtype=dtype, device=device)
 
 
 def build_ncmc_schedule(

@@ -39,6 +39,10 @@ class Move:
     #: compaction refuses them.
     teleports = False
 
+    #: False for a move that a CUDA graph cannot capture (its proposal
+    #: copies through the host); the driver then runs the iteration eagerly
+    graphable = True
+
     def before(self, source, x, v, box):
         return x, v, self.init_aux(x.shape[0], x.device)
 

@@ -21,6 +21,10 @@ class CombinationMove(Move):
     def teleports(self):
         return any(m.teleports for m in self.moves)
 
+    @property
+    def graphable(self):
+        return all(m.graphable for m in self.moves)
+
     def init_aux(self, n, device):
         return [m.init_aux(n, device) for m in self.moves]
 

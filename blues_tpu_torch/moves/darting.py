@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import staged
 from ..potentials.geometry import center_of_mass, kabsch_align, matvec_rows
 from .base import Move
 
@@ -102,7 +103,7 @@ class SmartDartMove(Move):
     def _lab_darts(self, x):
         """(R, D, 3) lab-frame dart centres at positions x."""
         _, bp = self._t(x.device)
-        local = torch.as_tensor(self.darts_local, dtype=x.dtype, device=x.device)
+        local = staged(self._idx, "darts", self.darts_local, x.dtype, x.device)
         if bp is None:
             return local.expand(x.shape[0], -1, -1)
         p = x.index_select(1, bp)
@@ -115,7 +116,7 @@ class SmartDartMove(Move):
 
     def propose(self, source, x, box, aux):
         lig, _ = self._t(x.device)
-        com = center_of_mass(x.index_select(1, lig), self.lig_masses)
+        com = center_of_mass(x.index_select(1, lig), staged(self._idx, "masses", self.lig_masses, x.dtype, x.device))
         darts = self._lab_darts(x)
         r = self.dart_radius
         inside = torch.linalg.vector_norm(darts - com[:, None], dim=-1) < r
@@ -167,6 +168,12 @@ class MolDartMove(Move):
         fit = np.asarray(fit_atoms, np.int64)
         return cls(ligand_atoms, poses, dart_radius, fit_atoms=fit, fit_reference=np.stack([c[fit] for c in coords]))
 
+    @property
+    def graphable(self):
+        """Without fit atoms: with them, ``torch.linalg.svd`` of the
+        Kabsch covariances copies through the host on the card."""
+        return self.fit_atoms is None
+
     def _t(self, device):
         t = self._idx.get(device)
         if t is None:
@@ -177,11 +184,11 @@ class MolDartMove(Move):
     def _aligned_poses(self, x):
         """(R, P, L, 3) poses in each replica's current receptor frame."""
         _, fit = self._t(x.device)
-        poses = torch.as_tensor(self.poses, dtype=x.dtype, device=x.device)
+        poses = staged(self._idx, "poses", self.poses, x.dtype, x.device)
         if fit is None:
             return poses.expand(x.shape[0], -1, -1, -1)
         cur = x.index_select(1, fit)[:, None]  # (R, 1, F, 3)
-        refs = torch.as_tensor(self.fit_reference, dtype=x.dtype, device=x.device)
+        refs = staged(self._idx, "refs", self.fit_reference, x.dtype, x.device)
         rot, com_ref, com_cur = kabsch_align(refs.expand(x.shape[0], -1, -1, -1), cur.expand(-1, refs.shape[0], -1, -1))
         return matvec_rows(poses - com_ref[..., None, :], rot) + com_cur[..., None, :]
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import staged
 from .base import Move, select_aux
 
 
@@ -31,10 +32,15 @@ class MoveEngine(Move):
                 raise ValueError("one probability per move required")
             p = p / p.sum()
         self.probabilities = p
+        self._staged = {}
 
     @property
     def teleports(self):
         return any(m.teleports for m in self.moves)
+
+    @property
+    def graphable(self):
+        return all(m.graphable for m in self.moves)
 
     @staticmethod
     def _aux(selected, auxs):
@@ -48,7 +54,7 @@ class MoveEngine(Move):
         return self._aux(self._draw(source, n, device), [m.init_aux(n, device) for m in self.moves])
 
     def _draw(self, source, n, device):
-        p = torch.as_tensor(self.probabilities, dtype=torch.float64, device=device)
+        p = staged(self._staged, "p", self.probabilities, torch.float64, device)
         return source.categorical(p.expand(n, -1))
 
     def before(self, source, x, v, box):

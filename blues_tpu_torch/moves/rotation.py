@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import staged
 from ..potentials.geometry import center_of_mass, matvec_rows
 from .base import Move
 
@@ -33,7 +34,7 @@ class RandomLigandRotationMove(Move):
     def propose(self, source, x, box, aux):
         idx = self._index(x.device)
         lig = x.index_select(1, idx)
-        com = center_of_mass(lig, self.masses)[:, None, :]
+        com = center_of_mass(lig, staged(self._idx, "masses", self.masses, x.dtype, x.device))[:, None, :]
         rot = source.rotation(x.shape[0], x.dtype, x.device)
         new_lig = matvec_rows(lig - com, rot.transpose(-1, -2)) + com  # (lig - com) @ rot
         return x.index_copy(1, idx, new_lig), aux

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import staged
 from ..potentials.geometry import center_of_mass, distance, periodic_displacement, random_sphere_point
 from .base import Move
 
@@ -61,7 +62,7 @@ class WaterTranslationMove(Move):
 
     def _com(self, x):
         prot, _, _ = self._t(x.device)
-        return center_of_mass(x.index_select(1, prot), self.protein_masses)
+        return center_of_mass(x.index_select(1, prot), staged(self._idx, "masses", self.protein_masses, x.dtype, x.device))
 
     def init_aux(self, n, device):
         return {"swapped": torch.zeros(n, dtype=torch.bool, device=device)}
@@ -93,5 +94,5 @@ class WaterTranslationMove(Move):
 
     def after(self, source, x, box, aux):
         _, alch, _ = self._t(x.device)
-        d = distance(periodic_displacement(x[:, alch[0]] - self._com(x), box))
+        d = distance(periodic_displacement(x.index_select(1, alch[:1])[:, 0] - self._com(x), box))
         return aux["swapped"] & (d > self.radius)

@@ -398,7 +398,7 @@ class ClusterPairSum:
         return [
             v.to(dtype=dtype, device=device).reshape(())
             if torch.is_tensor(v)
-            else torch.tensor(float(v), dtype=dtype, device=device)
+            else device_const((float(v),), dtype, device).reshape(())
             for v in (lam_s, f_na, f_aa)
         ]
 

@@ -23,12 +23,15 @@ import math
 import torch
 
 from .. import units
+from ..core.device import device_const
 
 SQRT_PI = math.sqrt(math.pi)
 
 
 def _as(v, like):
-    return v if torch.is_tensor(v) else torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    """``v`` as a tensor beside ``like``: a Python number from ``device_const``'s
+    cache, so a call copies nothing from the host."""
+    return v if torch.is_tensor(v) else device_const((float(v),), like.dtype, like.device).reshape(())
 
 
 def lam_scalar(v, dtype, device):

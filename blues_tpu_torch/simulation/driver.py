@@ -3,7 +3,8 @@
 Counterpart of ``blues_tpu.simulation.driver.BLUESSimulation``: the
 monolithic NCMC protocol with the lambda split, the alchemical correction
 and Metropolis test, Maxwell-Boltzmann velocity resampling, and
-``nstepsMD`` BAOAB steps with a rollback when MD ends non-finite. On a
+``nstepsMD`` BAOAB steps with a rollback when MD ends with a non-finite
+energy or positions (the JAX driver's ``md_ok``). On a
 frozen production system the dynamics runs on the compacted mobile state
 (``compact.py``); otherwise (no frozen atoms, a teleporting move, a
 sidechain move that turns a frozen atom, ``frozen_compact=False``) it runs
@@ -42,6 +43,18 @@ With the 'verlet' backend the MD energy carries neighbour-list hooks
 own build) and applies it in between, as the JAX driver does;
 ``nlist_builds`` counts the builds. NCMC keeps the stateless pair sum.
 
+The iteration is a sequence of phases over a carry of tensors (``_phases``:
+the NCMC prologue with E_md(x0), the protocol's micro-step and midpoint
+move, the epilogue with the correction, the Metropolis test and the MD
+start, the MD step, the MD end). The JAX package jits the whole iteration;
+here, on the card, ``simulation/graphs.py`` captures each phase into a
+CUDA graph at the first iteration and replays them (``graphs=None``, the
+default, wherever ``eager_reason`` finds nothing that keeps the iteration
+eager: a barostat, neighbour lists, the backends with data-dependent
+shapes, generalized Born). ``graphs=False`` runs the same phases one op at
+a time, the protocol as a whole through ``protocol_fn``; ``graphs=True``
+raises where the configuration stays eager. A capture that fails raises.
+
 Configurations outside the port (segmented dispatch, ``use_pallas``) raise
 ``ValueError``, and so do the JAX driver's own refusals: pressure with
 frozen atoms under PME, and ``frozen_compact=True`` where compaction is
@@ -56,11 +69,12 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from .. import units
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.rng import TorchRandomSource
-from ..core.state import SimState, maxwell_boltzmann_velocities
+from ..core.state import SimState, maxwell_boltzmann_velocities, velocity_scale
 from ..core.system import System
 from ..integrators.barostat import MonteCarloBarostat
 from ..integrators.constraints import make_constraint_fns
@@ -72,6 +86,10 @@ from ..potentials.energy import make_energy_fn, make_force_fn
 from .compact import build_mobile_compaction
 
 logger = logging.getLogger("blues_tpu_torch.simulation")
+
+#: backends whose pair sums call ``nonzero`` (data-dependent shapes): their
+#: iterations run eagerly
+EAGER_BACKENDS = ("cells", "tiled", "verlet")
 
 
 @dataclass
@@ -174,7 +192,7 @@ class BLUESSimulation:
     """Drives iterations of [NCMC protocol -> accept/reject -> MD]."""
 
     def __init__(self, system: System, move, config: SimulationConfig, device=DEFAULT_DEVICE,
-                 dtype=torch.float32):
+                 dtype=torch.float32, graphs=None):
         _check_slice(config, move)
         self.system, self.move, self.cfg = system, move, config
         self.device = resolve_device(device)
@@ -270,6 +288,18 @@ class BLUESSimulation:
                     "constraints, a non-teleporting remappable move, no barostat, no verlet neighbor lists)"
                 )
         self._compact = comp
+        reason = self.eager_reason()
+        if graphs is None:
+            graphs = self.device.type == "cuda" and reason is None
+        elif graphs and reason is not None:
+            raise ValueError(f"graphs=True, but this configuration's iteration runs eagerly: {reason}")
+        #: True: iterations replay the captured phases (``simulation/graphs.py``);
+        #: set it to False to run the same simulation's next iterations eagerly
+        self.graphs = bool(graphs)
+        #: the ``GraphRunner`` of a graphed simulation, captured at its first iteration
+        self.runner = None
+        #: the move's aux at the end of the last iteration's protocol
+        self.last_move_aux = None
         self.source = None
         self.state = None
         self.accept_counter = 0
@@ -301,12 +331,14 @@ class BLUESSimulation:
             self._gather = comp.gather
             self._put = lambda x, xm: x.index_copy(1, comp.mobile_idx_t, xm)
         self._masses_d = masses
+        self._v_scale = velocity_scale(masses, self.cfg.temperature, self.dtype, self.device)
         cx, cv = self._constrain_d
         self.protocol_fn = make_ncmc_protocol(
             efn, ffn, masses, lp, cx, cv, self.schedule, src, move=move,
             splitting=self.cfg.splitting, lambda_split=self.cfg.lambda_split,
             record_micro=self._record_micro, device=self.device,
         )
+        self._protocol = self.protocol_fn
         self._md_step_d = make_md_step(self._ffn_md_d, masses, lp, cx, cv, src, self.device)
         self._md_nlist_step = None
         if self._has_nlist:  # never compact: the dynamics state is the full one
@@ -322,12 +354,19 @@ class BLUESSimulation:
         """Set the state: positions (N, 3) are broadcast to (R, N, 3), a
         (3, 3) box to (R, 3, 3). Draws come from ``source``, else a
         ``torch.Generator`` seeded with ``seed`` on the simulation's
-        device."""
+        device. A graphed simulation captures its iteration again at the
+        next iteration, reading the new source's generator."""
         self.source, self.state = initial_state(
             self.system, self.cfg, positions, box, seed, source, self.dtype, self.device, velocities
         )
+        if self.graphs and getattr(self.source, "generator", None) is None:
+            raise ValueError(
+                "a graphed iteration draws from a torch.Generator (TorchRandomSource); "
+                "pass graphs=False to draw from another source"
+            )
         self._build_dynamics()
         self.barostat_state = None
+        self.runner = None
         return self.state
 
     @torch.no_grad()
@@ -346,6 +385,23 @@ class BLUESSimulation:
         return self.state
 
     # ------------------------------------------------------------------
+    def eager_reason(self):
+        """Why this configuration's iteration runs eagerly, or None when it
+        is one that ``graphs`` captures."""
+        if self._barostat is not None:
+            return "the barostat's MD chunks (pressure)"
+        if self._has_nlist:
+            return "the 'verlet' backend's neighbour-list MD"
+        if self.move is not None and not self.move.graphable:
+            return "a move whose proposal copies through the host (MolDartMove with fit atoms: its SVD)"
+        for efn in (self.energy_md, self.energy_alch):
+            nb = getattr(efn, "nonbonded", None)
+            if nb is not None and nb.backend in EAGER_BACKENDS:
+                return f"backend {nb.backend!r}, whose nonzero calls give data-dependent shapes"
+            if getattr(efn, "gb", None) is not None:
+                return "generalized Born"
+        return None
+
     def run_iteration(self) -> IterationStats:
         """One MD <-> NCMC iteration on every replica; returns its stats."""
         return self.run_iteration_frames()[0]
@@ -356,116 +412,257 @@ class BLUESSimulation:
         ``run_iteration``: (stats, md_frames, ncmc_frames). ``md_frames`` is
         (R, nstepsMD // md_report_interval, N, 3), or None without an
         interval; ``ncmc_frames`` is an ``NCMCFrames`` of (R, K, N, 3)
-        positions and (R, K) work at the K frame steps."""
+        positions and (R, K) work at the K frame steps.
+
+        Eagerly, the phases run one op at a time: the protocol as a whole
+        (``protocol_fn``), then the correction and the Metropolis test, the
+        MD steps and the MD end. Graphed, ``runner`` replays the captured
+        phases over its carry; the first graphed iteration captures them."""
         if self.state is None:
             raise RuntimeError("call initialize() first")
-        cfg, src = self.cfg, self.source
-        gather, put = self._gather, self._put
-        x, v, box = self.state
-        R, dt, dev = x.shape[0], x.dtype, x.device
+        if self.graphs:
+            if self.runner is None:
+                self.runner = self._capture()
+            c = self.runner.carry
+            for k, t in zip(("x", "v", "box"), self.state):
+                c[k].copy_(t)
+            snaps = self._ncmc_graphed(c)
+        else:
+            c = dict(zip(("x", "v", "box"), self.state))
+            snaps = self._ncmc_eager(c)
+        md_frames = self._md(c)
+        self._run_phase("md_end", c)
+        return self._finish(c, snaps, md_frames)
 
+    def _run_phase(self, name, c):
+        """Run phase ``name`` on the carry ``c``: replay its graph, or call
+        it and take its outputs into ``c``."""
+        if self.graphs:
+            self.runner.replay(name)
+        else:
+            c.update(self._phases()[name](c))
+
+    def _phases(self):
+        """{name: phase(carry) -> outputs} of the iteration: 'begin', the
+        protocol's 'micro' and 'move', 'end' (graphed); 'accept' (eager,
+        after the whole protocol); 'md', 'baro' (eager) and 'md_end'."""
+        out = dict(
+            begin=self._ph_begin, micro=self._protocol.micro, end=self._ph_end, accept=self._ph_accept,
+            md=self._ph_md, baro=self._ph_baro, md_end=self._ph_md_end,
+        )
+        if self._protocol.move is not None:
+            out["move"] = self._protocol.apply_move
+        return out
+
+    def _ncmc_eager(self, c):
+        """The NCMC stage one op at a time: returns (snapshots, work)."""
+        x, v, box = c["x"], c["v"], c["box"]
+        c["e_md0"] = self.energy_md(x, box, None)
+        res = self.protocol_fn(self._gather(x), self._gather(v), box)
+        c.update(
+            px=res.positions, pv=res.velocities, protocol_work=res.protocol_work, log_accept=res.log_accept,
+            e_initial=res.e_initial, e_final=res.e_final, mid_w=res.mid_work, aux=res.move_aux,
+        )
+        self._run_phase("accept", c)
+        return res.snapshots, res.snapshot_work
+
+    def _ncmc_graphed(self, c):
+        """The NCMC stage as replays, the snapshots copied out of the carry
+        into fresh buffers: returns (snapshots, work)."""
+        prot = self._protocol
+        self._run_phase("begin", c)
+        K = prot.n_records
+        snaps = c["px"].new_empty((c["px"].shape[0], K, *c["px"].shape[1:])) if K else None
+        work = c["wt"].new_empty((c["wt"].shape[0], K)) if K else None
+
+        def record(k, wkey):
+            snaps[:, k].copy_(c["px"])
+            work[:, k].copy_(c[wkey])
+
+        prot.walk(lambda name: self._run_phase(name, c), record)
+        self._run_phase("end", c)
+        n = self.schedule.n_micro
+        if n in prot.record_slot:
+            record(prot.record_slot[n], "w_close")
+        return snaps, work
+
+    # --- the phases -------------------------------------------------------
+    def _ph_begin(self, c):
+        """E_md(x0) and the protocol's prologue."""
+        x, v, box = c["x"], c["v"], c["box"]
         e_md0 = self.energy_md(x, box, None)
-        res = self.protocol_fn(gather(x), gather(v), box)
-        x_prop = put(x, res.positions)
+        return dict(self._protocol.prologue(self._gather(x), self._gather(v), box), e_md0=e_md0)
+
+    def _ph_end(self, c):
+        """The protocol's epilogue, then the acceptance and the MD start."""
+        out = self._protocol.epilogue(c)
+        out.update(self._ph_accept({**c, **out}))
+        return out
+
+    def _ph_accept(self, c):
+        """The alchemical correction and the Metropolis test, the
+        Maxwell-Boltzmann velocities of the dynamics state (frozen ones
+        stay zero) and the MD start: its forces and what a rollback
+        restores."""
+        x, box, gather = c["x"], c["box"], self._gather
+        x_prop = self._put(x, c["px"])
         e_md1 = self.energy_md(x_prop, box, None)
-        correction = -((res.e_initial - e_md0) + (e_md1 - res.e_final)) / self._kT
-        log_accept = res.log_accept + correction
-        rand = torch.log(src.uniform((R,), dt, dev))
+        correction = -((c["e_initial"] - c["e_md0"]) + (e_md1 - c["e_final"])) / self._kT
+        log_accept = c["log_accept"] + correction
+        R, dt, dev = x.shape[0], x.dtype, x.device
+        rand = torch.log(self.source.uniform((R,), dt, dev))
         accepted = torch.isfinite(log_accept) & (log_accept > rand)
         x = torch.where(accepted[:, None, None], x_prop, x)
-
-        # velocities for the dynamics state (frozen ones stay zero)
         xd = gather(x)
-        vd = maxwell_boltzmann_velocities(src, self._masses_d, cfg.temperature, R, dt, dev)
+        vd = maxwell_boltzmann_velocities(self.source, self._masses_d, self.cfg.temperature, R, dt, dev, self._v_scale)
         vd = self._constrain_d[1](vd, xd)
-        xd, vd, box, e_md_end, md_ok, md_frames = self._run_md(x, xd, vd, box)
-        x_md = put(x, xd)
-        snaps = res.snapshots
-        if snaps is not None and self._compact is not None:
-            # full coordinates: the frozen entries of the post-Metropolis state
-            K = snaps.shape[1]
-            full = x.unsqueeze(1).expand(-1, K, -1, -1).reshape(R * K, *x.shape[1:])
-            snaps = put(full, snaps.reshape(R * K, *snaps.shape[2:])).reshape(R, K, *x.shape[1:])
-        v = put(torch.zeros_like(x), vd)
-        self.state = SimState(x_md, v, box)
-        self.iteration_count += 1
-        aux = res.move_aux
-        if isinstance(aux, dict) and "selected" in aux:
-            selected = aux["selected"]
-        else:
-            selected = torch.zeros(R, dtype=torch.long, device=dev)
-        stats = IterationStats(
-            accepted=accepted,
-            protocol_work=res.protocol_work,
-            correction=correction,
-            log_accept=log_accept,
-            md_potential=e_md_end,
-            ncmc_potential=res.e_final,
-            mid_work=res.mid_work,
-            md_failed=~md_ok,
-            selected_move=selected,
+        _, fd = self._ffn_md_d(xd, box, None)
+        out = dict(
+            x=x, xd=xd, vd=vd, fd=fd, xd_keep=xd, vd_keep=vd, box_keep=box, accepted=accepted,
+            correction=correction, log_accept=log_accept,
         )
-        return stats, md_frames, NCMCFrames(snaps, res.snapshot_work)
+        if self._barostat is not None:
+            if self.barostat_state is None:
+                self.barostat_state = self._barostat.init_state(box)
+            out["bstate"] = out["bstate_keep"] = self.barostat_state
+        return out
 
-    def _run_md(self, x, xd, vd, box):
-        """``nstepsMD`` MD steps of the dynamics state from (xd, vd), in
-        chunks of ``md_report_interval`` steps when it is set, else of
+    def _ph_md(self, c):
+        """One MD step of the dynamics state (with the current neighbour
+        list on the 'verlet' backend)."""
+        step = self._md_step_d if self._md_nlist_step is None else self._md_nlist_step
+        xd, vd, fd, _ = step(c["xd"], c["vd"], c["fd"], c["box"])
+        return dict(xd=xd, vd=vd, fd=fd)
+
+    def _ph_baro(self, c):
+        """One Monte Carlo volume move per replica and the forces after it
+        (no compaction under a barostat: the dynamics state is the full
+        one)."""
+        xd, box, bstate = self._barostat.step(self.source, c["xd"], c["box"], c["bstate"])
+        _, fd = self._ffn_md_d(xd, box, None)
+        return dict(xd=xd, box=box, bstate=bstate, fd=fd)
+
+    def _ph_md_end(self, c):
+        """The MD potential at the end, and the rollback: a replica whose
+        MD ends with a non-finite energy or positions gets back the
+        positions, velocities, box and barostat state of its MD start, as in
+        the JAX driver (``md_ok``, ``blues_tpu/simulation/driver.py``).
+        Non-finite velocities alone keep the segment: the next iteration
+        draws new ones."""
+        xd, vd, box, x = c["xd"], c["vd"], c["box"], c["x"]
+        if self.cfg.md_fault_injection > 0.0:
+            fault = self.source.uniform((xd.shape[0],), xd.dtype, xd.device) < self.cfg.md_fault_injection
+            xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
+        e_md_end = self.energy_md(self._put(x, xd), box, None)
+        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1)
+        ok3 = md_ok[:, None, None]
+        keep = (c["xd_keep"], c["vd_keep"], c["box_keep"])
+        xd, vd, box = (torch.where(ok3, a, b) for a, b in zip((xd, vd, box), keep))
+        out = dict(
+            xd=xd, vd=vd, box=box, e_md_end=e_md_end, md_ok=md_ok, x_out=self._put(x, xd),
+            v_out=self._put(torch.zeros_like(x), vd),
+        )
+        if self._barostat is not None:
+            out["bstate"] = c["bstate"].where(md_ok, c["bstate_keep"])
+        return out
+
+    # ------------------------------------------------------------------
+    def _md(self, c):
+        """``nstepsMD`` MD steps of the dynamics state, in chunks of
+        ``md_report_interval`` steps when it is set, else of
         ``barostat_frequency`` steps with a barostat; with a barostat each
-        chunk is followed by a volume move and a force re-evaluation (the
-        remainder steps get no attempt, and no frame). A replica whose MD
-        ends non-finite (its energy, positions or velocities) rolls back
-        its positions, velocities, box and barostat state. Returns (xd, vd, box, (R,) MD potential at the end,
-        (R,) md_ok, (R, n_chunks, N, 3) full-coordinate frames after each
-        chunk or None without an interval)."""
-        cfg, src, baro = self.cfg, self.source, self._barostat
-        R, dt, dev = xd.shape[0], xd.dtype, xd.device
+        chunk is followed by a volume move (the remainder steps get no
+        attempt, and no frame). With neighbour lists the list is built at
+        a chunk's first step and every ``nlist_rebuild_interval`` steps
+        after it, and the steps in between apply it. Returns the (R,
+        n_chunks, N, 3) full-coordinate frames after each chunk, or None
+        without an interval."""
+        cfg, baro = self.cfg, self._barostat
         n_md, interval = cfg.nstepsMD, cfg.md_report_interval
-        if baro is not None and self.barostat_state is None:
-            self.barostat_state = baro.init_state(box)
-        bstate = self.barostat_state
-        keep = (xd, vd, box, bstate)
         chunk = interval if interval is not None else (cfg.barostat_frequency if baro is not None else max(n_md, 1))
         chunk = max(min(chunk, max(n_md, 1)), 1)
         n_chunks = n_md // chunk if n_md > 0 else 0
-        frames = []
-        _, fd = self._ffn_md_d(xd, box, None)
-        for _ in range(n_chunks):
-            xd, vd, fd = self._md_steps(xd, vd, fd, box, chunk)
-            if baro is not None:
-                # no compaction under a barostat: the dynamics state is the full one
-                xd, box, bstate = baro.step(src, xd, box, bstate)
-                _, fd = self._ffn_md_d(xd, box, None)
-            if interval is not None:
-                frames.append(self._put(x, xd))
-        xd, vd, fd = self._md_steps(xd, vd, fd, box, n_md - n_chunks * chunk)
-        if cfg.md_fault_injection > 0.0:
-            fault = src.uniform((R,), dt, dev) < cfg.md_fault_injection
-            xd = torch.where(fault[:, None, None], torch.full_like(xd, float("nan")), xd)
-        e_md_end = self.energy_md(self._put(x, xd), box, None)
-        # velocities too: a neighbour list found stale at the last step's
-        # forces poisons only the last half-kick
-        md_ok = torch.isfinite(e_md_end) & torch.isfinite(xd).all(-1).all(-1) & torch.isfinite(vd).all(-1).all(-1)
-        ok3 = md_ok[:, None, None]
-        xd, vd, box = (torch.where(ok3, a, b) for a, b in zip((xd, vd, box), keep))
-        if baro is not None:
-            self.barostat_state = bstate.where(md_ok, keep[3])
-        return xd, vd, box, e_md_end, md_ok, (torch.stack(frames, 1) if frames else None)
+        frames = None
+        if interval is not None and n_chunks:
+            frames = c["x"].new_empty((c["x"].shape[0], n_chunks, *c["x"].shape[1:]))
+        every = max(1, cfg.nlist_rebuild_interval)
 
-    def _md_steps(self, xd, vd, fd, box, k):
-        """k MD steps; with neighbour lists the list is built at the first
-        step and every ``nlist_rebuild_interval`` steps after it, and the
-        steps in between apply it."""
-        if self._md_nlist_step is None:
-            for _ in range(k):
-                xd, vd, fd, _e = self._md_step_d(xd, vd, fd, box)
-            return xd, vd, fd
-        every = max(1, self.cfg.nlist_rebuild_interval)
-        for s in range(k):
-            if s % every == 0:
-                self._nlist = self.energy_md.nlist_build(xd, box)
-                self.nlist_builds += 1
-            xd, vd, fd, _e = self._md_nlist_step(xd, vd, fd, box)
-        return xd, vd, fd
+        def steps(k):
+            for s in range(k):
+                if self._md_nlist_step is not None and s % every == 0:
+                    self._nlist = self.energy_md.nlist_build(c["xd"], c["box"])
+                    self.nlist_builds += 1
+                self._run_phase("md", c)
+
+        for j in range(n_chunks):
+            steps(chunk)
+            if baro is not None:
+                self._run_phase("baro", c)
+            if frames is not None:
+                frames[:, j].copy_(self._put(c["x"], c["xd"]))
+        steps(n_md - n_chunks * chunk)
+        return frames
+
+    def _finish(self, c, snaps, md_frames):
+        """The state and the stats from the carry (copies of a graphed
+        carry, which the next replay overwrites)."""
+        keep = (lambda t: t.clone()) if self.graphs else (lambda t: t)
+        x, R = c["x"], c["x"].shape[0]
+        snap_x, snap_w = snaps
+        if snap_x is not None and self._compact is not None:
+            # full coordinates: the frozen entries of the post-Metropolis state
+            K = snap_x.shape[1]
+            full = x.unsqueeze(1).expand(-1, K, -1, -1).reshape(R * K, *x.shape[1:])
+            snap_x = self._put(full, snap_x.reshape(R * K, *snap_x.shape[2:])).reshape(R, K, *x.shape[1:])
+        self.state = SimState(keep(c["x_out"]), keep(c["v_out"]), keep(c["box"]))
+        if self._barostat is not None:
+            self.barostat_state = c["bstate"]
+        self.iteration_count += 1
+        aux = self.last_move_aux = tree_map(lambda t: keep(t) if torch.is_tensor(t) else t, c["aux"])
+        if isinstance(aux, dict) and "selected" in aux:
+            selected = aux["selected"]
+        else:
+            selected = torch.zeros(R, dtype=torch.long, device=x.device)
+        stats = IterationStats(
+            accepted=keep(c["accepted"]),
+            protocol_work=keep(c["protocol_work"]),
+            correction=keep(c["correction"]),
+            log_accept=keep(c["log_accept"]),
+            md_potential=keep(c["e_md_end"]),
+            ncmc_potential=keep(c["e_final"]),
+            mid_work=keep(c["mid_w"]),
+            md_failed=~c["md_ok"],
+            selected_move=selected,
+        )
+        return stats, md_frames, NCMCFrames(snap_x, snap_w)
+
+    # --- graphs -------------------------------------------------------------
+    def kernel_counters(self):
+        """The kernel wrappers of this simulation's energies, whose
+        ``*launches`` counts the runner advances at each replay."""
+        out = {}
+        for efn in (self.energy_md, self.energy_alch):
+            nb = getattr(efn, "nonbonded", None)
+            for name in ("pair_sum", "pair_sum0", "ea_sweep"):
+                ps = getattr(nb, name, None)
+                if ps is not None and hasattr(ps, "launches"):
+                    out[id(ps)] = ps
+        return list(out.values())
+
+    def _capture(self):
+        """Warm every graphed phase up, then capture it (``graphs.py``)."""
+        from .graphs import GraphRunner
+
+        phases = self._phases()
+        names = ["begin", "micro", "end", "md", "md_end"] + (["move"] if "move" in phases else [])
+        runner = GraphRunner(
+            {k: phases[k] for k in names}, self.device, generators=[self.source.generator],
+            counted=self.kernel_counters(),
+        )
+        x, v, box = self.state
+        warm = ["begin", "micro", "micro"] + (["move"] if "move" in phases else []) + ["end", "md", "md", "md_end"]
+        runner.capture(dict(x=x, v=v, box=box), warm)
+        return runner
 
     def run(self, n_iter: Optional[int] = None, reporters=()):
         """Run ``n_iter`` iterations (default ``nIter``) and hand each

@@ -86,6 +86,15 @@ Phases (each prints its own line; any failure exits non-zero):
      against the port's CPU path (the plain sums) on the same positions
      and boxes, for the frozen slice, the unfrozen box, the darting system
      and the NPT run (two replicas on different boxes);
+     graphs: the frozen slice and the unfrozen 'pcells' box at R = 8, 50 +
+     50 steps, GRAPH_ITER iterations eagerly (``sim.graphs`` False), then
+     eagerly again and graphed, each from the first eager iteration's start:
+     the same decisions (but at thresholds, where the two eager runs differ
+     too) and generators, positions within RESTORE_DX_NM; each mode's iteration
+     time, switching steps/s, micro-step and MD step (CUDA events around
+     each phase), the capture's time and memory, and one graphed
+     iteration under torch.profiler (cudaGraphLaunch and cudaLaunchKernel
+     calls, the device's busy share, K1/K2/K3 in the trace);
  14. ethylene: the reference's two-state population gate, the JAX gate's
      configuration (tests/test_ethylene_populations.py) at R = 8:
      charged_ethylene() with a MoveEngine of RandomLigandRotationMove,
@@ -151,8 +160,13 @@ Phases (each prints its own line; any failure exits non-zero):
      0.5, 0), float32 against float64, and its time, launches and peak
      memory per energy + forces call at R = 8.
 
-Each path (5-12, the three runs of phase 18 and phase 20's run) must
-launch its kernels: every count is set to 0 just before the path and read just after. Phases
+The iteration runs graphed (CUDA graphs, simulation/graphs.py) on every
+path whose configuration allows it (5-10, 14, the dense phase's vacuum run,
+18, 20) and eagerly on the others (11-12, the plain backends, the
+triclinic box, 21); each path fails when a captured configuration ran
+eagerly. Each path (5-12, the three runs of phase 18 and phase 20's run) must
+launch its kernels: every count is set to 0 just before the path and read
+just after, a graph's replays counted as the launches they make. Phases
 14-17, 19 and 21 have no kernel of their own: the ethylene system has no
 NonbondedParams, and the dense, tiled, cells and verlet paths and
 generalized Born are plain tensor ops, as they are XLA code in the JAX
@@ -243,8 +257,16 @@ CLI_MIN, CLI_FRAME_EVERY = 100, 25
 #: reciprocals counted once each; backward twice that), and the float32
 #: card vs float64 CPU tolerance (energy relative, forces / (max|F| + 1))
 GB_WATERS, GB_MIN, GB_PAIR_FLOPS, GB_F32_REL = 842, 100, 200, (1e-5, 2e-4)
-#: the most a restored iteration's positions may differ from the original's (nm)
+#: the most a restored iteration's positions may differ from the original's (nm),
+#: and a graphed run's from the eager run's
 RESTORE_DX_NM = 1e-2
+#: the graphs phase: iterations of each mode, and the seed both start from;
+#: the widest gap (in kT) between two runs' log_accept at which a Metropolis
+#: decision may flip (two eager runs on the card differ in the work by a few
+#: kJ/mol), and the |log_accept| (kT) of a protocol that ran into a clash,
+#: where two eager runs on the card differ without bound (-5,362 against
+#: +2.4e6 on one replica)
+GRAPH_ITER, GRAPH_SEED, FLIP_KT, CLASH_KT = 3, 2031, 10.0, 1000.0
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -362,8 +384,7 @@ def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
     (0.3, lab frame, radius 0.2 nm) and MolDartMove (0.3, radius 0.1 nm)
     over the two poses. The darts teleport, so the driver turns culling
     off and the sweep resolves to the pair kernel K2. Returns the system,
-    its positions, the simulation and, per dart, the list that
-    ``record_moved`` fills."""
+    its positions, the simulation and, per dart, its ``MovedRecorder``."""
     import numpy as np
 
     from blues_tpu_torch.core.build import extract_atoms
@@ -397,26 +418,37 @@ def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
         nstepsNC=NSTEPS, nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="sweep", sweep_row_group=32,
         frozen_cull_skin=0.45, n_replicas=R_MAIN,
     )
-    moved = [record_moved(m, lig) for m in move.moves[1:]]
+    moved = [MovedRecorder(m, lig) for m in move.moves[1:]]
     return frozen, x0, BLUESSimulation(frozen, move, cfg, device=device), moved
 
 
-def record_moved(move, atoms):
-    """Wrap ``move.propose`` so that each call appends, per replica,
-    whether it changed the positions of ``atoms``: the list it fills."""
-    import torch
+class MovedRecorder:
+    """Wraps ``move.propose`` so that each call writes, per replica,
+    whether it changed the positions of ``atoms`` into ``flag``, a tensor
+    made at the first call (the graphs' warm-up, or the first eager
+    iteration) that a captured proposal writes on each replay; ``take``,
+    after an iteration, appends a copy of it to ``moved``."""
 
-    moved, propose = [], move.propose
-    idx = torch.as_tensor(atoms)
+    def __init__(self, move, atoms):
+        import torch
 
-    def recording(source, x, box, aux):
-        x_new, aux = propose(source, x, box, aux)
-        i = idx.to(x.device)
-        moved.append((x_new.index_select(1, i) != x.index_select(1, i)).any(-1).any(-1))
-        return x_new, aux
+        self.moved, self.flag, propose = [], None, move.propose
+        idx = torch.as_tensor(atoms)
 
-    move.propose = recording
-    return moved
+        def recording(source, x, box, aux):
+            x_new, aux = propose(source, x, box, aux)
+            i = idx.to(x.device) if self.flag is None else self.idx
+            now = (x_new.index_select(1, i) != x.index_select(1, i)).any(-1).any(-1)
+            if self.flag is None:
+                self.idx, self.flag = i, now.clone()
+            else:
+                self.flag.copy_(now)
+            return x_new, aux
+
+        move.propose = recording
+
+    def take(self):
+        self.moved.append(self.flag.clone())
 
 
 def build_frozen_short(device, frozen, backend, n_atoms=N_ATOMS, cutoff=1.0):
@@ -490,7 +522,7 @@ def check_darting(sim, frozen, res, idle, moved, label="darting"):
         for a in res["auxes"]
     ])
     counts = np.bincount(sel.ravel(), minlength=3)
-    fired = [int((torch.stack(m).cpu().numpy() & (sel == i + 1)).sum()) for i, m in enumerate(moved)]
+    fired = [int((torch.stack(m.moved).cpu().numpy() & (sel == i + 1)).sum()) for i, m in enumerate(moved)]
     phase(
         label,
         f"backend 'sweep' resolved to {sorted(backends)} (culling off for the teleporting engine); compact "
@@ -1121,11 +1153,12 @@ def run_mc(sim, x0, counted, every, n_iter, label, card):
     return dict(launches=launches)
 
 
-def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
+def run_path(sim, x0, counted, every, n_min, n_iter, label, card, after=None):
     """Initialise at x0, FIRE-minimise (n_min steps), then n_iter
-    iterations; every kernel count is 0 just before and ``counted``'s are
-    read just after. Returns summary numbers and the minimised positions
-    of replica 0."""
+    iterations (``after()`` after each); every kernel count is 0 just
+    before and ``counted``'s are read just after, counting a graph's
+    replays. A captured configuration must run graphed (``graph_line``).
+    Returns summary numbers and the minimised positions of replica 0."""
     import numpy as np
     import torch
 
@@ -1138,14 +1171,18 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
     t_min = time.perf_counter() - t0
     x_min = sim.state[0][0].cpu().numpy()
 
-    timers, auxes, restore = step_timers(sim)
-    stats = []
+    timers, restore = step_timers(sim)
+    stats, auxes = [], []
     t0 = time.perf_counter()
     for _ in range(n_iter):
         stats.append(sim.run_iteration())
+        auxes.append(sim.last_move_aux)
+        if after is not None:
+            after()
     torch.cuda.synchronize()
     t_iter = time.perf_counter() - t0
     launches = read_counts(counted)
+    graphs = graph_line(sim, label)
 
     R = sim.cfg.n_replicas
     work = check_iterations(sim, stats, label)
@@ -1160,6 +1197,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         work_median=[float(np.median(w[np.isfinite(w)])) if np.isfinite(w).any() else float("nan") for w in work],
         md_failed=int(sum(int(s.md_failed.sum()) for s in stats)),
         sps=R * n_micro * n_iter / timers["ncmc"],
+        graphs=graphs,
         micro_ms=1e3 * timers["ncmc"] / (n_micro * n_iter),
         md_ms=1e3 * timers["md"] / max(timers["md_steps"], 1),
         baro_ms=1e3 * timers["baro"] / max(timers["baro_steps"], 1),
@@ -1174,18 +1212,20 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card):
         f"work medians {['%.3f' % w for w in res['work_median']]} kJ/mol, "
         f"md rollbacks {res['md_failed']}, aggregate switching steps/s {res['sps']:.1f}, "
         f"NCMC micro-step {res['micro_ms']:.2f} ms, MD step {res['md_ms']:.2f} ms (synchronised per step), "
-        f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}",
+        f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}; {graphs}",
     )
     restore()
     return res, x_min
 
 
-def check_iterations(sim, stats, label):
+def check_iterations(sim, stats, label, finite_velocities=True):
     """The checks every path's iterations get: each stat of shape (R,),
     ``accepted`` consistent with ``log_accept``, a finite MD potential
-    where no replica rolled back, finite final positions and velocities,
-    and every replica's work finite in some iteration. Returns the
-    (n_iter, R) work."""
+    where no replica rolled back, finite final positions and boxes, finite
+    velocities unless ``finite_velocities`` is False (the JAX driver keeps
+    an MD segment whose energy and positions are finite, whatever its
+    velocities), and every replica's work finite in some iteration.
+    Returns the (n_iter, R) work."""
     import numpy as np
     import torch
 
@@ -1201,8 +1241,9 @@ def check_iterations(sim, stats, label):
         kept = ~s.md_failed.cpu().numpy()  # a rolled-back replica reports its failed segment
         if not np.all(np.isfinite(s.md_potential.cpu().numpy()[kept])):
             raise RuntimeError(f"{label}: non-finite MD potential without a rollback")
-    x_end, v_end, _ = sim.state
-    if not (torch.isfinite(x_end).all() and torch.isfinite(v_end).all()):
+    x_end, v_end, box_end = sim.state
+    v_ok = torch.isfinite(v_end).all() or not finite_velocities
+    if not (torch.isfinite(x_end).all() and torch.isfinite(box_end).all() and v_ok):
         bad = [(~torch.isfinite(t)).flatten(1).any(1).cpu().numpy().astype(int).tolist() for t in (x_end, v_end)]
         raise RuntimeError(f"{label}: non-finite positions (replicas {bad[0]}) or velocities ({bad[1]}) after "
                            f"the iterations; MD rolled back {stats[-1].md_failed.cpu().numpy().astype(int).tolist()}")
@@ -1264,6 +1305,201 @@ def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
         raise RuntimeError(f"{label}: the card's MD energy disagrees with the CPU path")
 
 
+def phase_clock(sim):
+    """CUDA events around each of ``sim``'s phases (a replay, or an eager
+    call) and around its eager protocol: (log, restore); ``log`` holds
+    (name, start, end), the protocol's under 'protocol'."""
+    import torch
+
+    log = []
+    run_phase, protocol = sim._run_phase, sim.protocol_fn
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed_phase(name, c):
+        a = event()
+        run_phase(name, c)
+        log.append((name, a, event()))
+
+    def timed_protocol(*args):
+        a = event()
+        out = protocol(*args)
+        log.append(("protocol", a, event()))
+        return out
+
+    sim._run_phase, sim.protocol_fn = timed_phase, timed_protocol
+
+    def restore():
+        del sim._run_phase
+        sim.protocol_fn = protocol
+
+    return log, restore
+
+
+def agreement(label, runs_a, runs_b, starts):
+    """Two runs' iterations from the same starts ((state, generator) per
+    iteration), compared per iteration: (decisions agree, generators end
+    equal, replicas at a threshold, max |dx| of the others, max |dW| where
+    both finite). Two runs on the card differ at thresholds (two eager runs
+    too): a decision that flipped with the two log_accepts within FLIP_KT
+    of each other, one of them non-finite or beyond CLASH_KT (a clash), and
+    MD that blew up (rolled back, or flown off ten box lengths) in either
+    run. Such a replica is printed, counted, and left out of the positions'
+    comparison; any other flip is a disagreement."""
+    import numpy as np
+    import torch
+
+    same, same_gen, edge, dx, dw = [], [], [], [], []
+    reach = 10.0 * float(torch.diagonal(starts[0][0].box[0]).max())
+    for k, ((sa, xa, ga, _), (sb, xb, gb, _)) in enumerate(zip(runs_a, runs_b)):
+        la, lb = sa.log_accept.double(), sb.log_accept.double()
+        flip = sa.accepted != sb.accepted
+        finite = torch.isfinite(la) & torch.isfinite(lb)
+        near = ~finite | ((la - lb).abs() <= FLIP_KT) | (torch.maximum(la.abs(), lb.abs()) > CLASH_KT)
+        x0k = starts[k][0].positions
+        off = lambda x: ((x - x0k).abs().flatten(1).amax(1) > reach)  # noqa: E731
+        at = flip | sa.md_failed | sb.md_failed | off(xa) | off(xb)
+        edge.append([int(r) for r in torch.nonzero(at).flatten().tolist()])
+        keep = ~at
+        same.append(not bool((flip & ~near).any()))
+        same_gen.append(bool(torch.equal(ga, gb)))
+        dx.append(float((xa - xb)[keep].abs().max()) if bool(keep.any()) else 0.0)
+        wa, wb = sa.protocol_work.double().cpu().numpy(), sb.protocol_work.double().cpu().numpy()
+        both = np.isfinite(wa) & np.isfinite(wb)
+        dw.append(float(np.abs(wa - wb)[both].max()) if both.any() else float("nan"))
+        if edge[-1]:
+            phase("graphs", f"{label} iteration {k + 1}: replicas at a threshold {edge[-1]}: accepted "
+                  f"{sa.accepted.int().tolist()} / {sb.accepted.int().tolist()}, log_accept {la.tolist()} / "
+                  f"{lb.tolist()}, md_failed {sa.md_failed.int().tolist()} / {sb.md_failed.int().tolist()}, MD "
+                  f"potential {sa.md_potential.tolist()} / {sb.md_potential.tolist()}")
+    return same, same_gen, edge, dx, dw
+
+
+def run_graphs(card, paths):
+    """Phase graphs: each path of ``paths`` ((label, sim, x0, counted,
+    every): the frozen slice and the unfrozen 'pcells' box, R = 8, 50 + 50
+    steps) runs GRAPH_ITER iterations eagerly (``sim.graphs`` False) from x0
+    and one seed; then eagerly again and graphed, each iteration from the
+    state and the generator state the first eager run had before it (so
+    that the card's run-to-run spread does not compound over iterations).
+    Graphed against the first eager run (``agreement``), each iteration
+    must make its decisions but at thresholds (at most R replica-iterations
+    at a threshold), leave the generator where it left it, and end within
+    RESTORE_DX_NM of its positions (PME's spread and the constraint solves
+    sum with float atomics: phase cli); the second eager run against the
+    first is printed beside it as the card's own spread. Prints each
+    mode's iteration time (host clock, synchronised per iteration),
+    aggregate switching steps/s, micro-step and MD step (CUDA events around
+    each phase, iterations 2 on: the first graphed one captures), the
+    capture's time and memory, the launches of the path's kernels, and one
+    more graphed iteration under torch.profiler: its cudaGraphLaunch
+    calls, the cudaLaunchKernel calls outside the graphs, its kernel time
+    and device busy time (the union of the kernels' intervals) beside the
+    unprofiled graphed iteration's wall time, and which of K1, K2, K3 ran."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from blues_tpu_torch.core.state import SimState
+
+    ncmc_names = ("protocol",) + NCMC_PHASES
+    out = {}
+    for label, sim, x0, counted, every in paths:
+        res, starts = {}, []
+        for mode in ("eager", "eager again", "graphed"):
+            sim.graphs = mode == "graphed"
+            zero_counts(every)
+            sim.initialize(x0, seed=GRAPH_SEED)
+            log, restore = phase_clock(sim)
+            runs = []
+            for it in range(GRAPH_ITER):
+                if mode == "eager":
+                    starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()))
+                else:
+                    sim.state = starts[it][0]
+                    sim.source.generator.set_state(starts[it][1])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = sim.run_iteration()
+                torch.cuda.synchronize()
+                runs.append((st, sim.state.positions.clone(), sim.source.generator.get_state(),
+                             time.perf_counter() - t0))
+                if it == 0:
+                    log.clear()
+            restore()
+            ms = {}
+            for name, a, b in log:
+                ms.setdefault(name, []).append(a.elapsed_time(b))
+            ncmc = sum(sum(v) for k, v in ms.items() if k in ncmc_names) / (GRAPH_ITER - 1)
+            res[mode] = dict(
+                runs=runs, t_it=[r[3] for r in runs], launches=read_counts(counted),
+                micro_ms=ncmc / sim.schedule.n_micro, md_ms=float(np.mean(ms.get("md", [float("nan")]))),
+                sps=sim.cfg.n_replicas * sim.schedule.n_micro / (ncmc / 1e3),
+                line=graph_line(sim, f"graphs {label}") if sim.graphs else "eager (graphs=False)",
+            )
+        eager = res["eager"]["runs"]
+        ref = agreement(f"{label} eager again", eager, res["eager again"]["runs"], starts)
+        same, same_gen, edge, dx, dw = agreement(f"{label} graphed", eager, res["graphed"]["runs"], starts)
+        t_graphed = float(np.mean(res["graphed"]["t_it"][1:]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim.run_iteration()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        avg = prof.key_averages()
+        graph_launches = sum(ev.count for ev in avg if ev.key == "cudaGraphLaunch")
+        kernel_launches = sum(ev.count for ev in avg if ev.key.startswith("cudaLaunchKernel"))
+        kern = [ev for ev in avg if ev.device_type == DeviceType.CUDA]
+        busy = sum(ev.device_time_total for ev in kern) / 1e3
+        # a graph's independent kernels may overlap: the busy time is the
+        # union of the kernels' intervals, not the sum of their times
+        spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                       if ev.device_type == DeviceType.CUDA)
+        union, end = 0.0, float("-inf")
+        for a, b in spans:
+            union += max(0.0, b - max(a, end))
+            end = max(end, b)
+        union /= 1e3
+        present = {k: sum(ev.count for ev in kern if n in ev.key) for k, n in (
+            ("K1", "sweep_rows_kernel"), ("K2", "pair_kernel"), ("K3", "cells_kernel"))}
+        for mode in ("eager", "graphed"):
+            r = res[mode]
+            phase(
+                "graphs",
+                f"{label} {mode} on {card}: R={sim.cfg.n_replicas}, {GRAPH_ITER} iterations of "
+                f"{sim.cfg.nstepsNC} + {sim.cfg.nstepsMD} steps, iteration wall time "
+                f"{', '.join(f'{t:.4f}' for t in r['t_it'])} s (synchronised per iteration), switching steps/s "
+                f"{r['sps']:.1f}, NCMC micro-step {r['micro_ms']:.4f} ms, MD step {r['md_ms']:.4f} ms (CUDA events "
+                f"around each phase, iterations 2-{GRAPH_ITER}); launches {r['launches']}; {r['line']}",
+            )
+        fmt = lambda v: ['%.3e' % u for u in v]  # noqa: E731
+        phase(
+            "graphs",
+            f"{label}: each iteration from the first eager run's start; graphed vs eager: decisions agree {same}, "
+            f"generators end equal {same_gen}, replicas at a threshold {edge}, positions of the others max |dx| "
+            f"{fmt(dx)} nm (limit {RESTORE_DX_NM}), protocol work max |dW| {fmt(dw)} kJ/mol where both finite; "
+            f"eager again vs eager (the card's spread): decisions agree {ref[0]}, generators {ref[1]}, thresholds "
+            f"{ref[2]}, |dx| {fmt(ref[3])} nm, |dW| {fmt(ref[4])} kJ/mol; steady iteration "
+            f"{np.mean(res['eager']['t_it'][1:]):.4f} s eager vs {t_graphed:.4f} s graphed; one more graphed "
+            f"iteration under torch.profiler (wall {wall:.4f} s there): {graph_launches} cudaGraphLaunch and "
+            f"{kernel_launches} cudaLaunchKernel calls, kernel time {busy:.1f} ms in {sum(ev.count for ev in kern)} "
+            f"kernels, device busy (union of the kernels' intervals) {union:.1f} ms = "
+            f"{100 * union / (1e3 * t_graphed):.1f} % of the unprofiled graphed iteration; kernel launches seen "
+            f"{present}",
+        )
+        if not (all(same) and all(same_gen) and max(dx) <= RESTORE_DX_NM) or sum(map(len, edge)) > sim.cfg.n_replicas:
+            raise RuntimeError(f"graphs {label}: graphed and eager disagree (decisions {same}, generators "
+                               f"{same_gen}, replicas at a threshold {edge}, max |dx| {dx} nm)")
+        sim.graphs = True
+        out[label] = dict(eager=res["eager"]["t_it"], graphed=res["graphed"]["t_it"], busy=union / (1e3 * t_graphed))
+    return out
+
+
 def ethylene_stderr(dist, n_points=10):
     """The JAX gate's convergence error: std of the running population
     estimate over checkpoints, scaled by 1/sqrt(n)."""
@@ -1316,6 +1552,7 @@ def run_ethylene(device, card, n_iter=ETH_ITER):
             raise RuntimeError(f"ethylene: {K} NCMC snapshots, or non-zero work at snapshot 0: {nc.work[:, 0]}")
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
+    graphs = graph_line(sim, "ethylene")
     frames = np.concatenate(frames, axis=1)  # (R, T, N, 3)
     dists = np.linalg.norm(frames[:, :, 0] - frames[:, :, 2], axis=-1)
     state1 = (dists > 0.49).mean(1)
@@ -1330,7 +1567,7 @@ def run_ethylene(device, card, n_iter=ETH_ITER):
         f"err {err:.4f}), per replica {np.round(1.0 - state1, 3).tolist()}, flips {flips.tolist()}, acceptance "
         f"{float(np.mean(acc)):.3f}, work median {float(np.median(works)):.3f} kJ/mol, MD frames {frames.shape}, "
         f"NCMC frames per iteration ({ETH_R}, {K}, {system.n_atoms}, 3) at steps {sim.ncmc_frame_steps}, "
-        f"{t_run:.1f} s",
+        f"{t_run:.1f} s ({1e3 * t_run / (n_iter * 40):.3f} ms a step); {graphs}",
     )
     if not np.allclose(pops, ETH_POPULATIONS, atol=3 * err):
         raise RuntimeError(f"ethylene: populations {pops} outside 3 x {err:.4f} of {ETH_POPULATIONS}")
@@ -1459,12 +1696,12 @@ def peak_ms(fn, reps, device):
     return ms, (torch.cuda.max_memory_allocated(device) - base) / 2**20
 
 
-def check_run(sim, stats, label):
+def check_run(sim, stats, label, finite_velocities=True):
     """``check_iterations``, and beyond it finite work on every replica in
     every iteration and MD kept on some replica in each."""
     import numpy as np
 
-    work = check_iterations(sim, stats, label)
+    work = check_iterations(sim, stats, label, finite_velocities)
     if not np.isfinite(work).all():
         raise RuntimeError(f"{label}: non-finite protocol work {work}")
     if any(bool(st.md_failed.all()) for st in stats):
@@ -1599,14 +1836,17 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
     sim.initialize(x_min, seed=2030)
     stats = [sim.run_iteration()]
     torch.cuda.synchronize()
-    check_run(sim, stats, "backends verlet")
+    # what the JAX driver guarantees: positions, box and MD energy finite
+    check_run(sim, stats, "backends verlet", finite_velocities=False)
+    nan_v = int((~torch.isfinite(sim.state.velocities)).flatten(1).any(1).sum())
     want = -(-VERLET_MD_STEPS // VERLET_EVERY)
     t_verlet = time.perf_counter() - t1
     phase(
         "backends",
         f"'verlet': 1 iteration of {BACKENDS_STEPS} + {VERLET_MD_STEPS} steps at R = {R}, list rebuilt every "
         f"{VERLET_EVERY} MD steps: {sim.nlist_builds} builds (expected {want}), MD failed "
-        f"{stats[0].md_failed.cpu().numpy()}, work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_verlet:.1f} s",
+        f"{stats[0].md_failed.cpu().numpy()}, replicas ending with NaN velocities {nan_v} (kept, as the JAX "
+        f"driver keeps them), work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_verlet:.1f} s",
     )
     if sim.nlist_builds != want:
         raise RuntimeError(f"backends: the verlet MD built its list {sim.nlist_builds} times, expected {want}")
@@ -1898,42 +2138,67 @@ def cli_config(d, outfname, minimize=CLI_MIN, cutoff=1.0):
     }
 
 
+#: the driver's phases that make up the NCMC stage (``BLUESSimulation._phases``)
+NCMC_PHASES = ("begin", "micro", "move", "end", "accept")
+
+
 def step_timers(sim):
-    """Wrap ``sim``'s NCMC protocol, MD step and barostat step (where it
-    has one) with synchronised host timers, keeping each protocol's
-    ``move_aux``: (timers, auxes, restore)."""
+    """Wrap ``sim``'s phases (``_run_phase``: a replay when graphed, an
+    eager call otherwise) and its eager protocol (``protocol_fn``) with
+    synchronised host timers: (timers, restore). ``ncmc`` sums the NCMC
+    stage (the protocol, or its replays, with the acceptance), ``md`` the
+    MD steps, ``baro`` the barostat's attempts (each with its force call)."""
     import torch
 
-    timers = {"ncmc": 0.0, "protocols": 0, "md": 0.0, "md_steps": 0, "baro": 0.0, "baro_steps": 0}
-    auxes = []
-    protocol, md_step = sim.protocol_fn, sim._md_step_d
-    baro = getattr(sim, "_barostat", None)
-    baro_step = baro.step if baro is not None else None
+    timers = {"ncmc": 0.0, "md": 0.0, "md_steps": 0, "baro": 0.0, "baro_steps": 0, "iterations": 0}
+    run_phase, protocol = sim._run_phase, sim.protocol_fn
 
-    def timed(fn, key, count):
-        def call(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            timers[key] += time.perf_counter() - t
-            timers[count] += 1
-            if key == "ncmc":
-                auxes.append(out.move_aux)
-            return out
+    def clock(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
 
-        return call
+    def timed_phase(name, c):
+        _, dt = clock(run_phase, name, c)
+        if name in NCMC_PHASES:
+            timers["ncmc"] += dt
+        elif name in ("md", "baro"):
+            timers[name] += dt
+            timers[f"{name}_steps"] += 1
+        elif name == "md_end":
+            timers["iterations"] += 1
 
-    sim.protocol_fn, sim._md_step_d = timed(protocol, "ncmc", "protocols"), timed(md_step, "md", "md_steps")
-    if baro is not None:
-        baro.step = timed(baro_step, "baro", "baro_steps")
+    def timed_protocol(*args):
+        out, dt = clock(protocol, *args)
+        timers["ncmc"] += dt
+        return out
+
+    sim._run_phase, sim.protocol_fn = timed_phase, timed_protocol
 
     def restore():
-        sim.protocol_fn, sim._md_step_d = protocol, md_step
-        if baro is not None:
-            baro.step = baro_step
+        del sim._run_phase
+        sim.protocol_fn = protocol
 
-    return timers, auxes, restore
+    return timers, restore
+
+
+def graph_line(sim, label):
+    """How ``sim``'s iterations ran; fails when the configuration is one the
+    driver captures (``eager_reason`` None) and its iterations ran
+    eagerly, or the other way round."""
+    reason = sim.eager_reason()
+    runner = sim.runner
+    ran = bool(sim.graphs and runner is not None and runner.replays.get("begin", 0) > 0)
+    if ran != (reason is None):
+        raise RuntimeError(f"{label}: the configuration is {'eager (' + reason + ')' if reason else 'captured'}, "
+                           f"but its iterations ran {'graphed' if ran else 'eagerly'}")
+    if not ran:
+        return f"eager ({reason})"
+    mib = "not measured" if runner.pool_bytes is None else f"{runner.pool_bytes / 2**20:.1f} MiB"
+    return (f"graphed: {sum(runner.replays.values())} replays of {len(runner.graphs)} graphs, capture "
+            f"{runner.capture_s:.2f} s, graph pool {mib}, static carry {runner.carry_bytes / 2**20:.1f} MiB")
 
 
 class KeepStats:
@@ -2150,7 +2415,7 @@ def run_cli(device, card, every, main_res, n_atoms=N_ATOMS, cutoff=1.0):
 
         sums = {("" if k.startswith("cli_") else "cli_") + k: v for k, v in sums_of(sim, "sweep", "cli_sweep").items()}
         zero_counts(every + list(sums.values()))
-        timers, _, restore = step_timers(sim)
+        timers, restore = step_timers(sim)
         ckpt = os.path.join(d, "cli.npz")
         kept = KeepStats()
         sim.run(1, reporters=md_reps + nc_reps + [kept])
@@ -2160,6 +2425,7 @@ def run_cli(device, card, every, main_res, n_atoms=N_ATOMS, cutoff=1.0):
         torch.cuda.synchronize()
         restore()
         launches = read_counts(sums)
+        graphs = graph_line(sim, "cli")
         for rep in md_reps + nc_reps:
             rep.close()
         if min(launches.values()) <= 0:
@@ -2184,7 +2450,7 @@ def run_cli(device, card, every, main_res, n_atoms=N_ATOMS, cutoff=1.0):
         ck = check_restore(sim, ckpt, saved, acc[1], work_in[1],
                            lambda: create_simulation(cli_config(d, "restored", minimize=0, cutoff=cutoff),
                                                      n_replicas=R_MAIN, device=device, seed=7)[0])
-        micro_ms = 1e3 * timers["ncmc"] / (sim.schedule.n_micro * timers["protocols"])
+        micro_ms = 1e3 * timers["ncmc"] / (sim.schedule.n_micro * timers["iterations"])
         md_ms = 1e3 * timers["md"] / max(timers["md_steps"], 1)
         phase(
             "cli",
@@ -2196,7 +2462,7 @@ def run_cli(device, card, every, main_res, n_atoms=N_ATOMS, cutoff=1.0):
             f"launches {launches}; NCMC micro-step {micro_ms:.2f} ms, MD step {md_ms:.2f} ms (phase main in this "
             f"run: {main_res['micro_ms']:.2f} ms, {main_res['md_ms']:.2f} ms); NetCDF {md_shape} + {nc_shape}, "
             f"the subprocess's NCMC frame work (kT, replica 0) {work.tolist()}, this run's as its iterations'; "
-            f"rst7 within {rst_err:.2e} nm; checkpoint after iteration 1: {ck}; "
+            f"rst7 within {rst_err:.2e} nm; checkpoint after iteration 1: {ck}; {graphs}; "
             f"phase {time.perf_counter() - t_phase:.1f} s on {card}",
         )
         return dict(launches=launches, micro_ms=micro_ms, md_ms=md_ms)
@@ -2461,7 +2727,8 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     main_res, xf_min = run_path(sim, x0, sweep_sums, every, N_MIN_FROZEN, N_ITER, "main", card)
     unf_res, xu_min = run_path(sim_c, xu0, cells_sums, every, N_MIN_UNFROZEN, N_ITER, "unfrozen", card)
     pal_res, _ = run_path(sim_p, xu_min, pair_sums, every, 0, 1, "pallas", card)
-    dart_res, _ = run_path(sim_d, xd0, nocull_sums, every, N_MIN_DART, N_ITER, "darting", card)
+    dart_res, _ = run_path(sim_d, xd0, nocull_sums, every, N_MIN_DART, N_ITER, "darting", card,
+                           after=lambda: [m.take() for m in dart_moved])
     check_darting(sim_d, dart, dart_res, sweep_sums, dart_moved)
     fp_res, _ = run_path(sim_fp, xf_min, culled_sums, every, 0, N_ITER_SHORT, "frozen_pallas", card)
     fc_res, _ = run_path(sim_fc, xf_min, fcells_sums, every, 0, N_ITER_SHORT, "frozen_pcells", card)
@@ -2478,6 +2745,8 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     L_npt = torch.diagonal(sim_n.state[2], dim1=-2, dim2=-1)
     other = int(torch.nonzero((L_npt != L_npt[0]).any(-1))[0])  # check_npt: two boxes differ
     check_against_cpu(sim_n, unfrozen, "npt", raw_anchor=True, replicas=[0, other])
+    # the frozen and the unfrozen path eagerly and graphed, from one state
+    run_graphs(card, [("frozen", sim, xf_min, sweep_sums, every), ("pcells", sim_c, xu_min, cells_sums, every)])
     # the reference's two-state gate and the dense backend (no kernel of
     # their own: the ethylene system has no NonbondedParams, and the dense
     # path is plain tensor ops, as in the JAX package)

@@ -92,25 +92,70 @@ def test_md_rollback_restores_pre_md_state(frozen):
     assert torch.isfinite(sim.energy_md(*sim.state[::2])).all()
 
 
-def test_md_rollback_on_non_finite_velocities(frozen):
-    """MD that ends with finite positions and energy but non-finite
-    velocities (a neighbour list found stale at the last step's forces
-    poisons only the last half-kick) rolls that replica back too."""
-    fr, x, li = frozen
-    pt = system_from_reference(fr)
-    sim = BLUESSimulation(pt, NullMove(), SimulationConfig(**CFG), device=DEVICE)
-    sim.initialize(x, seed=4)
-    md_steps = sim._md_steps
+def test_md_rollback_on_non_finite_velocities():
+    """An MD segment that ends with finite positions and energy but NaN
+    velocities on replica 0, fed to the JAX driver and to the port's: both
+    keep the segment (md_failed False) and its positions, as the JAX
+    driver's ``md_ok = isfinite(E) & all(isfinite(x))`` does; the next
+    iteration draws new velocities in both. Both drivers' own iteration
+    code runs on the ethylene system; the protocol is an identity stand-in
+    with no work and the MD segment a stand-in that shifts the positions by
+    a fixed step and poisons the velocities."""
+    from blues_tpu.integrators.ncmc import NCMCResult as JResult
+    from blues_tpu.moves import NullMove as JNullMove
+    from blues_tpu.simulation import BLUESSimulation as JSim
+    from blues_tpu.simulation import SimulationConfig as JConfig
+    from blues_tpu.testsystems import charged_ethylene
+    from blues_tpu_torch.integrators.ncmc import NCMCResult as TResult
 
-    def poisoned(xd, vd, fd, box, k):
-        xd, vd, fd = md_steps(xd, vd, fd, box, k)
-        return xd, vd.index_fill(0, torch.tensor([0]), float("nan")), fd
+    js, x0 = charged_ethylene()
+    x0 = np.asarray(x0, np.float32)
+    shift = np.float32(0.01)
+    cfg = dict(nstepsNC=2, nstepsMD=1, temperature=300.0)
 
-    sim._md_steps = poisoned
-    st = sim.run_iteration()
-    assert st.md_failed.tolist() == [True, False]
-    assert torch.isfinite(st.md_potential).all()
-    assert torch.isfinite(sim.state[0]).all() and torch.isfinite(sim.state[1]).all()
+    # --- the JAX driver (one replica: replica 0) ---------------------------
+    jsim = JSim(js, JNullMove(), JConfig(**cfg))
+
+    def j_protocol(x, v, box, key):
+        z = jnp.zeros((), x.dtype)
+        e = jsim.energy_alch(x, box, None)
+        return JResult(x, v, key, z, z, e, e, x, z, None, None, None)
+
+    def j_runner(*_, **__):
+        def run(inner, k):
+            x, v, f, key, box = inner
+            return x + shift, v * jnp.nan, f, key, box
+
+        return run
+
+    jsim.protocol_fn, jsim._make_md_runner = j_protocol, j_runner
+    it = jax.jit(jsim._build_iteration())
+    (xj, vj, _, _), jst, _, _ = it(
+        (jnp.asarray(x0), jnp.zeros((8, 3), jnp.float32), jnp.asarray(js.box, jnp.float32)), jax.random.PRNGKey(3)
+    )
+
+    # --- the port's driver (two replicas, replica 0 poisoned) -------------
+    pt = system_from_reference(js)
+    tsim = BLUESSimulation(pt, NullMove(), SimulationConfig(**dict(cfg, n_replicas=2)), device=DEVICE)
+    tsim.initialize(x0, seed=3)
+
+    def t_protocol(x, v, box):
+        z = torch.zeros(x.shape[0], dtype=x.dtype)
+        e = tsim.energy_alch(x, box, None)
+        return TResult(x, v, z, z, e, e, z)
+
+    def t_md_step(x, v, f, box):
+        return x + shift, v.index_fill(0, torch.tensor([0]), float("nan")), f, None
+
+    tsim.protocol_fn, tsim._md_step_d = t_protocol, t_md_step
+    tst = tsim.run_iteration()
+
+    assert bool(jst.accepted) and tst.accepted.tolist() == [True, True]
+    assert tst.md_failed.tolist() == [bool(jst.md_failed)] * 2 == [False, False]
+    assert not np.isfinite(np.asarray(vj)).any() and not torch.isfinite(tsim.state[1][0]).any()
+    np.testing.assert_array_equal(tsim.state[0][0].numpy(), np.asarray(xj))
+    np.testing.assert_array_equal(tsim.state[0][0].numpy(), x0 + shift)
+    assert torch.isfinite(tst.md_potential).all()
 
 
 @pytest.mark.parametrize(
@@ -323,21 +368,25 @@ def test_verlet_md_rebuilds_its_list_and_matches_jax(monkeypatch):
     assert sim.energy_md.nonbonded.backend == "verlet" and hasattr(sim.energy_md, "nlist_build")
     assert sim.energy_md.nonbonded.pair_sum.grid == (3, 3, 3)
     seen = {}
-    run_md = sim._run_md
+    accept, md_end = sim._ph_accept, sim._ph_md_end
 
-    def spy(x_, xd, vd, box):
-        seen["in"] = (xd.clone(), vd.clone(), box.clone())
-        out = run_md(x_, xd, vd, box)
-        seen["out"] = out
+    def spy_start(c):  # the MD segment's start: drawn velocities, positions, box
+        out = accept(c)
+        seen["in"] = (out["xd"].clone(), out["vd"].clone(), out["box_keep"].clone())
         return out
 
-    sim._run_md = spy
+    def spy_end(c):
+        out = md_end(c)
+        seen["out"] = out["xd"]
+        return out
+
+    sim._ph_accept, sim._ph_md_end = spy_start, spy_end
     sim.initialize(np.asarray(x, np.float64), seed=9)
     st = sim.run_iteration()
     assert sim.nlist_builds == 3
     assert bool(torch.isfinite(st.md_potential).all()) and not bool(st.md_failed.any())
     xd, vd, box = (t[0].numpy() for t in seen["in"])
-    x_end = seen["out"][0][0].numpy()
+    x_end = seen["out"][0].numpy()
 
     monkeypatch.setattr(jpme, "jnp", F64Jnp())
     with jax.enable_x64(True):

@@ -18,7 +18,10 @@ and the plain cell-list (full and half neighbourhood) and verlet pair sums
 on the card against K3 at water density. Generalized Born (plain tensor
 ops) on the card against the CPU in float64 (energy 1e-9 relative, forces
 1e-8*(max|F| + 1)), and ``create_simulation`` of a GB droplet read from a
-prmtop on the card, its energies against the CPU's.
+prmtop on the card, its energies against the CPU's. The graphed iteration
+(CUDA graphs) against the eager one on a frozen 'sweep' box and an
+unfrozen 'pcells' box at R = 2: the same decisions, generators that end
+equal, positions within 1e-2 nm; and a capture refusing a host sync.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -464,3 +467,112 @@ def test_create_simulation_on_the_card(tmp_path):
     st = sims[dev].run_iteration()
     assert torch.isfinite(sims[dev].state[0]).all()
     assert torch.isfinite(st.protocol_work).all(), st.protocol_work
+
+
+# --- CUDA graphs over the iteration (simulation/graphs.py) -----------------
+
+GRAPH_CASES = {
+    "frozen": (8000, True, dict(nonbonded_backend="sweep", cutoff=0.65, sweep_row_group=16, frozen_cull_skin=0.15)),
+    "unfrozen": (1200, False, dict(nonbonded_backend="pcells", cutoff=0.6)),
+}
+
+
+def _graph_sim(case, graphs, move_cls=None, dev=None):
+    """A toluene + TIP3P box from the port's builders: 8,001 atoms frozen
+    outside 0.4 nm of the ligand on 'sweep' (K1 with culled columns,
+    compact) or 1,202 unfrozen on 'pcells' (K3),
+    R = 2, 10 + 10 steps with MD frames every 5, and its positions."""
+    import warnings
+
+    from blues_tpu_torch.core.build import solvated_ligand_box
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
+
+    n_atoms, frozen, kw = GRAPH_CASES[case]
+    lig, lig_x = toluene_system()
+    system, x = solvated_ligand_box(lig, lig_x, n_atoms, seed=5)
+    li = system.topology.select_resname("LIG")
+    system = system.replace(alchemical=AlchemicalRegion(atoms=li))
+    if frozen:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            system = system.freeze_radius(np.asarray(x), li, 0.4, solvent_resnames=())
+    cfg = SimulationConfig(
+        nstepsNC=10, nstepsMD=10, md_report_interval=5, dt=0.002, nonbonded_method="PME", n_replicas=2,
+        ewald_tolerance=5e-4, **kw,
+    )
+    move = (move_cls or RandomLigandRotationMove)(li, system.masses)
+    return BLUESSimulation(system, move, cfg, device=dev, graphs=graphs), np.asarray(x)
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_iteration_matches_eager_on_the_card(case):
+    """Two iterations eagerly, then graphed, each graphed iteration from
+    the eager one's start (state and generator): the same decisions but at
+    a threshold (see below), generators that end equal, MD frames and
+    positions within 1e-2 nm (PME's spread and the constraint solves sum
+    with float atomics, so two runs differ), the path's kernel launched by
+    the replays."""
+    from blues_tpu_torch.core.state import SimState
+
+    dev = _cuda()
+    out, starts = {}, []
+    for graphs in (False, True):
+        sim, x = _graph_sim(case, graphs, dev=dev)
+        sim.initialize(x, seed=5)
+        sim.minimize(50)
+        ps = sim.energy_md.nonbonded.pair_sum
+        ps.launches = 0
+        stats = []
+        for it in range(2):
+            if graphs:
+                sim.state = starts[it][0]
+                sim.source.generator.set_state(starts[it][1])
+            else:
+                starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()))
+            stats.append(sim.run_iteration_frames() + (sim.state.positions.clone(), sim.source.generator.get_state()))
+        torch.cuda.synchronize()
+        out[graphs] = (sim, stats, ps.launches)
+    (se, ste, ne), (sg, stg, ng) = out[False], out[True]
+    assert not se.graphs and sg.graphs and sg.eager_reason() is None
+    assert sg.energy_alch.nonbonded.backend == GRAPH_CASES[case][2]["nonbonded_backend"]
+    for (a, fa, na, xa, ga), (b, fb, nb, xb, gb) in zip(ste, stg):
+        # two runs on the card (two eager ones too) may differ at a
+        # threshold: a decision whose log_accepts lie within 10 kT, or one
+        # of them non-finite or beyond 1,000 kT (a clash), MD that blew up
+        # in one; such replicas are left out
+        la, lb = a.log_accept.double(), b.log_accept.double()
+        flip = a.accepted != b.accepted
+        finite = torch.isfinite(la) & torch.isfinite(lb)
+        near = ~finite | ((la - lb).abs() <= 10.0) | (torch.maximum(la.abs(), lb.abs()) > 1000.0)
+        assert not bool((flip & ~near).any())
+        keep = ~(flip | a.md_failed | b.md_failed)
+        assert int((~keep).sum()) <= 1
+        assert fa.shape == fb.shape and na.positions.shape == nb.positions.shape
+        assert float((fa - fb)[keep].abs().max()) <= 1e-2
+        assert float((xa - xb)[keep].abs().max()) <= 1e-2 and torch.equal(ga, gb)
+    assert sg.runner.replays["micro"] == 2 * sg.schedule.n_micro
+    assert ne > 0 and ng >= ne  # the replays counted, and the warm-up's launches
+
+
+def test_graph_capture_refuses_a_host_sync_on_the_card():
+    """A move whose proposal reads a device value on the host cannot be
+    captured: the first graphed iteration raises and leaves the state and
+    the generator as they were."""
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation.graphs import GraphCaptureError
+
+    class Syncing(RandomLigandRotationMove):
+        def propose(self, source, x, box, aux):
+            if bool((x[:, 0, 0] > 1e9).any()):
+                raise AssertionError("unreachable")
+            return super().propose(source, x, box, aux)
+
+    sim, x = _graph_sim("unfrozen", True, Syncing, dev=_cuda())
+    sim.initialize(x, seed=5)
+    x0, gen0 = sim.state.positions.clone(), sim.source.generator.get_state()
+    with pytest.raises(GraphCaptureError):
+        sim.run_iteration()
+    assert torch.equal(sim.state.positions, x0) and torch.equal(sim.source.generator.get_state(), gen0)
