@@ -4,11 +4,12 @@ The port's counterpart of ``python -m blues_tpu``:
 
     python -m blues_tpu_torch run config.yml [--iterations N] [--replicas R] [--device cuda|cpu]
     python -m blues_tpu_torch info system.prmtop
+    python -m blues_tpu_torch bench
 
 ``run`` builds the simulation from a YAML (or JSON) config on the card
 unless ``--device cpu`` is given, runs it with the config's reporters and
-prints the acceptance ratio. The JAX package's ``bench`` command has no
-counterpart yet.
+prints the acceptance ratio. ``bench`` prints the switching-step benchmark's
+JSON line (``bench.py``); it needs the card.
 """
 
 from __future__ import annotations
@@ -28,6 +29,12 @@ def cmd_run(args):
         for rep in md_reps + ncmc_reps:
             rep.close()
     print(f"Acceptance ratio: {ratio:.4f}")
+
+
+def cmd_bench(args):
+    from blues_tpu_torch import bench
+
+    bench.main()
 
 
 def cmd_info(args):
@@ -67,6 +74,9 @@ def main(argv=None):
     pi = sub.add_parser("info", help="inspect an Amber prmtop")
     pi.add_argument("prmtop")
     pi.set_defaults(fn=cmd_info)
+
+    pb = sub.add_parser("bench", help="the switching-step benchmark on the card (one JSON line)")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -154,8 +154,9 @@ struct Row {
 // distance phase, then the math phase, adding the row's F and E to fx, fy,
 // fz, en. Shared by K2 and K3 (row_cluster below) and K1's rows kernel
 // (sweep_kernel.cu), whose instances (kSweep) also drop the pairs of the
-// lane's exclusion ``bit`` in the staged words ``ex`` and honour
-// c.use_cutoff (K2 and K3 always cut).
+// lane's exclusion ``bit`` in the staged words ``ex``. Without a cutoff
+// (c.use_cutoff 0: K1 and K2 under NoCutoff; K3 always cuts) every staged
+// pair counts.
 template <int kImage, bool kSweep, int kCols>
 __device__ __forceinline__ void staged_pairs(
     const Row& r, int m, Stage<kCols>& s, const uint32_t* ex, uint32_t bit,
@@ -174,8 +175,8 @@ __device__ __forceinline__ void staged_pairs(
         float dx, dy, dz;
         displacement<kImage>(r.x, r.y, r.z, p, L, iL, dx, dy, dz);
         const int id_j = __float_as_int(p.w);
-        bool in = dist2(dx, dy, dz) < c.cutoff2;
-        if (kSweep) in = (in || !c.use_cutoff) && !(ex[j] & bit);
+        bool in = dist2(dx, dy, dz) < c.cutoff2 || !c.use_cutoff;
+        if (kSweep) in = in && !(ex[j] & bit);
         in = in && id_j >= 0 && id_j != r.id;
         s.idx[n_i][lane] = (uint8_t)j;  // kept only when n_i moves on
         n_i += in;
@@ -243,8 +244,10 @@ __device__ __forceinline__ void row_cluster(const Args& a, const PairConsts& c,
   const int* ent = a.list + rc_ * a.width;
   const int cell = (kImage == IMG_SHIFT && n_ent > 0) ? (int)a.cl_cell[rc_] : 0;
   // K2's list holds width - 1 entries; a row cluster with more kept column
-  // clusters walks all of them instead (exact, only slower). K3's list
-  // always holds every candidate.
+  // clusters walks all of them instead (exact, only slower). Without a
+  // cutoff K2's list is empty and its count is every column cluster, so
+  // every row cluster walks them all. K3's list always holds every
+  // candidate.
   const bool all = kImage != IMG_SHIFT && n_ent >= a.width;
   const int n_walk = all ? a.cc : n_ent;
 

@@ -7,6 +7,10 @@
 // a pair counting when gid_i != gid_j and r^2 < rc^2 (no exclusion mask),
 // its energy weighted by 1 - 0.5*in_rows_i*in_rows_j (every row has
 // in_rows = 1, so this is the TPU kernel's 1 - 0.5*in_rows_j); row F and E.
+// The TPU kernel's no-cutoff mode (NoCutoff: use_cutoff 0, not periodic)
+// counts every pair: the wrapper then prunes nothing and hands the kernel
+// an empty list whose count is every column cluster, which each warp
+// walks.
 //
 // The TPU kernel sweeps every (row tile, column tile). Here the wrapper
 // (blues_tpu_torch/potentials/pair_kernel.py) orders rows and columns per
@@ -184,15 +188,15 @@ extern "C" {
 int pair_launch(const float* xr, const int64_t* idr, const float* xc,
                 const int64_t* idc, const float* feat, const int* list,
                 const int* count, const float* params, float* out, int R,
-                int n, int cr, int cc, int width, int periodic, int method,
-                float cutoff, float alpha_ewald, float k_rf, float c_rf,
-                float ann, float softcore_alpha, int has_switch,
-                float switch_distance, int alch_coulomb, float ke,
-                void* stream) {
+                int n, int cr, int cc, int width, int periodic,
+                int use_cutoff, int method, float cutoff, float alpha_ewald,
+                float k_rf, float c_rf, float ann, float softcore_alpha,
+                int has_switch, float switch_distance, int alch_coulomb,
+                float ke, void* stream) {
   if (R <= 0 || n <= 0 || cr <= 0 || cc <= 0 || width <= 0)
     return (int)cudaErrorInvalidValue;
   const PairConsts c =
-      make_consts(method, cutoff, 1, alpha_ewald, k_rf, c_rf, ann,
+      make_consts(method, cutoff, use_cutoff, alpha_ewald, k_rf, c_rf, ann,
                   softcore_alpha, periodic, has_switch, switch_distance,
                   alch_coulomb, ke);
   Args a{xr, idr, xc, idc, feat, list, count, nullptr, nullptr, params, out,

@@ -57,6 +57,7 @@ from ..core.device import device_const
 from .geometry import replica_boxes
 from .pairs import pair_energy_force
 from .sweep import PLAIN_CHUNK_ELEMS, PairSumFunction
+from .tiled import CUTOFF_METHODS
 
 CLUSTER = 32
 #: nm added to the cutoff in the bounding-box test (see the module docstring)
@@ -249,7 +250,7 @@ def list_entries(lst, count, n_cols=None):
 
 def pair_list_sum(
     rows: Clusters, cols: Clusters, lst, count, feat, *, n_atoms, cutoff, ann, L=None,
-    shift=None, keep_rows=False, count_only=False, chunk_elems=1 << 21, **pair_kw,
+    shift=None, keep_rows=False, count_only=False, chunk_elems=1 << 21, use_cutoff=True, **pair_kw,
 ):
     """The plain version of both pair kernels: the sum over the cluster
     pairs of the list, in the dtype of the slot positions.
@@ -257,7 +258,8 @@ def pair_list_sum(
     ``L`` ((R, 3) box lengths) turns on the per-pair minimum image (K2);
     ``shift(rep, g, entry)`` instead returns each entry's (E, 3) image shift
     in nm, added to the column positions (K3). A pair counts when both slots
-    hold atoms, the ids differ and r^2 < rc^2; its energy is weighted by
+    hold atoms, the ids differ and r^2 < rc^2 (any r without ``use_cutoff``,
+    K2's no-cutoff mode); its energy is weighted by
     1 - 0.5*in_rows_i*in_rows_j, and with ``keep_rows`` a row's E and F are
     multiplied by its in_rows. Returns ((R,) E, (R, n_atoms, 3) F), or with
     ``count_only`` the (visited slots, in-cutoff pairs) over all replicas,
@@ -286,7 +288,9 @@ def pair_list_sum(
             dx = dx - Lr * torch.round(dx / Lr)
         r2 = dx[..., 0] * dx[..., 0] + dx[..., 1] * dx[..., 1] + dx[..., 2] * dx[..., 2]
         a, b = id_i[:, :, None], id_j[:, None, :]
-        valid = (a >= 0) & (b >= 0) & (a != b) & (r2 < rc2)
+        valid = (a >= 0) & (b >= 0) & (a != b)
+        if use_cutoff:
+            valid = valid & (r2 < rc2)
         if count_only:
             if keep_rows:  # a masked row's pairs are not part of the sum
                 valid = valid & (feat[id_i.clamp(min=0), F_INROWS] > 0)[:, :, None]
@@ -377,6 +381,8 @@ class ClusterPairSum:
         self.device = device
         self.n_atoms = int(n_atoms)
         self.method = method
+        #: False under NoCutoff (K2's no-cutoff mode): every pair counts
+        self.use_cutoff = method in CUTOFF_METHODS
         self.cutoff = float(cutoff)
         self.alpha_ewald = float(alpha_ewald)
         self.k_rf, self.c_rf = float(k_rf), float(c_rf)
@@ -496,7 +502,7 @@ class ClusterPairSum:
         out = pair_list_sum(
             lay.rows, lay.cols, lay.lst, lay.count, self.feat(calc), n_atoms=self.n_atoms,
             cutoff=self.cutoff, ann=self.ann, L=lay.box_len if lay.min_image else None,
-            shift=lay.shift, keep_rows=self.keep_rows,
+            shift=lay.shift, keep_rows=self.keep_rows, use_cutoff=self.use_cutoff,
             count_only=count_only, chunk_elems=PLAIN_CHUNK_ELEMS[x.device.type == "cuda"],
             lam_sterics=ls, f_na=fna, f_aa=faa, method=self.method, alpha_ewald=self.alpha_ewald,
             k_rf=self.k_rf, c_rf=self.c_rf, softcore_alpha=self.softcore_alpha,

@@ -31,14 +31,16 @@ alchemical systems:
 The last three are plain tensor ops on any device, as they are XLA code in
 the JAX package. Off the EA sweep, Ea is a dense alchemical x
 non-alchemical block. Frozen systems on every backend share the
-frozen-background PME grid (orthorhombic boxes) and the filtered lists
-(``_build_frozen``); systems without frozen atoms take full lists and PME
-over every atom (``_build_unfrozen``). The 'exact' PME treatment scales
+frozen-background PME grid (orthorhombic boxes, reference positions
+recorded) and the filtered lists (``_build_frozen``); systems without
+frozen atoms take full lists and PME over every atom
+(``_build_unfrozen``). The 'exact' PME treatment scales
 the alchemical charges by lambda_electrostatics everywhere (f_aa =
 lambda^2 in the pair sums, q_eff in the reciprocal terms) and has no
 lambda split. A triclinic box (OpenMM's reduced form) takes 'dense' or
-'cells'. Positions are (R, N, 3); every energy is (R,). The methods
-without a cutoff on the kernel backends raise ``ValueError``.
+'cells'. Positions are (R, N, 3); every energy is (R,). Under NoCutoff
+'sweep', 'pcells', 'cells' and 'verlet' resolve to 'pallas', K2 in its
+no-cutoff mode, as the JAX package's TPU branch resolves them.
 """
 
 from __future__ import annotations
@@ -288,6 +290,7 @@ class _NonbondedBase:
         self.alchemical = alchemical
         self.method, self.cutoff, self.switch_distance = method, float(cutoff), switch_distance
         self.periodic = method in (PME, CUTOFF_PERIODIC)
+        self.use_cutoff = method in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC)
         self.pme_params, self.alpha = None, 0.0
         if method == PME:
             if box_for_pme is None:
@@ -419,11 +422,6 @@ class NonbondedEnergy(_NonbondedBase):
         if backend not in PAIR_BACKENDS:
             raise ValueError(f"unknown nonbonded backend {backend!r}; the port has 'dense', " + ", ".join(
                 repr(b) for b in PAIR_BACKENDS) + " and 'auto'")
-        if method not in (PME, CUTOFF_PERIODIC, CUTOFF_NONPERIODIC) and backend != "tiled":
-            raise ValueError(
-                f"the {backend} backend needs a cutoff method, got {method!r} (backends 'dense' and 'tiled' "
-                "take every method)"
-            )
         self._setup(nb, method, cutoff, alchemical, ewald_tolerance, rf_dielectric, box_for_pme,
                     dispersion_correction, switch_distance, device)
         dev, n, sc, is_alch, charges = self.device, self.n_atoms, self.sc, self._is_alch, self._charges
@@ -448,6 +446,7 @@ class NonbondedEnergy(_NonbondedBase):
         self._guard = False  # the cull guard (frozen systems with culled columns)
         self._frozen_grid = False  # the frozen-background PME grid's box poison
         self._ea_const = False  # the dense Ea block bakes frozen columns
+        self._ea_detach = False  # the dense Ea block cuts the frozen columns' gradient
         self.excl_ff_const = 0.0
         self.no_min_image = False
 
@@ -456,11 +455,6 @@ class NonbondedEnergy(_NonbondedBase):
         if backend == "sweep" and not frozen:
             self.backend = "pallas"  # no frozen atoms, no culled columns: the pair kernel, as in JAX
         if frozen:
-            if frozen_ref_positions is None:
-                raise ValueError(
-                    "a frozen system needs its reference positions (freeze_radius records them) for the "
-                    "frozen-background terms"
-                )
             self._build_frozen(
                 nb, masses, frozen_ref_positions, frozen_cull_skin, frozen_cull_cage_margin,
                 bonds_for_cull, sweep_row_group,
@@ -610,7 +604,9 @@ class NonbondedEnergy(_NonbondedBase):
         """The dense alchemical x non-alchemical block of Ea (plain tensor
         ops, forces from autograd). On a frozen system (``x0``, ``in_rows``)
         the frozen columns' positions are build-time constants and only the
-        mobile columns are gathered, so no force reaches a frozen column."""
+        mobile columns are gathered, so no force reaches a frozen column;
+        without ``x0`` the frozen columns are gathered without their
+        gradient, to the same end."""
         c, sig, eps = self.c, self._sigmas, self._epsilons
         c["ea_rows"] = rows
         c["ea_cols"] = cols
@@ -619,6 +615,9 @@ class NonbondedEnergy(_NonbondedBase):
         c["ea_qq"] = self._charges[rows][:, None] * self._q_std[cols][None, :]
         c["ea_keep"] = ~excl_mask
         self._ea_const = x0 is not None and not in_rows[cols].all()
+        self._ea_detach = x0 is None and in_rows is not None and not in_rows[cols].all()
+        if self._ea_detach:  # frozen columns read from x, without their gradient
+            c["ea_frozen"] = (~in_rows[cols])[:, None]
         if self._ea_const:
             msel = np.where(in_rows[cols])[0]
             c["ea_xconst"] = x0[cols]
@@ -671,19 +670,26 @@ class NonbondedEnergy(_NonbondedBase):
         A triclinic box spreads every atom in PME (the frozen-background
         grid is orthorhombic only, as in the JAX package). Off the EA
         sweep, Ea is the dense alchemical x non-alchemical block with the
-        frozen columns baked as constants."""
+        frozen columns baked as constants.
+
+        Without reference positions (``System.freeze_atoms``) the branch is
+        built as the JAX package builds it: PME spreads every atom, no
+        column is culled (so 'sweep' resolves to 'pallas' and no cull guard
+        runs), the frozen-frozen exclusions stay in PME's erf correction
+        instead of a constant, and the dense Ea block reads the frozen
+        columns from the positions without their gradient."""
         dev, n, common, alchemical = self.device, self.n_atoms, self.common, self.alchemical
         charges, sigmas, epsilons, is_alch = self._charges, self._sigmas, self._epsilons, self._is_alch
         method, cutoff, periodic, alpha = self.method, self.cutoff, self.periodic, self.alpha
         in_rows_np = (np.asarray(masses) > 0) | is_alch
         active_rows = np.where(in_rows_np)[0].astype(np.int64)
         rows_np = active_rows
-        x0 = np.asarray(frozen_ref_positions, np.float64)
+        x0 = None if frozen_ref_positions is None else np.asarray(frozen_ref_positions, np.float64)
         c = self.c
 
         self.recip = None
-        if method == PME and self.triclinic:
-            self.recip = make_pme_reciprocal(self.pme_params, device=dev, triclinic=True)
+        if method == PME and (self.triclinic or x0 is None):
+            self.recip = make_pme_reciprocal(self.pme_params, device=dev, triclinic=self.triclinic)
         elif method == PME:
             fro_idx = np.where(~in_rows_np)[0]
             base_grid = precompute_spread_grid(self.pme_params, x0[fro_idx], charges[fro_idx], self.box0)
@@ -696,7 +702,10 @@ class NonbondedEnergy(_NonbondedBase):
         # --- static column culling (permanent reach balls) -------------------
         Lnp = np.diag(self.box0) if (periodic and self.box0 is not None) else None
         culled = None
-        if self.backend in ("sweep", "pallas", "tiled") and frozen_cull_skin is not None and frozen_cull_skin > 0:
+        if (
+            x0 is not None and self.use_cutoff and self.backend in ("sweep", "pallas", "tiled")
+            and frozen_cull_skin is not None and frozen_cull_skin > 0
+        ):
             culled = self._cull_columns(
                 rows_np, x0, Lnp, bonds_for_cull, masses, float(frozen_cull_skin), frozen_cull_cage_margin
             )
@@ -771,7 +780,13 @@ class NonbondedEnergy(_NonbondedBase):
         excl = excl_all[live_x]
         exc_idx = exc_idx_all[live_e]
         x_pref = excl_prefiltered[live_x]
-        if method == PME and len(excl_all):
+        erf_excl = split_excl = excl
+        if method == PME and x0 is None and (~live_x).any():
+            # no reference positions to fold the frozen-frozen erf terms
+            # into a constant: PME's correction (and, as in the JAX
+            # package, the split's lists) keep the full list
+            erf_excl = split_excl = excl_all
+        elif method == PME and len(excl_all):
             from scipy.special import erf as _erf
 
             ff = excl_all[~live_x]
@@ -790,7 +805,7 @@ class NonbondedEnergy(_NonbondedBase):
         # correction covers every live exclusion
         self._stage_pairs("xsub", excl[~x_pref])
         self._stage_exc("exc", exc_idx, np.ones(len(exc_idx), bool), live_e)
-        c["erf_idx"] = excl
+        c["erf_idx"] = erf_excl
 
         # --- lambda split ------------------------------------------------------
         alch_atoms_np = self._alch_atoms()
@@ -799,7 +814,7 @@ class NonbondedEnergy(_NonbondedBase):
         cols_full = col_idx if col_idx is not None else np.arange(n, dtype=np.int64)
         cols_na = cols_full[~is_alch[cols_full]]
         rows0 = rows_np[~is_alch[rows_np]]
-        pref0_live = np.zeros(len(excl), bool)
+        pref0_live = np.zeros(len(split_excl), bool)
         if len(rows0) and sweep:
             sel0c = np.searchsorted(col_idx, cols_na)
             col_msel0 = np.where(in_rows_np[cols_na])[0]
@@ -837,7 +852,7 @@ class NonbondedEnergy(_NonbondedBase):
                     mask0, pref0_live = _excl_mask(excl, n, rows0, cols_na)
                 kw = tiled_kw(cols_na, mask0)
             self.pair_sum0 = self._make_sum(feats0, "e0", col_idx=cols_na, **kw)
-        na_excl_mask = self._split_lists(alch_atoms_np, cols_na, excl, exc_idx, live_e, pref0_live)
+        na_excl_mask = self._split_lists(alch_atoms_np, cols_na, split_excl, exc_idx, live_e, pref0_live)
         if sweep and len(cols_na) and len(alch_atoms_np) <= 128:
             selc = np.searchsorted(col_idx, cols_na)
             mob_sel_cols = np.where(in_rows_np[cols_na])[0]
@@ -876,7 +891,8 @@ class NonbondedEnergy(_NonbondedBase):
             c(prefix + "_qq_na", dt), c(prefix + "_qq_aa", dt), c(prefix + "_scale", dt),
             lam_sterics=lam_s, f_na=f_na, f_aa=f_aa, **self._pair_kw(),
         )
-        e = torch.where(r2 < self.cutoff * self.cutoff, e, torch.zeros((), dtype=dt, device=x.device))
+        if self.use_cutoff:
+            e = torch.where(r2 < self.cutoff * self.cutoff, e, torch.zeros((), dtype=dt, device=x.device))
         return -e.sum(-1)
 
     def _reciprocal(self, x, box, lam_e=1.0):
@@ -966,11 +982,13 @@ class NonbondedEnergy(_NonbondedBase):
                 xc = xc.index_copy(1, c("ea_msel"), x.index_select(1, c("ea_mgid")))
         else:
             xc = x.index_select(1, c("ea_cols"))
+            if self._ea_detach:
+                xc = torch.where(c("ea_frozen"), xc.detach(), xc)
         dr = x.index_select(1, c("ea_rows"))[:, :, None, :] - xc[:, None, :, :]
         if self.periodic and box is not None:
             dr = periodic_displacement(dr, box)
         r2 = (dr * dr).sum(-1)
-        use = c("ea_keep") & (r2 < self.cutoff * self.cutoff)
+        use = c("ea_keep") & (r2 < self.cutoff * self.cutoff) if self.use_cutoff else c("ea_keep")
         r2 = torch.clamp(r2, min=1e-6)
         zero = torch.zeros((), dtype=dt, device=x.device)
         e, _ = pair_energy_force(
@@ -994,7 +1012,7 @@ class NonbondedEnergy(_NonbondedBase):
         if len(idx):
             dra = self._disp(x, idx, box)
             r2 = (dra * dra).sum(-1)
-            in_cut = r2 < self.cutoff * self.cutoff
+            in_cut = r2 < self.cutoff * self.cutoff if self.use_cutoff else torch.ones_like(r2, dtype=torch.bool)
             r2 = torch.clamp(r2, min=1e-6)
             zero = torch.zeros((), dtype=dt, device=x.device)
             e_aa, _ = pair_energy_force(
@@ -1010,7 +1028,7 @@ class DenseNonbondedEnergy(_NonbondedBase):
     """The JAX package's dense nonbonded path: fn(x (R, N, 3), box, globals)
     -> (R,) energy over every pair i < j that is not an exclusion, in plain
     tensor ops with forces from autograd. It is ``auto``'s choice at 4,096
-    atoms and below, and the only path for the methods without a cutoff.
+    atoms and below.
 
     Methods: NoCutoff (bare Coulomb), CutoffNonPeriodic and CutoffPeriodic
     (reaction field, the pair cut at ``cutoff``), PME. Alchemical
@@ -1199,14 +1217,17 @@ def make_nonbonded_energy(
     """``backend``: 'dense' (``DenseNonbondedEnergy``, any method and
     treatment), or one of ``PAIR_BACKENDS`` (``NonbondedEnergy``), or
     'auto'. Resolution follows the JAX package's TPU branch, on every
-    device:
+    device, with one deliberate difference: where that branch picks the
+    TPU's fastest backend for a large mostly-mobile system (the XLA cell
+    list, 'cells'), this picks the card's, the cell-list kernel K3
+    ('pcells'):
 
       * a triclinic box must be in reduced form; 'auto' takes 'cells' where
         the fractional grid has >= 3 cells a side (a periodic method), else
         'dense'; 'pcells' becomes 'cells'; 'sweep', 'pallas', 'tiled' and
         'verlet' raise;
-      * 'auto': 'dense' at 4,096 atoms and below; above, 'cells' where more
-        than half the atoms move, else 'sweep';
+      * 'auto': 'dense' at 4,096 atoms and below; above, 'pcells' where
+        more than half the atoms move, else 'sweep';
       * 'pcells' needs an orthorhombic periodic box of >= 3 cells a side,
         else it becomes 'cells';
       * 'cells' and 'verlet' need a periodic method and a grid of >= 27
@@ -1240,7 +1261,7 @@ def make_nonbonded_energy(
         if n <= 4096:
             backend = "dense"
         else:
-            backend = "cells" if mobile_frac > 0.5 else "sweep"
+            backend = "pcells" if mobile_frac > 0.5 else "sweep"
     if backend == "pcells":
         ok = (
             method in (PME, CUTOFF_PERIODIC)

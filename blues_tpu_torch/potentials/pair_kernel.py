@@ -8,6 +8,9 @@ r^2 < rc^2 (no exclusion mask), its energy weighted by 1 - 0.5*in_rows_j,
 row forces and energy only. Two instances serve the unfrozen NCMC path with
 backend 'pallas' (``potentials/nonbonded.py``): MAIN (every atom x every
 atom) and E0 (the non-alchemical rows x the non-alchemical columns).
+Under NoCutoff the sum has the TPU kernel's no-cutoff mode: no cutoff
+test, no minimum image (the method is not periodic), and no prune: every
+row cluster walks every column cluster.
 
 The TPU kernel sweeps every row tile against every column tile. Here, per
 call, the rows and the columns are each binned into xy columns of their
@@ -95,8 +98,9 @@ class PallasPairSum(ClusterPairSum):
         b0 = box0 if periodic else None
         self._grids = column_grid(len(rows), b0), column_grid(len(cols), b0)
         n_cl = [-(-m // CLUSTER) + gx * gy for m, (gx, gy) in zip((len(rows), len(cols)), self._grids)]
-        #: column clusters K2's list holds per row cluster (``clusters.list_width``)
-        self.list_width = list_width(b0, cutoff, len(cols), self._grids[1], n_cl[1])
+        #: column clusters K2's list holds per row cluster (``clusters.list_width``);
+        #: none without a cutoff, where every row cluster walks them all
+        self.list_width = list_width(b0, cutoff, len(cols), self._grids[1], n_cl[1]) if self.use_cutoff else 0
         self.shape_info = dict(
             nr=len(rows), nc=len(cols), columns=self._grids, row_clusters=n_cl[0], col_clusters=n_cl[1],
             list_width=self.list_width, all_pairs_slots=len(rows) * len(cols), visited_slots=None,
@@ -192,6 +196,17 @@ class PallasPairSum(ClusterPairSum):
         self.prune_launches += 1
         return lst, count
 
+    def prune(self, lay, kernel=False):
+        """The pruned list; without a cutoff an empty list whose count is
+        every column cluster, for the kernel and its plain version alike,
+        so that no prune kernel runs."""
+        if self.use_cutoff:
+            return super().prune(lay, kernel)
+        R, cr, dev = lay.rows.x.shape[0], lay.rows.n_clusters, lay.rows.x.device
+        lst = torch.zeros((R, cr, 1), dtype=torch.int32, device=dev)
+        count = torch.full((R, cr), lay.cols.n_clusters, dtype=torch.int32, device=dev)
+        return lay._replace(lst=lst, count=count)
+
     # ------------------------------------------------------------------
     def kernel(self, x, box, lam_s, f_na, f_aa):
         """Key, cluster, prune and sum with the CUDA kernels (and a torch
@@ -215,7 +230,7 @@ class PallasPairSum(ClusterPairSum):
             rows.x.data_ptr(), rows.ids.data_ptr(), cols.x.data_ptr(), cols.ids.data_ptr(),
             self._feat[f32].data_ptr(), lay.lst.data_ptr(), lay.count.data_ptr(), params.data_ptr(),
             out.data_ptr(), R, n, rows.n_clusters, cols.n_clusters, lay.lst.shape[-1],
-            int(self.periodic), *self.consts(), cuda_stream(rows.x),
+            int(self.periodic), int(self.use_cutoff), *self.consts(), cuda_stream(rows.x),
         )
         if err != 0:
             raise RuntimeError(f"pair kernel {self.name!r} launch failed: cudaError {err}")
@@ -237,7 +252,7 @@ def _bind(lib):
     if id(lib) in _BOUND:
         return lib
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pair_launch.argtypes = [P] * 9 + [I] * 6 + [I, F, F, F, F, F, F, I, F, I, F, P]
+    lib.pair_launch.argtypes = [P] * 9 + [I] * 7 + [I, F, F, F, F, F, F, I, F, I, F, P]
     lib.pair_launch.restype = I
     lib.pair_prune_launch.argtypes = [P] * 9 + [I] * 5 + [F, P]
     lib.pair_prune_launch.restype = I

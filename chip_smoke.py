@@ -89,8 +89,8 @@ Phases (each prints its own line; any failure exits non-zero):
      graphs: the frozen slice and the unfrozen 'pcells' box at R = 8, 50 +
      50 steps, GRAPH_ITER iterations eagerly (``sim.graphs`` False), then
      eagerly again and graphed, each from the first eager iteration's start:
-     the same decisions (but at thresholds, where the two eager runs differ
-     too) and generators, positions within RESTORE_DX_NM; each mode's iteration
+     both equal to the first bit for bit (decisions, log_accept, protocol
+     work, MD rollbacks, positions, generator); each mode's iteration
      time, switching steps/s, micro-step and MD step (CUDA events around
      each phase), the capture's time and memory, and one graphed
      iteration under torch.profiler (cudaGraphLaunch and cudaLaunchKernel
@@ -116,8 +116,9 @@ Phases (each prints its own line; any failure exits non-zero):
      'verlet' composed, and the half-neighbourhood cell list's raw pair
      sum, against K3 at lambda 1, 0.5 and 0 with phase check's
      raw-anchored tolerance; each one's ms per call, peak memory and pair
-     slots visited beside K3's; 'auto' resolving to 'cells' with one
-     iteration of 10 + 10 steps, and 'verlet' with one iteration of 10 +
+     slots visited beside K3's; 'auto' resolving to 'pcells' (K3, the
+     card's fastest; JAX's TPU branch takes 'cells') and running graphed
+     with one iteration of 10 + 10 steps, and 'verlet' with one iteration of 10 +
      20 steps that must rebuild its MD list 4 times (every 5 steps);
  17. tiled_frozen: 'tiled' on the frozen slice (culled columns, and the
      no-minimum-image fast path where it engages) against K1, composed,
@@ -148,8 +149,8 @@ Phases (each prints its own line; any failure exits non-zero):
      finite in an iteration and no non-finite work accepted (as phase
      main: the culling guard vetoes with a NaN), the NetCDF files (the
      last NCMC frame's work equal to the iteration's) and the rst7 read back, and a checkpoint saved after
-     iteration 1 and loaded into a fresh simulation making the same
-     decisions in iteration 2; the load, create and step times beside phase
+     iteration 1 and loaded into a fresh simulation repeating iteration 2
+     bit for bit, twice; the load, create and step times beside phase
      main's;
  21. gb: generalized Born on a 2,541-atom droplet (toluene and its 842
      nearest waters, mbondi2 radii), OBC2 with 0.1 M salt, NoCutoff, HBonds,
@@ -158,7 +159,19 @@ Phases (each prints its own line; any failure exits non-zero):
      protocol up to a non-finite, rejected work), no lambda split; the GB term on
      the card against the CPU in float64 (HCT, OBC1, OBC2 at lambda_e 1,
      0.5, 0), float32 against float64, and its time, launches and peak
-     memory per energy + forces call at R = 8.
+     memory per energy + forces call at R = 8;
+ 22. nocutoff: K2 in its no-cutoff mode (NoCutoff: every pair, no minimum
+     image, no prune) on the droplet's nonbonded term (2,541 atoms, no GB)
+     and on toluene in vacuum, 'pallas': every instance against its plain
+     version at R = 1 and 8 with its time and bound, then each system's
+     path (FIRE 100, one iteration of 20 + 20 steps, graphed), its K2
+     launches counted.
+
+After phase 2 and before phase 3's systems, with nothing else on the
+card, phase bench runs ``python -m blues_tpu_torch bench`` in a subprocess
+(the built kernels are reused) and checks its record: the port's keys, a finite positive value,
+R = 64 run, finite unfrozen eval times, and K1, K2 and K3 launched; its
+line is printed before the kernels' line.
 
 The iteration runs graphed (CUDA graphs, simulation/graphs.py) on every
 path whose configuration allows it (5-10, 14, the dense phase's vacuum run,
@@ -174,7 +187,16 @@ package. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
 
-Two measurements that are not part of the check:
+Three measurements that are not part of the check:
+
+    python3 chip_smoke.py --determinism OTHER_ROOT
+
+runs one eager iteration of the frozen slice and of the unfrozen 'pcells'
+box (R = 8, 50 + 50 steps, after FIRE 100) three times from one state and
+generator, the third under torch.use_deterministic_algorithms(True,
+warn_only=True) with CUBLAS_WORKSPACE_CONFIG set, for this checkout and for
+OTHER_ROOT (each in its own process): whether the repeats end bit for bit
+equal, and the ops torch flags;
 
     python3 chip_smoke.py --ab OTHER_ROOT
 
@@ -257,16 +279,12 @@ CLI_MIN, CLI_FRAME_EVERY = 100, 25
 #: reciprocals counted once each; backward twice that), and the float32
 #: card vs float64 CPU tolerance (energy relative, forces / (max|F| + 1))
 GB_WATERS, GB_MIN, GB_PAIR_FLOPS, GB_F32_REL = 842, 100, 200, (1e-5, 2e-4)
-#: the most a restored iteration's positions may differ from the original's (nm),
-#: and a graphed run's from the eager run's
-RESTORE_DX_NM = 1e-2
-#: the graphs phase: iterations of each mode, and the seed both start from;
-#: the widest gap (in kT) between two runs' log_accept at which a Metropolis
-#: decision may flip (two eager runs on the card differ in the work by a few
-#: kJ/mol), and the |log_accept| (kT) of a protocol that ran into a clash,
-#: where two eager runs on the card differ without bound (-5,362 against
-#: +2.4e6 on one replica)
-GRAPH_ITER, GRAPH_SEED, FLIP_KT, CLASH_KT = 3, 2031, 10.0, 1000.0
+#: the nocutoff phase: NCMC and MD steps of its paths' iteration
+NOCUT_STEPS = 20
+#: the bench phase's time limit for ``python -m blues_tpu_torch bench`` (s)
+BENCH_TIMEOUT_S = 600
+#: the graphs phase: iterations of each mode, and the seed both start from
+GRAPH_ITER, GRAPH_SEED = 3, 2031
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -923,7 +941,8 @@ def check_kernels(instances, xs, box, reps):
             results[step_name(name, "reduce")] = check_reduce(name, ps, xs, box, lam, reps)
         if hasattr(ps, "prune_kernel"):
             results.update(check_layout(name, ps, xs, box, reps))
-            results[step_name(name, "prune")] = check_prune(name, ps, xs, box, reps)
+            if _has_step(ps, "prune"):
+                results[step_name(name, "prune")] = check_prune(name, ps, xs, box, reps)
     return results
 
 
@@ -1110,10 +1129,16 @@ def read_counts(counted):
         launches.update(
             {
                 step_name(k, step): sum(getattr(ps, f"{step}_launches") for ps in v)
-                for k, v in counted.items() if hasattr(v[0], f"{step}_launches")
+                for k, v in counted.items() if hasattr(v[0], f"{step}_launches") and _has_step(v[0], step)
             }
         )
     return launches
+
+
+def _has_step(ps, step):
+    """Whether wrapper ``ps`` launches its layout kernel ``step``: K2 in its
+    no-cutoff mode prunes nothing."""
+    return step != "prune" or getattr(ps, "use_cutoff", True)
 
 
 def run_mc(sim, x0, counted, every, n_iter, label, card):
@@ -1339,43 +1364,41 @@ def phase_clock(sim):
     return log, restore
 
 
-def agreement(label, runs_a, runs_b, starts):
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (NaNs included)."""
+    return tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype and (
+        a.detach().cpu().contiguous().numpy().tobytes() == b.detach().cpu().contiguous().numpy().tobytes()
+    )
+
+
+def agreement(runs_a, runs_b):
     """Two runs' iterations from the same starts ((state, generator) per
-    iteration), compared per iteration: (decisions agree, generators end
-    equal, replicas at a threshold, max |dx| of the others, max |dW| where
-    both finite). Two runs on the card differ at thresholds (two eager runs
-    too): a decision that flipped with the two log_accepts within FLIP_KT
-    of each other, one of them non-finite or beyond CLASH_KT (a clash), and
-    MD that blew up (rolled back, or flown off ten box lengths) in either
-    run. Such a replica is printed, counted, and left out of the positions'
-    comparison; any other flip is a disagreement."""
+    iteration), compared per iteration bit for bit: {what: [equal per
+    iteration]} for the decisions, log_accept, the protocol work, MD
+    rollbacks, the end positions and the generator state, with the max
+    |dx| (nm) and |dW| (kJ/mol, where both finite) beside them."""
     import numpy as np
     import torch
 
-    same, same_gen, edge, dx, dw = [], [], [], [], []
-    reach = 10.0 * float(torch.diagonal(starts[0][0].box[0]).max())
-    for k, ((sa, xa, ga, _), (sb, xb, gb, _)) in enumerate(zip(runs_a, runs_b)):
-        la, lb = sa.log_accept.double(), sb.log_accept.double()
-        flip = sa.accepted != sb.accepted
-        finite = torch.isfinite(la) & torch.isfinite(lb)
-        near = ~finite | ((la - lb).abs() <= FLIP_KT) | (torch.maximum(la.abs(), lb.abs()) > CLASH_KT)
-        x0k = starts[k][0].positions
-        off = lambda x: ((x - x0k).abs().flatten(1).amax(1) > reach)  # noqa: E731
-        at = flip | sa.md_failed | sb.md_failed | off(xa) | off(xb)
-        edge.append([int(r) for r in torch.nonzero(at).flatten().tolist()])
-        keep = ~at
-        same.append(not bool((flip & ~near).any()))
-        same_gen.append(bool(torch.equal(ga, gb)))
-        dx.append(float((xa - xb)[keep].abs().max()) if bool(keep.any()) else 0.0)
+    out = {k: [] for k in ("decisions", "log_accept", "work", "md_failed", "positions", "generator", "dx", "dw")}
+    for (sa, xa, ga, _), (sb, xb, gb, _) in zip(runs_a, runs_b):
+        out["decisions"].append(same_bits(sa.accepted, sb.accepted))
+        out["log_accept"].append(same_bits(sa.log_accept, sb.log_accept))
+        out["work"].append(same_bits(sa.protocol_work, sb.protocol_work))
+        out["md_failed"].append(same_bits(sa.md_failed, sb.md_failed))
+        out["positions"].append(same_bits(xa, xb))
+        out["generator"].append(same_bits(ga, gb))
+        d = (xa.double() - xb.double()).abs()
+        out["dx"].append(float(d[torch.isfinite(d)].max()) if bool(torch.isfinite(d).any()) else float("nan"))
         wa, wb = sa.protocol_work.double().cpu().numpy(), sb.protocol_work.double().cpu().numpy()
         both = np.isfinite(wa) & np.isfinite(wb)
-        dw.append(float(np.abs(wa - wb)[both].max()) if both.any() else float("nan"))
-        if edge[-1]:
-            phase("graphs", f"{label} iteration {k + 1}: replicas at a threshold {edge[-1]}: accepted "
-                  f"{sa.accepted.int().tolist()} / {sb.accepted.int().tolist()}, log_accept {la.tolist()} / "
-                  f"{lb.tolist()}, md_failed {sa.md_failed.int().tolist()} / {sb.md_failed.int().tolist()}, MD "
-                  f"potential {sa.md_potential.tolist()} / {sb.md_potential.tolist()}")
-    return same, same_gen, edge, dx, dw
+        out["dw"].append(float(np.abs(wa - wb)[both].max()) if both.any() else float("nan"))
+    return out
+
+
+def identical(agree):
+    """Whether ``agreement`` found every compared quantity bit for bit equal."""
+    return all(all(v) for k, v in agree.items() if k not in ("dx", "dw"))
 
 
 def run_graphs(card, paths):
@@ -1385,12 +1408,10 @@ def run_graphs(card, paths):
     and one seed; then eagerly again and graphed, each iteration from the
     state and the generator state the first eager run had before it (so
     that the card's run-to-run spread does not compound over iterations).
-    Graphed against the first eager run (``agreement``), each iteration
-    must make its decisions but at thresholds (at most R replica-iterations
-    at a threshold), leave the generator where it left it, and end within
-    RESTORE_DX_NM of its positions (PME's spread and the constraint solves
-    sum with float atomics: phase cli); the second eager run against the
-    first is printed beside it as the card's own spread. Prints each
+    The second eager run and the graphed run must each equal the first
+    bit for bit (``agreement``): decisions, log_accept, protocol work, MD
+    rollbacks, positions and the generator, every iteration (the port's
+    sums are deterministic on the card: no float atomics). Prints each
     mode's iteration time (host clock, synchronised per iteration),
     aggregate switching steps/s, micro-step and MD step (CUDA events around
     each phase, iterations 2 on: the first graphed one captures), the
@@ -1442,8 +1463,8 @@ def run_graphs(card, paths):
                 line=graph_line(sim, f"graphs {label}") if sim.graphs else "eager (graphs=False)",
             )
         eager = res["eager"]["runs"]
-        ref = agreement(f"{label} eager again", eager, res["eager again"]["runs"], starts)
-        same, same_gen, edge, dx, dw = agreement(f"{label} graphed", eager, res["graphed"]["runs"], starts)
+        again = agreement(eager, res["eager again"]["runs"])
+        graphed = agreement(eager, res["graphed"]["runs"])
         t_graphed = float(np.mean(res["graphed"]["t_it"][1:]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1478,13 +1499,12 @@ def run_graphs(card, paths):
                 f"around each phase, iterations 2-{GRAPH_ITER}); launches {r['launches']}; {r['line']}",
             )
         fmt = lambda v: ['%.3e' % u for u in v]  # noqa: E731
+        said = lambda a: ", ".join(f"{k} {v}" for k, v in a.items() if k not in ("dx", "dw"))  # noqa: E731
         phase(
             "graphs",
-            f"{label}: each iteration from the first eager run's start; graphed vs eager: decisions agree {same}, "
-            f"generators end equal {same_gen}, replicas at a threshold {edge}, positions of the others max |dx| "
-            f"{fmt(dx)} nm (limit {RESTORE_DX_NM}), protocol work max |dW| {fmt(dw)} kJ/mol where both finite; "
-            f"eager again vs eager (the card's spread): decisions agree {ref[0]}, generators {ref[1]}, thresholds "
-            f"{ref[2]}, |dx| {fmt(ref[3])} nm, |dW| {fmt(ref[4])} kJ/mol; steady iteration "
+            f"{label}: each iteration from the first eager run's start, bit for bit; eager again vs eager: "
+            f"{said(again)}, max |dx| {fmt(again['dx'])} nm, |dW| {fmt(again['dw'])} kJ/mol; graphed vs eager: "
+            f"{said(graphed)}, max |dx| {fmt(graphed['dx'])} nm, |dW| {fmt(graphed['dw'])} kJ/mol; steady iteration "
             f"{np.mean(res['eager']['t_it'][1:]):.4f} s eager vs {t_graphed:.4f} s graphed; one more graphed "
             f"iteration under torch.profiler (wall {wall:.4f} s there): {graph_launches} cudaGraphLaunch and "
             f"{kernel_launches} cudaLaunchKernel calls, kernel time {busy:.1f} ms in {sum(ev.count for ev in kern)} "
@@ -1492,9 +1512,9 @@ def run_graphs(card, paths):
             f"{100 * union / (1e3 * t_graphed):.1f} % of the unprofiled graphed iteration; kernel launches seen "
             f"{present}",
         )
-        if not (all(same) and all(same_gen) and max(dx) <= RESTORE_DX_NM) or sum(map(len, edge)) > sim.cfg.n_replicas:
-            raise RuntimeError(f"graphs {label}: graphed and eager disagree (decisions {same}, generators "
-                               f"{same_gen}, replicas at a threshold {edge}, max |dx| {dx} nm)")
+        if not (identical(again) and identical(graphed)):
+            raise RuntimeError(f"graphs {label}: the runs are not bit for bit equal (eager again: {said(again)}; "
+                               f"graphed: {said(graphed)})")
         sim.graphs = True
         out[label] = dict(eager=res["eager"]["t_it"], graphed=res["graphed"]["t_it"], busy=union / (1e3 * t_graphed))
     return out
@@ -1718,7 +1738,8 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
     make_energy_fn, the half-neighbourhood cell list's raw pair sum against
     K3's. Each backend's ms per call (CUDA events), peak memory and pair
     slots visited, beside K3's call at the same R. Then 'auto' (which must
-    resolve to 'cells'), 1 iteration of 10 + 10 steps, and 'verlet', 1
+    resolve to 'pcells', K3, the card's fastest, and run graphed), 1
+    iteration of 10 + 10 steps, and 'verlet', 1
     iteration of 10 + VERLET_MD_STEPS steps rebuilding every VERLET_EVERY:
     the MD must build its list VERLET_MD_STEPS / VERLET_EVERY times."""
     import numpy as np
@@ -1811,8 +1832,9 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
         device=device,
     )
     resolved = (sim.energy_md.nonbonded.backend, sim.energy_alch.nonbonded.backend)
-    if resolved != ("cells", "cells"):
-        raise RuntimeError(f"backends: 'auto' on the {system.n_atoms}-atom unfrozen box resolved to {resolved}")
+    if resolved != ("pcells", "pcells") or sim.eager_reason() is not None:
+        raise RuntimeError(f"backends: 'auto' on the {system.n_atoms}-atom unfrozen box resolved to {resolved} "
+                           f"({sim.eager_reason()})")
     sim.initialize(x_min, seed=2029)
     stats = [sim.run_iteration()]
     torch.cuda.synchronize()
@@ -1821,7 +1843,8 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
     phase(
         "backends",
         f"'auto' on {system.n_atoms} atoms, every one mobile -> {resolved[0]!r}: 1 iteration of {BACKENDS_STEPS} + "
-        f"{BACKENDS_STEPS} steps at R = {R}, work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_auto:.1f} s",
+        f"{BACKENDS_STEPS} steps at R = {R}, work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_auto:.1f} s; "
+        f"{graph_line(sim, 'backends auto')}",
     )
 
     t1 = time.perf_counter()
@@ -2227,11 +2250,10 @@ def check_restore(sim, ckpt, saved, acc_orig, work_orig, make_sim):
     then) and loaded into a fresh simulation from ``make_sim``: the loaded
     state, counters and generator equal the saved ones bit for bit.
     Iteration 2 from it draws the original's stream (both generators end
-    equal), accepts what the original accepted, and ends within
-    RESTORE_DX_NM of the original's positions and within a tenth of what
-    iteration 2 on another noise stream from the same checkpoint gives.
-    The same iteration once more from the checkpoint measures the card's
-    run-to-run spread beside the gap. Returns the summary."""
+    equal), accepts what the original accepted, and ends at the original's
+    positions with its protocol work, bit for bit, twice; iteration 2 on
+    another noise stream from the same checkpoint ends elsewhere. Returns
+    the summary."""
     import numpy as np
     import torch
 
@@ -2262,10 +2284,14 @@ def check_restore(sim, ckpt, saved, acc_orig, work_orig, make_sim):
         if not torch.equal(gen, gen_orig) or not np.array_equal(st.accepted.cpu().numpy(), acc_orig):
             raise RuntimeError(f"cli: the {run} iteration 2 drew another stream ({not torch.equal(gen, gen_orig)}) "
                                f"or accepted {st.accepted.cpu().numpy()} where the original accepted {acc_orig}")
-    if sim2.iteration_count != 2 or not (dx["restored"] <= RESTORE_DX_NM and dx["restored"] <= 0.1 * dx["other stream"]):
-        raise RuntimeError(f"cli: after the restored iteration 2: count {sim2.iteration_count}, max |dx| from the "
-                           f"original {dx} nm (limit {RESTORE_DX_NM} and a tenth of the other stream's)")
     w2 = runs["restored"][0].protocol_work.double().cpu().numpy()
+    same_w = all(np.array_equal(runs[r][0].protocol_work.double().cpu().numpy(), work_orig, equal_nan=True)
+                 for r in ("restored", "again"))
+    if sim2.iteration_count != 2 or not (dx["restored"] == 0.0 and dx_again == 0.0 and same_w
+                                         and dx["other stream"] > 0.0):
+        raise RuntimeError(f"cli: after the restored iteration 2: count {sim2.iteration_count}, max |dx| from the "
+                           f"original {dx} nm, between the restored runs {dx_again} nm (both must be 0), the same "
+                           f"protocol work {same_w}")
     both = np.isfinite(w2) & np.isfinite(work_orig)
     dw = float(np.abs(w2 - work_orig)[both].max()) if both.any() else float("nan")
     return (f"loaded state, counters, move_stats and generator equal the saved ones; the restored iteration 2 "
@@ -2489,6 +2515,105 @@ def runtime_launches(fn):
                if e.device_type == DeviceType.CPU and e.key.startswith("cudaLaunchKernel"))
 
 
+def run_nocutoff(device, card, every, n_atoms=N_ATOMS):
+    """Phase nocutoff: K2 in its no-cutoff mode (NoCutoff: every pair, no
+    minimum image, no prune) on the GB droplet's nonbonded term (toluene
+    and its GB_WATERS nearest waters, 2,541 atoms, no GB term) and on
+    toluene in vacuum, backend 'pallas': each instance against its plain
+    version at R = 1 and R_MAIN on perturbed positions with compare's
+    tolerance, its time, bound and share of bound; then each system's path
+    (FIRE 100 steps, 1 iteration of NOCUT_STEPS + NOCUT_STEPS at R_MAIN,
+    graphed) with the kernels' launches counted. Returns (kernel results,
+    launches)."""
+    import numpy as np
+
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
+    from blues_tpu_torch.testsystems import t4_scale_toluene_box
+
+    amber = _fixtures()
+    system, x0 = t4_scale_toluene_box(n_atoms=n_atoms)
+    drop, xd = amber.droplet(system, x0, GB_WATERS)
+    vac, xv = toluene_system()
+    rng = np.random.default_rng(7)
+    kres, launches = {}, {}
+    lam = {"main": (1.0, 1.0, 1.0), "e0": (1.0, 1.0, 1.0)}
+    for label, sysl, xl in (("droplet", drop, np.asarray(xd)), ("vacuum", vac, np.asarray(xv))):
+        li = sysl.topology.select_resname("LIG")
+        sysl = sysl.replace(alchemical=AlchemicalRegion(atoms=li), box=None)
+        cfg = SimulationConfig(nstepsNC=NOCUT_STEPS, nstepsMD=NOCUT_STEPS, temperature=300.0, dt=0.002,
+                               nonbonded_method="NoCutoff", nonbonded_backend="pallas", n_replicas=R_MAIN)
+        sim = BLUESSimulation(sysl, RandomLigandRotationMove(li, sysl.masses), cfg, device=device)
+        nb = sim.energy_alch.nonbonded
+        if nb.backend != "pallas" or nb.pair_sum.use_cutoff or nb.pair_sum.periodic:
+            raise RuntimeError(f"nocutoff: {label} resolved to {nb.backend!r} (no-cutoff mode not taken)")
+        sums = {k: v for k, v in sums_of(sim, "pair", f"pair_nocut_{label}").items() if v[0] is not None}
+        xs = {R: perturbed(xl, np.ones(sysl.n_atoms, bool), R, rng, device) for R in (1, R_MAIN)}
+        kres.update(check_kernels([(k, v[0], lam[k.rsplit("_", 1)[1]]) for k, v in sums.items()], xs, None, (20, 3)))
+        res, _ = run_path(sim, xl, sums, every + list(sums.values()), 100, 1, f"nocutoff {label}", card)
+        launches.update(res["launches"])
+        phase("nocutoff", f"{label}: {sysl.n_atoms} atoms, NoCutoff on 'pallas' (K2 walks every column cluster: "
+              f"{nb.pair_sum.shape_info['col_clusters']} per row cluster, {nb.pair_sum.shape_info['row_clusters']} "
+              f"row clusters) on {card}: launches {res['launches']}")
+    return kres, launches
+
+
+def bench_keys():
+    """The keys of the port's bench record: the JAX package's bench.py's
+    (read as text: importing it would import JAX), less its
+    protocol_change_note, plus device."""
+    import ast
+
+    tree = ast.parse(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "dumps" and node.args:
+            if isinstance(node.args[0], ast.Dict):
+                return ({k.value for k in node.args[0].keys} - {"protocol_change_note"}) | {"device"}
+    raise RuntimeError("bench.py prints no dict literal")
+
+
+def run_bench(card):
+    """Phase bench: ``python -m blues_tpu_torch bench`` in a subprocess (the
+    frozen protocol at 1, 64, 256 and 1024 replicas, the unfrozen numbers).
+    Fails unless it exits 0 and its last stdout line is a record with the
+    port's keys, a finite positive value, R = 64 run, every unfrozen eval
+    time finite, and K1, K2 and K3 launched (its stderr's kernel launches
+    line). Returns the record's line."""
+    import math
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m", "blues_tpu_torch", "bench"], cwd=here, capture_output=True,
+                         text=True, timeout=BENCH_TIMEOUT_S)
+    took = time.perf_counter() - t0
+    for line in out.stderr.splitlines():
+        if line.startswith("#"):
+            phase("bench", line)
+    if out.returncode != 0:
+        raise RuntimeError(f"bench exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    launches = [json.loads(ln.split("# kernel launches ", 1)[1]) for ln in out.stderr.splitlines()
+                if ln.startswith("# kernel launches ")]
+    bad = []
+    if set(rec) != bench_keys():
+        bad.append(f"keys {sorted(set(rec) ^ bench_keys())} differ from the schema")
+    if not (math.isfinite(rec["value"]) and rec["value"] > 0):
+        bad.append(f"value {rec['value']}")
+    if not rec["aggregate_64_replicas_steps_per_sec"] > 0:
+        bad.append("R = 64 did not run")
+    if not all(math.isfinite(v) for v in rec["unfrozen_eval_ms"].values()) or len(rec["unfrozen_eval_ms"]) != 3:
+        bad.append(f"unfrozen_eval_ms {rec['unfrozen_eval_ms']}")
+    if not launches or not all(launches[-1].get(k, 0) > 0 for k in ("K1", "K2", "K3")):
+        bad.append(f"kernel launches {launches}")
+    if bad:
+        raise RuntimeError(f"bench: {'; '.join(bad)}")
+    phase("bench", f"python -m blues_tpu_torch bench on {card}: exit 0 in {took:.1f} s, launches {launches[-1]}")
+    return line
+
+
 def run_gb(device, card, every, n_atoms=N_ATOMS):
     """Phase gb: generalized Born on a droplet, toluene and its GB_WATERS
     nearest waters cut from the box (2,541 atoms, the size of T4 lysozyme
@@ -2594,11 +2719,10 @@ def run_gb(device, card, every, n_atoms=N_ATOMS):
 
 
 def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
-    """Phases 2-21 on ``device``; returns the kernels' JSON entries."""
+    """Phases 3-22 on ``device`` (main() builds the kernels first); returns
+    the kernels' JSON entries."""
     import numpy as np
     import torch
-
-    build_all_sources()
 
     # --- systems -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2761,9 +2885,13 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     # the YAML entry point on the main path, and generalized Born
     run_cli(device, card, every, main_res, n_atoms, cutoff)
     run_gb(device, card, every, n_atoms)
+    # K2's no-cutoff mode (the droplet and toluene in vacuum)
+    nocut, nocut_launches = run_nocutoff(device, card, every, n_atoms)
 
     launches = {k: v.pop("launches") for k, v in exact.items()}
+    launches.update(nocut_launches)
     kres.update(exact)
+    kres.update(nocut)
     for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):
         launches.update(r["launches"])
     kernels = [
@@ -2793,20 +2921,10 @@ def time_kernels(root, reps=20):
     device launches of a call under torch.profiler, the host's time to
     enqueue a call), K2 and K3 (MAIN, E0) on the unfrozen box, and the
     micro-step and MD step of the frozen, 'pcells' and 'pallas' paths."""
-    import importlib.util
-
     import numpy as np
     import torch
 
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
-    spec = importlib.util.spec_from_file_location("chip_smoke_at_root", os.path.join(root, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    import blues_tpu_torch
-
-    if not os.path.abspath(blues_tpu_torch.__file__).startswith(root + os.sep):
-        raise RuntimeError(f"blues_tpu_torch came from {blues_tpu_torch.__file__}, not {root}")
+    mod = _checkout(root)
     dev = torch.device("cuda", 0)
     out = {}
     frozen, x0, sim_f = mod.build_slice(dev)
@@ -2851,6 +2969,87 @@ def time_kernels(root, reps=20):
                 sys.stdout = stdout
         out[f"{backend}_micro_step"], out[f"{backend}_md_step"] = res["micro_ms"], res["md_ms"]
     return out
+
+
+def _checkout(root):
+    """This script and blues_tpu_torch of the checkout at ``root``, as
+    ``time_kernels`` loads them: (module, the checkout's package)."""
+    import importlib.util
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke_at_root", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    import blues_tpu_torch
+
+    if not os.path.abspath(blues_tpu_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"blues_tpu_torch came from {blues_tpu_torch.__file__}, not {root}")
+    return mod
+
+
+def determinism_at(root):
+    """The frozen slice and the unfrozen 'pcells' box of the checkout at
+    ``root`` (R = R_MAIN, 50 + 50 steps, eager, after FIRE 100): one
+    iteration three times from one state and generator, the third under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (the
+    caller sets CUBLAS_WORKSPACE_CONFIG). Returns, per path, whether the
+    first two end bit for bit equal (positions, work) and their max |dx|,
+    the same for the third against the first, and the ops torch flagged as
+    nondeterministic in the third."""
+    import torch
+
+    mod = _checkout(root)  # before any import of the package: the checkout's own
+    from blues_tpu_torch.core.state import SimState
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for label, build in (("frozen", lambda: mod.build_slice(dev)),
+                         ("pcells", lambda: mod.build_unfrozen(dev, "pcells", R_MAIN, NSTEPS))):
+        _, x0, sim = build()
+        sim.graphs = False
+        sim.initialize(x0, seed=GRAPH_SEED)
+        sim.minimize(100)
+        state, gen = SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()
+        runs, flagged = [], set()
+        for mode in ("plain", "plain again", "deterministic"):
+            sim.state = SimState(*(t.clone() for t in state))
+            sim.source.generator.set_state(gen)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(mode == "deterministic", warn_only=True)
+                try:
+                    st = sim.run_iteration()
+                    torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            flagged |= {str(w.message).split(" does not have")[0][:120] for w in caught
+                        if "deterministic" in str(w.message)}
+            runs.append((st, sim.state.positions.clone()))
+
+        def versus(a, b):
+            (sa, xa), (sb, xb) = a, b
+            d = (xa.double() - xb.double()).abs()
+            return dict(positions=same_bits(xa, xb), work=same_bits(sa.protocol_work, sb.protocol_work),
+                        dx=float(d[torch.isfinite(d)].max()) if bool(torch.isfinite(d).any()) else float("nan"))
+
+        out[label] = {"again": versus(runs[0], runs[1]), "deterministic": versus(runs[0], runs[2]),
+                      "flagged": sorted(flagged)}
+        del sim
+    return out
+
+
+def determinism(other, card):
+    """``determinism_at`` for this checkout and for ``other``, each in its
+    own process with CUBLAS_WORKSPACE_CONFIG set."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    for label, root in (("this", here), ("other", other)):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--determinism-at", root],
+                             capture_output=True, text=True, timeout=900, env=env)
+        if out.returncode != 0:
+            raise RuntimeError(f"determinism at {root} failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        phase("determinism", f"{label} ({root}) on {card}: {out.stdout.strip().splitlines()[-1]}")
 
 
 def ab(other, card):
@@ -3161,13 +3360,19 @@ def main(argv=None):
         "--profile", nargs="?", const="all", choices=["all", "sweep"],
         help="profile one K1 call of each instance and (unless 'sweep') one unfrozen iteration",
     )
+    ap.add_argument("--determinism", metavar="OTHER_ROOT",
+                    help="repeat one eager iteration of this checkout and another, plainly and deterministically")
     ap.add_argument("--time-kernels", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--determinism-at", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU", file=sys.stderr)
         return 2
     if args.time_kernels:
         print(json.dumps(time_kernels(args.time_kernels)), flush=True)
+        return 0
+    if args.determinism_at:
+        print(json.dumps(determinism_at(args.determinism_at)), flush=True)
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import blues_tpu_torch  # noqa: F401  (fails, before any output, outside a checkout)
@@ -3177,7 +3382,9 @@ def main(argv=None):
     name = torch.cuda.get_device_name(0)
     card = card_line()
     phase("device", f"{name} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    if args.ab or args.profile:
+    if args.ab or args.profile or args.determinism:
+        if args.determinism:
+            determinism(args.determinism, card)
         if args.ab:
             ab(args.ab, card)
         if args.profile:
@@ -3187,8 +3394,11 @@ def main(argv=None):
                 profile_unfrozen(card)
         print(card, flush=True)
         return 0
+    build_all_sources()
+    bench_line = run_bench(card)
     kernels = smoke(torch.device("cuda", 0), card)
     print(card, flush=True)
+    print(bench_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -321,7 +321,9 @@ RESOLUTIONS = {
 def test_auto_and_fallbacks_resolve_as_jax(case, monkeypatch):
     """The resolved backend of each case equals the JAX package's on the TPU
     (``jax.default_backend`` reporting 'tpu'), whose branch the port takes
-    on every device."""
+    on every device, but for 'auto' on a large mostly-mobile system: there
+    the port picks the card's fastest backend, K3 ('pcells'), where that
+    branch picks the TPU's ('cells')."""
     backend, n, method, cutoff, is_frozen = RESOLUTIONS[case]
     nb = _synthetic_nb(n)
     rng = np.random.default_rng(2)
@@ -334,4 +336,5 @@ def test_auto_and_fallbacks_resolve_as_jax(case, monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     j_backend = getattr(jnb.make_nonbonded_energy(nb, **kw), "backend", "dense")
     t = tnb.make_nonbonded_energy(nb, device=DEVICE, **kw)
-    assert t.backend == j_backend, (case, t.backend, j_backend)
+    expected = "pcells" if case == "auto_mobile" else j_backend
+    assert t.backend == expected, (case, t.backend, j_backend)

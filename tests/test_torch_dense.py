@@ -131,7 +131,8 @@ def test_auto_resolves_as_jax(n, mostly, monkeypatch):
     """At 4,096 atoms and below both packages take 'dense'; above, the port
     follows JAX's rule on the TPU (the card's counterpart): 'sweep' for a
     mostly-frozen system (here its culled columns engage: the mobile atoms
-    sit within 0.6 nm of the centre), 'cells' for a mostly-mobile one."""
+    sit within 0.6 nm of the centre); for a mostly-mobile one the card's
+    fastest backend, 'pcells' (K3), where JAX's TPU branch takes 'cells'."""
     nb = _synthetic_nb(n)
     rng = np.random.default_rng(2)
     L = (n / 100.0) ** (1 / 3)
@@ -144,8 +145,9 @@ def test_auto_resolves_as_jax(n, mostly, monkeypatch):
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     j_backend = getattr(jnb.make_nonbonded_energy(nb, **kw), "backend", "dense")
     t = tnb.make_nonbonded_energy(nb, device=DEVICE, **kw)
-    expected = "dense" if n <= 4096 else ("cells" if mostly == "mobile" else "sweep")
-    assert t.backend == j_backend == expected
+    expected = "dense" if n <= 4096 else ("pcells" if mostly == "mobile" else "sweep")
+    assert t.backend == expected
+    assert j_backend == ("cells" if expected == "pcells" else expected)
 
 
 def test_boxless_nocutoff_simulation_runs_on_dense():

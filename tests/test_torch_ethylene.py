@@ -332,6 +332,48 @@ def test_ncmc_protocol_snapshots_match_jax_f64(eth):
     assert float((rt.snapshots[:, 1, 2:] - rt.snapshots[:, 0, 2:]).abs().max()) > 1e-2
 
 
+@pytest.mark.parametrize("splitting", ["V R O R V H", "H O V R V O H", "R V O V R H", "V R R V H"])
+def test_ncmc_splittings_match_jax_f64(eth, splitting):
+    """The non-default splitting strings (``integrators/ncmc.py``'s parse):
+    nstepsNC = 20, moveStep 10, friction 0, JAX's rotations replayed, two
+    replicas; work, final state and snapshots as
+    test_ncmc_protocol_snapshots_match_jax_f64 holds them."""
+    js, pt = eth["jax"], eth["port"]
+    lig = js.topology.select_resname("LIG")
+    rng = np.random.default_rng(3)
+    v = np.sqrt(1.663 / np.maximum(js.masses, 1.0))[:, None] * rng.standard_normal((8, 3))
+    v[:2] = 0.0
+    p = jl.LangevinParams(dt=0.001, friction=0.0, temperature=200.0)
+    sched_j = j_schedule(20, move_step=10)
+    record = tuple(int(sched_j.micro_of_step[s]) for s in (0, 10, 20))
+    with jax.enable_x64(True):
+        efn = je.make_energy_fn(js)
+        cx, cv = jc.make_constraint_fns(js.constraints, js.masses)
+        jprot = jax.jit(jn.make_ncmc_protocol(
+            efn, je.make_force_fn(efn), js.masses, p, cx, cv, sched_j, splitting=splitting,
+            move=_RecordingRotation(lig, js.masses), dtype=jnp.float64, record_micro=record,
+        ))
+        rj = [jprot(jnp.asarray(eth["x0"]), jnp.asarray(v), jnp.asarray(js.box), jax.random.PRNGKey(k)) for k in (7, 8)]
+    rots = np.stack([np.asarray(r.move_aux) for r in rj])
+    efn_t = te.make_energy_fn(pt, device=DEVICE)
+    tcx, tcv = tc.make_constraint_fns(pt.constraints, pt.masses, device=DEVICE)
+    tprot = tn.make_ncmc_protocol(
+        efn_t, te.make_force_fn(efn_t), pt.masses, tl.LangevinParams(*p), tcx, tcv, t_schedule(20, move_step=10),
+        _ZeroNoiseReplay(rotations=[rots]), move=RandomLigandRotationMove(lig, pt.masses), splitting=splitting,
+        record_micro=record, device=DEVICE,
+    )
+    rt = tprot(torch.as_tensor(eth["x0"])[None].expand(2, -1, -1), torch.as_tensor(v)[None].expand(2, -1, -1),
+               torch.as_tensor(js.box))
+    for r in range(2):
+        j = rj[r]
+        np.testing.assert_allclose(rt.positions[r].numpy(), np.asarray(j.positions), rtol=0, atol=1e-10)
+        np.testing.assert_allclose(rt.snapshots[r].numpy(), np.asarray(j.snapshots), rtol=0, atol=1e-10)
+        np.testing.assert_allclose(rt.snapshot_work[r].numpy(), np.asarray(j.snapshot_work), rtol=1e-9, atol=1e-8)
+        assert float(rt.protocol_work[r]) == pytest.approx(float(j.protocol_work), rel=1e-9, abs=1e-8)
+        assert float(rt.e_final[r]) == pytest.approx(float(j.e_final), rel=1e-10)
+        assert abs(float(j.protocol_work)) > 1e-3
+
+
 def _run(system, move, x0, seed, cfg):
     sim = BLUESSimulation(system, move, SimulationConfig(**cfg), device=DEVICE)
     sim.initialize(x0, seed=seed)

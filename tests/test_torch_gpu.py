@@ -20,8 +20,9 @@ ops) on the card against the CPU in float64 (energy 1e-9 relative, forces
 1e-8*(max|F| + 1)), and ``create_simulation`` of a GB droplet read from a
 prmtop on the card, its energies against the CPU's. The graphed iteration
 (CUDA graphs) against the eager one on a frozen 'sweep' box and an
-unfrozen 'pcells' box at R = 2: the same decisions, generators that end
-equal, positions within 1e-2 nm; and a capture refusing a host sync.
+unfrozen 'pcells' box at R = 2, and two eager runs from one state and
+generator, bit for bit; K2 in its no-cutoff mode against its plain
+version; and a capture refusing a host sync.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -507,14 +508,19 @@ def _graph_sim(case, graphs, move_cls=None, dev=None):
     return BLUESSimulation(system, move, cfg, device=dev, graphs=graphs), np.asarray(x)
 
 
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and (
+        a.detach().cpu().contiguous().numpy().tobytes() == b.detach().cpu().contiguous().numpy().tobytes()
+    )
+
+
 @pytest.mark.parametrize("case", sorted(GRAPH_CASES))
 def test_graphed_iteration_matches_eager_on_the_card(case):
     """Two iterations eagerly, then graphed, each graphed iteration from
-    the eager one's start (state and generator): the same decisions but at
-    a threshold (see below), generators that end equal, MD frames and
-    positions within 1e-2 nm (PME's spread and the constraint solves sum
-    with float atomics, so two runs differ), the path's kernel launched by
-    the replays."""
+    the eager one's start (state and generator): bit for bit the same
+    stats, MD frames, positions and generator (the port's sums are
+    deterministic on the card), the path's kernel launched by the
+    replays."""
     from blues_tpu_torch.core.state import SimState
 
     dev = _cuda()
@@ -539,22 +545,57 @@ def test_graphed_iteration_matches_eager_on_the_card(case):
     assert not se.graphs and sg.graphs and sg.eager_reason() is None
     assert sg.energy_alch.nonbonded.backend == GRAPH_CASES[case][2]["nonbonded_backend"]
     for (a, fa, na, xa, ga), (b, fb, nb, xb, gb) in zip(ste, stg):
-        # two runs on the card (two eager ones too) may differ at a
-        # threshold: a decision whose log_accepts lie within 10 kT, or one
-        # of them non-finite or beyond 1,000 kT (a clash), MD that blew up
-        # in one; such replicas are left out
-        la, lb = a.log_accept.double(), b.log_accept.double()
-        flip = a.accepted != b.accepted
-        finite = torch.isfinite(la) & torch.isfinite(lb)
-        near = ~finite | ((la - lb).abs() <= 10.0) | (torch.maximum(la.abs(), lb.abs()) > 1000.0)
-        assert not bool((flip & ~near).any())
-        keep = ~(flip | a.md_failed | b.md_failed)
-        assert int((~keep).sum()) <= 1
-        assert fa.shape == fb.shape and na.positions.shape == nb.positions.shape
-        assert float((fa - fb)[keep].abs().max()) <= 1e-2
-        assert float((xa - xb)[keep].abs().max()) <= 1e-2 and torch.equal(ga, gb)
+        for k in a._fields:
+            assert _same_bits(getattr(a, k), getattr(b, k)), k
+        assert _same_bits(fa, fb) and _same_bits(na.positions, nb.positions) and _same_bits(na.work, nb.work)
+        assert _same_bits(xa, xb) and torch.equal(ga, gb)
     assert sg.runner.replays["micro"] == 2 * sg.schedule.n_micro
     assert ne > 0 and ng >= ne  # the replays counted, and the warm-up's launches
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_two_eager_runs_are_bit_identical_on_the_card(case):
+    """Two eager iterations from one state and generator end bit for bit
+    equal: stats, positions, velocities and the generator (no float
+    atomics in the port's sums: PME spreads in fixed point)."""
+    from blues_tpu_torch.core.state import SimState
+
+    dev = _cuda()
+    sim, x = _graph_sim(case, False, dev=dev)
+    sim.initialize(x, seed=6)
+    sim.minimize(50)
+    start, gen = SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()
+    runs = []
+    for _ in range(2):
+        sim.state = SimState(*(t.clone() for t in start))
+        sim.source.generator.set_state(gen)
+        st = sim.run_iteration()
+        runs.append((st, sim.state.positions.clone(), sim.state.velocities.clone(), sim.source.generator.get_state()))
+    (a, xa, va, ga), (b, xb, vb, gb) = runs
+    for k in a._fields:
+        assert _same_bits(getattr(a, k), getattr(b, k)), k
+    assert _same_bits(xa, xb) and _same_bits(va, vb) and torch.equal(ga, gb)
+
+
+@pytest.mark.parametrize("R", [1, 8])
+def test_pair_kernel_without_a_cutoff_matches_plain(R):
+    """K2's no-cutoff mode (NoCutoff: every pair, no minimum image, no
+    prune; every row cluster walks every column cluster) on the card
+    against its plain version, over every column and over a subset."""
+    dev = _cuda()
+    rng = np.random.default_rng(4)
+    n = 600
+    feats = build_pair_features(rng.normal(0, 0.3, n), rng.uniform(0.25, 0.35, n), rng.uniform(0.1, 0.6, n),
+                                np.arange(n) < 12, None)
+    common = dict(CELLS_COMMON, method="NoCutoff", alpha_ewald=0.0, periodic=False)
+    x = torch.as_tensor(rng.uniform(0.0, 3.0, (R, n, 3)), dtype=torch.float32, device=dev)
+    for col_idx in (None, np.arange(12, n)):
+        ps = PallasPairSum(feats, col_idx=col_idx, device=dev, **common)
+        assert not ps.use_cutoff and ps.list_width == 0
+        ek, fk = ps(x, None, *LAM)
+        torch.cuda.synchronize()
+        assert ps.launches == 1 and ps.prune_launches == 0
+        _assert_close(ek, fk, *ps.plain(x, None, *LAM))
 
 
 def test_graph_capture_refuses_a_host_sync_on_the_card():

@@ -16,7 +16,8 @@ On a frozen toluene + TIP3P box (8,001 atoms, 'sweep' with culled columns, the c
 iteration) and an unfrozen one (1,202 atoms, 'pcells', the full-array
 iteration), R = 2, two iterations from one seed: the graphed runner's
 stats, state, NCMC snapshots and their work, MD frames and generator equal
-the eager phases' bit for bit. ``graphs=True`` on a configuration that
+the eager phases' bit for bit; likewise toluene frozen by ``freeze_atoms``
+on 'pallas', with and without a cutoff. ``graphs=True`` on a configuration that
 runs eagerly raises at construction, and a phase that syncs the host
 raises at capture without running the iteration eagerly.
 """
@@ -121,6 +122,29 @@ def test_graphed_iteration_equals_eager(case, rerun):
     assert not torch.equal(g_out[0][0].protocol_work, g_out[1][0].protocol_work)
     n_micro = graphed.schedule.n_micro
     assert graphed.runner.replays == {"begin": 2, "micro": 2 * n_micro, "move": 2, "end": 2, "md": 8, "md_end": 2}
+
+
+@pytest.mark.parametrize("method", ["NoCutoff", "CutoffNonPeriodic"])
+def test_freeze_atoms_on_pallas_graphed_equals_eager(method, rerun):
+    """Toluene in vacuum with atoms 0-3 frozen by ``freeze_atoms`` (no
+    reference positions: the full-array iteration, no culling) on 'pallas'
+    (K2; without a cutoff in its no-cutoff mode): two iterations graphed
+    equal eager bit for bit."""
+    lig, x = toluene_system()
+    li = lig.topology.select_resname("LIG")
+    system = lig.replace(alchemical=AlchemicalRegion(atoms=li)).freeze_atoms([0, 1, 2, 3])
+    cfg = SimulationConfig(nstepsNC=4, nstepsMD=4, dt=0.001, nonbonded_method=method, nonbonded_backend="pallas",
+                           n_replicas=2)
+    eager, e_out = _run(system, np.asarray(x), li[4:], cfg, False)
+    graphed, g_out = _run(system, np.asarray(x), li[4:], cfg, True)
+    assert graphed._compact is None and graphed.energy_alch.nonbonded.backend == "pallas"
+    assert graphed.energy_alch.nonbonded.pair_sum.use_cutoff == (method != "NoCutoff")
+    for (se, _, ne), (sg, _, ng) in zip(e_out, g_out):
+        for k in se._fields:
+            assert torch.equal(getattr(se, k), getattr(sg, k)), k
+        assert torch.equal(ne.positions, ng.positions) and torch.equal(ne.work, ng.work)
+    assert all(torch.equal(a, b) for a, b in zip(eager.state, graphed.state))
+    assert graphed.runner.replays["micro"] == 2 * graphed.schedule.n_micro
 
 
 def test_graphed_iteration_without_move_or_md_equals_eager(rerun):

@@ -223,6 +223,7 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "assert len(names) >= 35, names\n"
         "assert 'blues_tpu_torch.config.settings' in names and 'blues_tpu_torch.__main__' in names, names\n"
+        "assert 'blues_tpu_torch.bench' in names, names\n"
         "print(len(names))\n"
     )
     out = subprocess.run(
