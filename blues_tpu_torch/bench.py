@@ -419,7 +419,7 @@ def run(device="cuda", n_atoms=N_ATOMS, replicas=REPLICAS, nsteps=NSTEPS_NC, min
         "single_replica_steps_per_sec": round(single, 2),
         "aggregate_64_replicas_steps_per_sec": round(agg64, 2),
         "aggregate_best": {"replicas": best_r, "steps_per_sec": round(best, 2)},
-        "mfu_pct": round(mfu, 4),
+        "mfu_pct": float(f"{mfu:.4g}"),  # 4 significant digits: a slow device's share is not rounded to 0
         "mfu_note": (
             f"useful physics flops (~{flops / 1e6:.2f} MF/step: the mobile rows' pairs inside the cutoff, "
             f"the alchemical rows' twice more under the lambda split, x {PAIR_FLOPS} fp32 operations, + PME "

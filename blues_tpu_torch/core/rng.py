@@ -13,6 +13,17 @@ feed the JAX package and the port the same numbers (JAX threefry and torch
 Philox streams cannot be matched). The integer and Boolean kinds are
 functions of one uniform per replica, so a test replays a JAX choice as a
 uniform inside the chosen index's bin.
+
+Every draw's leading dimension is the replica. On a replica mesh
+(``parallel/mesh.py``) each rank draws for its own block of replicas; the
+JAX package gives each replica its own threefry key, so its sharded run is
+its unsharded run. The port draws a batch from one generator, and the rule
+is: velocities drawn at ``initialize`` are sliced, not drawn again; at one
+rank the generator is left as it is, so the run is bit for bit the
+unsharded run; on more ranks each rank's generator is seeded anew with
+``rank_seed(seed, rank)``, so no two ranks draw the same noise; a
+``ReplayRandomSource`` hands each rank its replica block of every array
+(``replica_block``), so a sharded replay is the unsharded replay exactly.
 """
 
 from __future__ import annotations
@@ -21,6 +32,15 @@ import numpy as np
 import torch
 
 from ..potentials.geometry import rotation_from_uniform
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generator on a replica mesh of more than
+    one rank: the first 63-bit word of numpy's ``SeedSequence(seed,
+    spawn_key=(rank,))``, so the ranks' streams are distinct from each other
+    and from the stream of ``seed`` itself."""
+    word = np.random.SeedSequence(int(seed), spawn_key=(int(rank),)).generate_state(1, np.uint64)[0]
+    return int(word >> np.uint64(1))
 
 
 class RandomSource:
@@ -77,12 +97,17 @@ class ReplayRandomSource(RandomSource):
             "uniform": list(uniforms),
             "rotation": list(rotations),
         }
+        #: (lo, hi): hand out rows lo:hi (replicas) of each array; set on a
+        #: rank of a replica mesh (``parallel.shard_simulation_state``)
+        self.replica_block = None
 
     def _next(self, kind, shape, dtype, device):
         q = self._queues[kind]
         if not q:
             raise RuntimeError(f"replay source has no {kind} draw left")
         a = np.array(q.pop(0))
+        if self.replica_block is not None:
+            a = a[self.replica_block[0] : self.replica_block[1]]
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"replayed {kind} draw has shape {a.shape}, asked {tuple(shape)}")
         return torch.as_tensor(a, dtype=dtype, device=device)

@@ -412,6 +412,7 @@ class NonbondedEnergy(_NonbondedBase):
         bonds_for_cull,
         sweep_row_group,
         backend: str = "sweep",
+        recip_override=None,
         device=DEFAULT_DEVICE,
     ):
         if alchemical_pme_treatment not in ("direct-space", "coulomb", "exact"):
@@ -426,6 +427,7 @@ class NonbondedEnergy(_NonbondedBase):
                     dispersion_correction, switch_distance, device)
         dev, n, sc, is_alch, charges = self.device, self.n_atoms, self.sc, self._is_alch, self._charges
         self.backend = backend
+        self.recip_override = recip_override
         self.exact = alchemical is not None and alchemical_pme_treatment == "exact"
         self.alch_coulomb = alch_coulomb = (
             alchemical_pme_treatment == "coulomb" and method == PME and alchemical is not None
@@ -901,16 +903,21 @@ class NonbondedEnergy(_NonbondedBase):
         raw charges, the alchemical ones times ``lam_e``), plus (frozen
         systems) the poison of each replica whose box differs from the
         frozen grid's. The frozen grid holds raw charges: frozen atoms are
-        never alchemical."""
+        never alchemical. ``recip_override(x, q, box)``, when set, takes the
+        place of the reciprocal sum (the spatial force function's sharded
+        spread), without the frozen grid's poison, as in the JAX package."""
         c, dt = self.c, x.dtype
         ke, alpha = units.ONE_4PI_EPS0, self.alpha
         q = c("q_eff", dt)
         if self.exact:
             q = torch.where(c("is_alch"), q * lam_e, q)
-        e = self.recip(x, q, box)
-        if self._frozen_grid:
-            mismatch = (box - c("box0", dt)).abs().amax((-2, -1)) > 1e-5
-            e = torch.where(mismatch, float("nan"), 0.0).to(dt) + e
+        if self.recip_override is not None:
+            e = self.recip_override(x, q, box)
+        else:
+            e = self.recip(x, q, box)
+            if self._frozen_grid:
+                mismatch = (box - c("box0", dt)).abs().amax((-2, -1)) > 1e-5
+                e = torch.where(mismatch, float("nan"), 0.0).to(dt) + e
         e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
         e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / self._volume(box)
         idx = c("erf_idx")
@@ -1212,6 +1219,7 @@ def make_nonbonded_energy(
     frozen_cull_cage_margin: float = 1.0,
     bonds_for_cull=None,
     sweep_row_group: Optional[int] = None,
+    recip_override=None,
     device=DEFAULT_DEVICE,
 ):
     """``backend``: 'dense' (``DenseNonbondedEnergy``, any method and
@@ -1232,7 +1240,11 @@ def make_nonbonded_energy(
         else it becomes 'cells';
       * 'cells' and 'verlet' need a periodic method and a grid of >= 27
         cells ('verlet' also every atom mobile), else they become
-        'pallas'."""
+        'pallas'.
+
+    ``recip_override(positions, q_eff, box) -> (R,)`` replaces the PME
+    reciprocal sum of the pair backends (``parallel/spatial.py`` passes its
+    sharded spread); 'dense' does not take it."""
     triclinic = False
     if box_for_pme is not None:
         triclinic = is_triclinic(box_for_pme)
@@ -1291,6 +1303,8 @@ def make_nonbonded_energy(
         if not eligible:
             backend = "pallas"
     if backend == "dense":
+        if recip_override is not None:
+            raise ValueError("recip_override is taken by the pair backends, not by 'dense'")
         return DenseNonbondedEnergy(
             nb, method=method, cutoff=cutoff, alchemical=alchemical,
             alchemical_pme_treatment=alchemical_pme_treatment, ewald_tolerance=ewald_tolerance,
@@ -1304,5 +1318,5 @@ def make_nonbonded_energy(
         frozen_ref_positions=frozen_ref_positions, dispersion_correction=dispersion_correction,
         switch_distance=switch_distance, frozen_cull_skin=frozen_cull_skin,
         frozen_cull_cage_margin=frozen_cull_cage_margin, bonds_for_cull=bonds_for_cull,
-        sweep_row_group=sweep_row_group, backend=backend, device=device,
+        sweep_row_group=sweep_row_group, backend=backend, recip_override=recip_override, device=device,
     )

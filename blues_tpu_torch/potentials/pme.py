@@ -20,6 +20,13 @@ associative, so the card's atomic adds give the same grid bit for bit in
 whatever order they land, where float atomics differ from run to run. The
 grid, its FFT and the influence sum run in the positions' dtype; the
 frozen background grid is stored in float32, as in the JAX package.
+
+Over a ``torch.distributed`` group (the spatial force function,
+``parallel/spatial.py``) each rank spreads its own atoms and the ranks sum
+the int64 counts, not floats (``spread_grid_summed``): the summed grid is
+bit for bit the one-rank spread at any world size. It is all-reduced to
+every rank (the replicated FFT), or reduce-scattered into x-slabs for the
+distributed slab FFT (``ShardedPMEReciprocal``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import units
+from ..core.collectives import _all_gather, _all_reduce, _reduce_scatter, all_reduce, all_to_all, reduce_scatter
 from ..core.device import DEFAULT_DEVICE, device_const, resolve_device
 from .geometry import box_lengths, replica_boxes
 from .triclinic import fractional_coords, reciprocal_m2
@@ -44,25 +52,45 @@ SPREAD_SCALE = 2.0**40
 
 
 class _FixedPointSpread(torch.autograd.Function):
-    """grid[flat[k]] += val[k] over a zeroed (size,) grid, summed in int64
-    units of 1/SPREAD_SCALE; the gradient is the grid's at each index (a
-    gather). A replica (row of the (R, m) ``val``) with a non-finite value
-    gets a NaN grid, as a float sum would."""
+    """grid[flat[k]] += val[k] over a zeroed (R, Kx, Ky, Kz) grid, summed in
+    int64 units of 1/SPREAD_SCALE from the (R, m) ``val``; the gradient is
+    the grid's at each index (a gather). A replica with a non-finite value
+    gets a NaN grid, as a float sum would.
+
+    With ``over`` 'grid' or 'slab' the counts of every rank's values are
+    summed over ``group`` (None: the world): all-reduced to the full grid,
+    or reduce-scattered along x into this rank's (R, Kx/D, Ky, Kz) slab.
+    Integer addition is exact, so the grid is bit for bit the one-rank
+    spread's at any world size. The gradient is then the grid's summed over
+    the group (all-reduce; all-gather of the slabs), and a non-finite value
+    on any rank poisons the replica on every rank."""
 
     @staticmethod
-    def forward(ctx, val, flat, size):
+    def forward(ctx, val, flat, shape, group, over):
+        R, Kx, Ky, Kz = shape
         ctx.save_for_backward(flat)
-        ctx.shape = val.shape
+        ctx.shape, ctx.group, ctx.over = val.shape, group, over
         counts = torch.round(val.reshape(-1).to(torch.float64) * SPREAD_SCALE).to(torch.int64)
-        acc = torch.zeros(size, dtype=torch.int64, device=val.device).index_add_(0, flat, counts)
-        grid = (acc.to(torch.float64) / SPREAD_SCALE).to(val.dtype).reshape(val.shape[0], -1)
-        bad = ~torch.isfinite(val).all(1, keepdim=True)
-        return torch.where(bad, float("nan"), grid).reshape(size)
+        acc = torch.zeros(R * Kx * Ky * Kz, dtype=torch.int64, device=val.device).index_add_(0, flat, counts)
+        acc = acc.reshape(R, Kx, Ky, Kz)
+        bad = ~torch.isfinite(val).all(1)
+        if over is not None:
+            bad = _all_reduce(bad.to(torch.int64), group) > 0
+        if over == "slab":  # reduce-scatter splits dim 0: x first
+            acc = _reduce_scatter(acc.transpose(0, 1), group).transpose(0, 1)
+        elif over == "grid":
+            acc = _all_reduce(acc, group)
+        grid = (acc.to(torch.float64) / SPREAD_SCALE).to(val.dtype)
+        return torch.where(bad[:, None, None, None], float("nan"), grid)
 
     @staticmethod
     def backward(ctx, grad):
         (flat,) = ctx.saved_tensors
-        return grad.index_select(0, flat).reshape(ctx.shape), None, None
+        if ctx.over == "slab":
+            grad = _all_gather(grad.transpose(0, 1), ctx.group).transpose(0, 1)
+        elif ctx.over == "grid":
+            grad = _all_reduce(grad, ctx.group)
+        return grad.reshape(-1).index_select(0, flat).reshape(ctx.shape), None, None, None, None
 
 
 @dataclass(frozen=True)
@@ -117,6 +145,31 @@ def _modes(K):
     return np.where(m <= K // 2, m, m - K).astype(np.float64)
 
 
+def _influence_energy(s2, t, box, alpha, triclinic=False):
+    """(R,) reciprocal energy of the structure factors |S(m)|^2 ``s2`` at
+    the modes of the tables ``t`` (mx, my, mz and the Euler factors b2,
+    the z half-spectrum's weights folded in): the influence function
+    exp(-pi^2 m^2 / alpha^2) / m^2 over 2 pi V."""
+    dt = box.dtype
+    blen = box_lengths(box)[:, :, None, None, None]  # (R, 3, 1, 1, 1)
+    if triclinic:
+        m2 = reciprocal_m2(t["mx"], t["my"], t["mz"], box)
+    else:
+        m2 = (
+            (t["mx"][:, None, None] / blen[:, 0]) ** 2
+            + (t["my"][None, :, None] / blen[:, 1]) ** 2
+            + (t["mz"][None, None, :] / blen[:, 2]) ** 2
+        )
+    pi2 = math.pi * math.pi
+    influence = torch.where(
+        m2 > 0,
+        torch.exp(-pi2 * m2 / (alpha**2)) / torch.clamp(m2, min=1e-12),
+        torch.zeros((), dtype=dt, device=m2.device),
+    )
+    vol = (blen[:, 0] * blen[:, 1] * blen[:, 2]).reshape(-1)
+    return (influence * t["b2"] * s2).sum((-3, -2, -1)) * (units.ONE_4PI_EPS0 / (2.0 * math.pi * vol))
+
+
 class PMEReciprocal:
     """fn(positions (R, n, 3), charges (N,), box (R, 3, 3)) -> (R,) energy,
     each replica on its own box lengths; the grid dims are the ones chosen
@@ -166,8 +219,10 @@ class PMEReciprocal:
             self._cache[dtype] = t
         return t
 
-    def spread_grid(self, positions, charges, box):
-        """(R, n, 3) positions, (n,) charges -> (R, Kx, Ky, Kz) grid."""
+    def stencil(self, positions, charges, box):
+        """The spread's terms: (R, n * order^3) charge times B-spline weight
+        values and their (R * n * order^3,) indices into the flattened
+        (R, Kx, Ky, Kz) grid."""
         Kx, Ky, Kz = self.K
         order = self.params.order
         R, n, _ = positions.shape
@@ -193,36 +248,30 @@ class PMEReciprocal:
         )
         flat = (gx[:, :, :, None, None] * Ky + gy[:, :, None, :, None]) * Kz + gz[:, :, None, None, :]
         flat = flat + (torch.arange(R, device=positions.device) * (Kx * Ky * Kz))[:, None, None, None, None]
-        grid = _FixedPointSpread.apply(val.reshape(R, -1), flat.reshape(-1), R * Kx * Ky * Kz)
-        grid = grid.reshape(R, Kx, Ky, Kz)
+        return val.reshape(R, -1), flat.reshape(-1)
+
+    def spread_grid(self, positions, charges, box):
+        """(R, n, 3) positions, (n,) charges -> (R, Kx, Ky, Kz) grid."""
+        val, flat = self.stencil(positions, charges, box)
+        grid = _FixedPointSpread.apply(val, flat, (positions.shape[0], *self.K), None, None)
         if self.base is not None:
-            grid = grid + self.base.to(dt)
+            grid = grid + self.base.to(positions.dtype)
         return grid
 
+    def spread_grid_summed(self, positions, charges, box, group, slab=False):
+        """This rank's atoms spread and summed with every other rank's over
+        ``group`` in the int64 fixed point: the full (R, Kx, Ky, Kz) grid on
+        every rank, or with ``slab`` this rank's (R, Kx/D, Ky, Kz) x-slab.
+        No frozen background grid (the spatial path spreads every atom)."""
+        if self.base is not None or self.subset is not None:
+            raise ValueError("a summed spread takes every atom: no frozen background grid")
+        val, flat = self.stencil(positions, charges, box)
+        return _FixedPointSpread.apply(val, flat, (positions.shape[0], *self.K), group, "slab" if slab else "grid")
+
     def energy_from_grid(self, grid, box):
-        dt = box.dtype
-        t = self._tables(dt)
-        blen = box_lengths(box)[:, :, None, None, None]  # (R, 3, 1, 1, 1)
         fq = torch.fft.rfftn(grid, dim=(-3, -2, -1))
-        s2 = fq.real**2 + fq.imag**2
-        if self.triclinic:
-            m2 = reciprocal_m2(t["mx"], t["my"], t["mz"], box)
-        else:
-            m2 = (
-                (t["mx"][:, None, None] / blen[:, 0]) ** 2
-                + (t["my"][None, :, None] / blen[:, 1]) ** 2
-                + (t["mz"][None, None, :] / blen[:, 2]) ** 2
-            )
-        pi2 = math.pi * math.pi
-        influence = torch.where(
-            m2 > 0,
-            torch.exp(-pi2 * m2 / (self.params.alpha**2)) / torch.clamp(m2, min=1e-12),
-            torch.zeros((), dtype=dt, device=m2.device),
-        )
-        vol = (blen[:, 0] * blen[:, 1] * blen[:, 2]).reshape(-1)
-        return (influence * t["b2"] * s2).sum((-3, -2, -1)) * (
-            units.ONE_4PI_EPS0 / (2.0 * math.pi * vol)
-        )
+        return _influence_energy(fq.real**2 + fq.imag**2, self._tables(box.dtype), box, self.params.alpha,
+                                 self.triclinic)
 
     def __call__(self, positions, charges, box):
         box = replica_boxes(box, positions.shape[0])
@@ -235,6 +284,102 @@ class PMEReciprocal:
 def make_pme_reciprocal(params: PMEParams, base_grid=None, spread_subset=None, device=DEFAULT_DEVICE,
                         triclinic=False):
     return PMEReciprocal(params, base_grid, spread_subset, device, triclinic)
+
+
+class ShardedPMEReciprocal:
+    """The reciprocal energy with the FFT distributed over the ranks of a
+    mesh in x-slabs: the counterpart of the JAX package's
+    ``make_pme_reciprocal_sharded`` (a ``shard_map`` body there; here each
+    rank of a ``torch.distributed`` group runs it). Per call:
+
+      1. the ranks' partial grids are reduce-scattered along x into x-slabs
+         (R, Kx/D, Ky, Kz), so no rank holds the summed full grid;
+      2. each rank takes the real FFT over z and the FFT over y of its slab;
+      3. an all-to-all transposes the mesh: y is split into D chunks, chunk
+         j goes to rank j, and the received x-slabs are concatenated along
+         x in rank order, which is global x order: (R, Kx, Ky/D, Kz/2 + 1);
+      4. the FFT over x, then the influence sum over this rank's y-slice of
+         the mode and Euler tables, and an all-reduce of the (R,) partial
+         energies.
+
+    ``energy(positions, charges, box)`` spreads this rank's atoms in the
+    int64 fixed point and reduce-scatters the integers
+    (``spread_grid_summed``), so the slabs are bit for bit those of the
+    summed one-rank spread; ``__call__(local_grid, box)`` takes a float
+    partial grid, as the JAX function does, and reduce-scatters floats.
+    Every rank gets the full energy: count it once (a 1/D weight on a
+    replicated term). Forces come from autograd through the collectives,
+    whose backwards are their adjoints (``core/collectives.py``). Complex
+    spectra cross the group as ``torch.view_as_real`` pairs. Orthorhombic
+    boxes only, as in the JAX package."""
+
+    def __init__(self, params: PMEParams, mesh, ndev: int):
+        import torch.distributed as dist
+
+        Kx, Ky, Kz = params.grid
+        if Kx % ndev or Ky % ndev:
+            raise ValueError(
+                f"PME grid ({Kx}, {Ky}, {Kz}) not divisible by mesh size {ndev} "
+                "along x and y; use the replicated-FFT path"
+            )
+        group = mesh.group
+        if dist.get_world_size(group) != ndev:
+            raise ValueError(f"ndev={ndev}, but the mesh has {dist.get_world_size(group)} ranks")
+        self.params, self.group, self.ndev = params, group, ndev
+        self.K = (Kx, Ky, Kz)
+        self.recip = PMEReciprocal(params, device=mesh.device)
+        rank = dist.get_rank(group)
+        self.sy = Ky // ndev
+        ys = slice(rank * self.sy, (rank + 1) * self.sy)
+        t = self.recip._np
+        self._np = dict(mx=t["mx"], my=t["my"][ys], mz=t["mz"], b2x=t["b2x"], b2y=t["b2y"][ys], b2z=t["b2z"])
+        self.device = self.recip.device
+        self._cache = {}
+
+    def _tables(self, dtype):
+        t = self._cache.get(dtype)
+        if t is None:
+            t = {k: torch.as_tensor(v, dtype=dtype, device=self.device) for k, v in self._np.items()}
+            b2 = t["b2x"][:, None, None] * t["b2y"][None, :, None] * t["b2z"][None, None, :]
+            t = self._cache[dtype] = dict(mx=t["mx"], my=t["my"], mz=t["mz"], b2=b2)
+        return t
+
+    def spread_slab(self, positions, charges, box):
+        """This rank's x-slab of the grid of every rank's atoms (fixed point)."""
+        return self.recip.spread_grid_summed(positions, charges, box, self.group, slab=True)
+
+    def energy_from_slab(self, slab, box):
+        """(R,) reciprocal energy from this rank's (R, Kx/D, Ky, Kz) slab."""
+        Kx, Ky, Kz = self.K
+        D, sy = self.ndev, self.sy
+        R, sx = slab.shape[:2]
+        box = replica_boxes(box, R)
+        f = torch.fft.fft(torch.fft.rfft(slab, dim=-1), dim=-2)  # (R, Sx, Ky, Kz/2 + 1)
+        kzh = f.shape[-1]
+        blocks = torch.view_as_real(f).reshape(R, sx, D, sy, kzh, 2).permute(2, 0, 1, 3, 4, 5)
+        got = all_to_all(blocks, self.group)  # block j: rank j's x-slab, this rank's y-chunk
+        f = torch.view_as_complex(got.permute(1, 0, 2, 3, 4, 5).reshape(R, Kx, sy, kzh, 2).contiguous())
+        f = torch.fft.fft(f, dim=-3)
+        e_part = _influence_energy(f.real**2 + f.imag**2, self._tables(box.dtype), box, self.params.alpha)
+        return all_reduce(e_part, self.group)
+
+    def energy(self, positions, charges, box):
+        """(R,) energy of every rank's atoms; ``positions`` (R, n, 3) and
+        ``charges`` (n,) are this rank's."""
+        box = replica_boxes(box, positions.shape[0])
+        return self.energy_from_slab(self.spread_slab(positions, charges, box), box)
+
+    def __call__(self, local_grid, box):
+        """(R,) energy of the sum of the ranks' (R, Kx, Ky, Kz) float grids."""
+        slab = reduce_scatter(local_grid.transpose(0, 1), self.group).transpose(0, 1)
+        return self.energy_from_slab(slab, box)
+
+
+def make_pme_reciprocal_sharded(params: PMEParams, mesh, ndev: int):
+    """The slab-FFT reciprocal over ``mesh`` (``parallel.mesh.ProcessMesh``:
+    its group and device) of ``ndev`` ranks; raises ``ValueError`` when Kx
+    or Ky does not divide by ``ndev``."""
+    return ShardedPMEReciprocal(params, mesh, ndev)
 
 
 def precompute_spread_grid(params: PMEParams, positions, charges, box):

@@ -26,6 +26,12 @@ columns ``col_mobile_sel`` refreshed from ``x[col_mobile_gid]``, and the
 excluded pairs of ``excl_mask`` (rows x columns) are skipped at build time
 instead of being computed and subtracted: their ~1e8 radial factors would
 otherwise leave float32 force error that the subtraction never sees.
+
+``row_block`` (lo, hi) keeps only rows ``lo:hi`` of the row list: one
+rank's block of the spatial force function (``parallel/spatial.py``). The
+weights keep the features' global ``in_rows``, so a pair of two rows on
+different ranks still weighs 0.5 on each; a block past the last row is
+inert (zero energy and forces).
 """
 
 from __future__ import annotations
@@ -68,11 +74,19 @@ class TiledPairSum:
         col_const_positions=None,
         col_mobile_sel=None,
         col_mobile_gid=None,
+        row_block=None,
         device=DEFAULT_DEVICE,
         name: str = "tiled",
     ):
         n, npad = feats.n_atoms, feats.n_padded
         nr, nr_pad = feats.n_rows, feats.n_rows_padded
+        row_idx = np.asarray(feats.row_idx, np.int64)
+        if row_block is not None:
+            lo, hi = row_block
+            row_idx = row_idx[:nr][lo:hi]
+            nr = len(row_idx)
+            nr_pad = ((nr + TILE - 1) // TILE) * TILE
+            row_idx = np.pad(row_idx, (0, nr_pad - nr))
         self.use_cutoff = method in CUTOFF_METHODS
         self.full_cols = col_idx is None
         if no_min_image and (self.full_cols or not self.use_cutoff):
@@ -90,7 +104,6 @@ class TiledPairSum:
         per_atom = dict(
             qs=feats.q_std, qa=feats.q_alch, sig=feats.sigma, eps=feats.epsilon, af=feats.alch, inr=feats.in_rows,
         )
-        row_idx = np.asarray(feats.row_idx, np.int64)
         for k, v in per_atom.items():
             c["r_" + k] = np.asarray(v, np.float64)[row_idx]
         c["row_idx"] = row_idx
@@ -129,6 +142,8 @@ class TiledPairSum:
         self.has_excl = excl_mask is not None
         if self.has_excl:
             em = np.asarray(excl_mask, bool)
+            if row_block is not None:
+                em = em[row_block[0] : row_block[1]]
             if em.shape[0] > nr_pad or em.shape[1] > ncpad:
                 raise ValueError(f"excl_mask {em.shape} exceeds ({nr_pad}, {ncpad})")
             full = np.zeros((nr_pad, ncpad), bool)
@@ -187,7 +202,7 @@ class TiledPairSum:
         c0 = c("c0", dt)
         rc2 = self.cutoff * self.cutoff
         e_tot = torch.zeros(R, dtype=dt, device=dev)
-        f_rows = []
+        f_rows = [torch.zeros((R, 0, 3), dtype=dt, device=dev)]
         for i0 in range(0, self.nr_pad, TILE):
             sl = slice(i0, i0 + TILE)
             xi = xr[:, sl]

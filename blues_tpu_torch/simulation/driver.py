@@ -64,7 +64,7 @@ ineligible (a barostat or neighbour lists make it so).
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -300,6 +300,9 @@ class BLUESSimulation:
         self.runner = None
         #: the move's aux at the end of the last iteration's protocol
         self.last_move_aux = None
+        #: (lo, hi, R): this rank's replicas lo:hi of R on a replica mesh
+        #: (``parallel.shard_simulation_state``), None when unsharded
+        self.replica_block = None
         self.source = None
         self.state = None
         self.accept_counter = 0
@@ -355,7 +358,11 @@ class BLUESSimulation:
         (3, 3) box to (R, 3, 3). Draws come from ``source``, else a
         ``torch.Generator`` seeded with ``seed`` on the simulation's
         device. A graphed simulation captures its iteration again at the
-        next iteration, reading the new source's generator."""
+        next iteration, reading the new source's generator. A sharded
+        simulation is unsharded again: all R replicas, on this rank."""
+        if self.replica_block is not None:
+            self.cfg = replace(self.cfg, n_replicas=self.replica_block[2])
+            self.replica_block = None
         self.source, self.state = initial_state(
             self.system, self.cfg, positions, box, seed, source, self.dtype, self.device, velocities
         )

@@ -165,7 +165,19 @@ Phases (each prints its own line; any failure exits non-zero):
      and on toluene in vacuum, 'pallas': every instance against its plain
      version at R = 1 and 8 with its time and bound, then each system's
      path (FIRE 100, one iteration of 20 + 20 steps, graphed), its K2
-     launches counted.
+     launches counted;
+ 23. parallel: blues_tpu_torch.parallel at world size 1 over nccl (one
+     card; NCCL puts no two ranks of a group on one device): the frozen
+     slice (K1) and the unfrozen box on 'pcells' (K3), R = 8, 50 + 50
+     steps, graphed, 2 and 1 iterations
+     unsharded and then sharded through shard_simulation_state and
+     make_sharded_iteration from the same state and seed, bit for bit equal
+     (decisions, log_accept, work, MD rollbacks, positions, generator), the
+     gathered stats (8,), the kernels launched in the sharded runs (joined
+     to the kernels line's counts); make_spatial_force_fn on the unfrozen
+     box (PME 0.9 nm, float32, lambda 1.0 and 0.35) with the replicated
+     and with the slab FFT against the single-device 'tiled' energy at the
+     kernels' tolerance, each call's time beside tiled's.
 
 After phase 2 and before phase 3's systems, with nothing else on the
 card, phase bench runs ``python -m blues_tpu_torch bench`` in a subprocess
@@ -285,6 +297,9 @@ NOCUT_STEPS = 20
 BENCH_TIMEOUT_S = 600
 #: the graphs phase: iterations of each mode, and the seed both start from
 GRAPH_ITER, GRAPH_SEED = 3, 2031
+#: the parallel phase: the seed of its runs, the iterations of its frozen
+#: (K1) and 'pcells' (K3) runs, and the spatial check's cutoff (nm)
+PAR_SEED, PAR_ITER_FROZEN, PAR_ITER_PCELLS, PAR_CUTOFF = 2033, 2, 1, 0.9
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -2560,6 +2575,124 @@ def run_nocutoff(device, card, every, n_atoms=N_ATOMS):
     return kres, launches
 
 
+def run_parallel(device, card, paths, unfrozen, xu_min, backend="nccl"):
+    """Phase parallel: ``blues_tpu_torch.parallel`` at world size 1 over
+    ``backend`` (nccl on the card; a CPU rehearsal passes gloo), the group
+    initialised from a file store in a temporary directory and destroyed at
+    the end of the phase.
+
+      * replicas: each path of ``paths`` ((label, sim, x0, counted, every,
+        n_iter): the frozen slice on 'sweep' (K1) and the unfrozen box on
+        'pcells' (K3), R = 8, 50 + 50 steps, graphed) runs n_iter
+        iterations from x0 and PAR_SEED unsharded, then again from the same
+        state and seed after ``shard_simulation_state``, through
+        ``make_sharded_iteration`` (its graphs captured again): decisions,
+        log_accept, work, MD rollbacks, positions and the generator must be
+        bit for bit equal (``agreement``), the gathered stats (R,) and
+        ``gather_state`` the rank's state, and the path's kernels launched
+        in the sharded run (every count 0 just before it, read just after);
+      * spatial: ``make_spatial_force_fn`` on the unfrozen box (PME at
+        PAR_CUTOFF nm, float32, lambda 1.0 and 0.35) with the replicated
+        FFT and with the slab FFT (at one rank every grid divides) against
+        the single-device 'tiled' energy at phase check's tolerance
+        (compare's, plus 4 eps_f32 times the Ewald self term and RAW_REL
+        times tiled's raw pair sum, which holds every excluded pair), each
+        call's time beside the tiled call's.
+
+    Returns {kernel instance or layout step: launches in the sharded runs}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from blues_tpu_torch.parallel import (
+        gather_state, make_replica_mesh, make_sharded_iteration, make_spatial_force_fn, shard_simulation_state,
+    )
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    kw = dict(device_id=device) if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'store')}", rank=0, world_size=1, **kw)
+    launches = {}
+    try:
+        mesh = make_replica_mesh()
+        phase("parallel", f"world size {mesh.size} over {backend!r}, rank {mesh.rank} on {mesh.device}")
+        for label, sim, x0, counted, every, n_iter in paths:
+            runs, t_it = {}, {}
+            for mode in ("unsharded", "sharded"):
+                sim.initialize(x0, seed=PAR_SEED)
+                step = sim.run_iteration
+                if mode == "sharded":
+                    shard_simulation_state(sim, mesh)
+                    sharded = make_sharded_iteration(sim, mesh)
+                    step = lambda: sharded()[0]  # noqa: E731
+                    zero_counts(every)
+                runs[mode] = []
+                for _ in range(n_iter):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    st = step()
+                    torch.cuda.synchronize()
+                    runs[mode].append((st, sim.state.positions.clone(), sim.source.generator.get_state(),
+                                       time.perf_counter() - t0))
+                t_it[mode] = [r[3] for r in runs[mode]]
+            n = read_counts(counted)
+            R = sim.replica_block[2]
+            shapes = {k: tuple(getattr(runs["sharded"][-1][0], k).shape) for k in st._fields}
+            gathered = same_bits(gather_state(sim, mesh).positions, sim.state.positions)
+            agree = agreement(runs["unsharded"], runs["sharded"])
+            said = ", ".join(f"{k} {v}" for k, v in agree.items() if k not in ("dx", "dw"))
+            phase(
+                "parallel",
+                f"{label}: R={R} on {card}, {n_iter} iterations of {sim.cfg.nstepsNC} + {sim.cfg.nstepsMD} steps "
+                f"({'graphed' if sim.graphs else 'eager'}), sharded over {mesh.size} rank vs unsharded from one "
+                f"state and seed: {said}; gathered stats {sorted(set(shapes.values()))}, gather_state equal: "
+                f"{gathered}; iteration wall time unsharded {', '.join(f'{t:.4f}' for t in t_it['unsharded'])} s, "
+                f"sharded {', '.join(f'{t:.4f}' for t in t_it['sharded'])} s (the first of each captures its "
+                f"graphs); launches in the sharded run {n}",
+            )
+            if not identical(agree):
+                raise RuntimeError(f"parallel {label}: the sharded run is not the unsharded one ({said})")
+            if set(shapes.values()) != {(R,)} or not gathered:
+                raise RuntimeError(f"parallel {label}: gathered stats {shapes}, gather_state equal {gathered}")
+            for k, v in n.items():
+                if v <= 0:
+                    raise RuntimeError(f"parallel {label}: kernel {k} was not launched on the sharded path")
+                launches[k] = launches.get(k, 0) + v
+
+        xs = torch.as_tensor(xu_min, dtype=torch.float32, device=device)
+        box = torch.as_tensor(np.asarray(unfrozen.box), dtype=torch.float32, device=device)
+        kw = dict(nonbonded_method="PME", cutoff=PAR_CUTOFF)
+        tiled = make_energy_fn(unfrozen, nonbonded_backend="tiled", device=device, **kw)
+        ref = make_force_fn(tiled)
+        ref_ms = time_ms(lambda: ref(xs[None], box, None), 3)
+        e_self = _e_self(tiled, unfrozen)
+        for slab in (False, True):
+            sp = make_spatial_force_fn(unfrozen, mesh, distributed_fft=slab, **kw)
+            fft = "slab" if slab else "replicated"
+            if sp.distributed_fft != slab:
+                raise RuntimeError(f"parallel: the spatial function took distributed_fft={sp.distributed_fft}")
+            for lam in (1.0, 0.35):
+                g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+                e, f = sp(xs, box, g)
+                e_raw, f_raw = raw_magnitudes(tiled, xs[None], box, g)
+                compare(f"spatial ({fft} FFT, {sp.rows_per_device} rows per rank) vs tiled, lambda {lam}",
+                        e[None], f[None], *ref(xs[None], box, g), name="parallel",
+                        e_extra=4.0 * float(np.finfo(np.float32).eps) * e_self + RAW_REL * e_raw,
+                        f_extra=RAW_REL * f_raw)
+            ms = time_ms(lambda: sp(xs, box, None), 3)
+            phase("parallel", f"spatial {fft} FFT: {unfrozen.n_atoms} atoms, PME {PAR_CUTOFF} nm, float32, "
+                  f"{ms:.2f} ms per energy + forces call vs single-device tiled {ref_ms:.2f} ms on {card}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase("parallel", f"{time.perf_counter() - t_phase:.1f} s; K1/K3 launches joined to the kernels line: {launches}")
+    return launches
+
+
 def bench_keys():
     """The keys of the port's bench record: the JAX package's bench.py's
     (read as text: importing it would import JAX), less its
@@ -2719,7 +2852,7 @@ def run_gb(device, card, every, n_atoms=N_ATOMS):
 
 
 def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
-    """Phases 3-22 on ``device`` (main() builds the kernels first); returns
+    """Phases 3-23 on ``device`` (main() builds the kernels first); returns
     the kernels' JSON entries."""
     import numpy as np
     import torch
@@ -2887,6 +3020,14 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     run_gb(device, card, every, n_atoms)
     # K2's no-cutoff mode (the droplet and toluene in vacuum)
     nocut, nocut_launches = run_nocutoff(device, card, every, n_atoms)
+    # blues_tpu_torch.parallel at world size 1: sharded replicas (K1, K3)
+    # and the spatial force function
+    par_launches = run_parallel(
+        device, card,
+        [("frozen", sim, xf_min, sweep_sums, every, PAR_ITER_FROZEN),
+         ("pcells", sim_c, xu_min, cells_sums, every, PAR_ITER_PCELLS)],
+        unfrozen, xu_min,
+    )
 
     launches = {k: v.pop("launches") for k, v in exact.items()}
     launches.update(nocut_launches)
@@ -2894,6 +3035,8 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     kres.update(nocut)
     for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):
         launches.update(r["launches"])
+    for k, n in par_launches.items():
+        launches[k] = launches.get(k, 0) + n
     kernels = [
         {
             "name": k,

@@ -22,7 +22,11 @@ prmtop on the card, its energies against the CPU's. The graphed iteration
 (CUDA graphs) against the eager one on a frozen 'sweep' box and an
 unfrozen 'pcells' box at R = 2, and two eager runs from one state and
 generator, bit for bit; K2 in its no-cutoff mode against its plain
-version; and a capture refusing a host sync.
+version; and a capture refusing a host sync. The parallel package at world
+size 1 over ``nccl``: the spatial force function on both FFT paths
+against the single-device 'tiled' energy, a sharded R = 4 graphed
+iteration bit for bit equal to the unsharded one, and the refusals of a
+CUDA tensor on a ``gloo`` group and a CPU tensor on an ``nccl`` group.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -478,7 +482,7 @@ GRAPH_CASES = {
 }
 
 
-def _graph_sim(case, graphs, move_cls=None, dev=None):
+def _graph_sim(case, graphs, move_cls=None, dev=None, replicas=2):
     """A toluene + TIP3P box from the port's builders: 8,001 atoms frozen
     outside 0.4 nm of the ligand on 'sweep' (K1 with culled columns,
     compact) or 1,202 unfrozen on 'pcells' (K3),
@@ -501,7 +505,7 @@ def _graph_sim(case, graphs, move_cls=None, dev=None):
             warnings.simplefilter("ignore")
             system = system.freeze_radius(np.asarray(x), li, 0.4, solvent_resnames=())
     cfg = SimulationConfig(
-        nstepsNC=10, nstepsMD=10, md_report_interval=5, dt=0.002, nonbonded_method="PME", n_replicas=2,
+        nstepsNC=10, nstepsMD=10, md_report_interval=5, dt=0.002, nonbonded_method="PME", n_replicas=replicas,
         ewald_tolerance=5e-4, **kw,
     )
     move = (move_cls or RandomLigandRotationMove)(li, system.masses)
@@ -617,3 +621,109 @@ def test_graph_capture_refuses_a_host_sync_on_the_card():
     with pytest.raises(GraphCaptureError):
         sim.run_iteration()
     assert torch.equal(sim.state.positions, x0) and torch.equal(sim.source.generator.get_state(), gen0)
+
+
+# --- parallel: world size 1 over nccl (blues_tpu_torch.parallel) ----------
+
+
+@pytest.fixture
+def group_of_one(tmp_path):
+    """init(backend) -> a one-rank process group on a file store, destroyed
+    after the test."""
+    import itertools
+
+    import torch.distributed as dist
+
+    stores = itertools.count()
+
+    def init(backend):
+        kw = dict(device_id=torch.device("cuda", 0)) if backend == "nccl" else {}
+        store = tmp_path / f"store{next(stores)}"
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=0, world_size=1, **kw)
+
+    try:
+        yield init
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("fft", ["replicated", "slab"])
+def test_spatial_on_the_card_matches_tiled(fft, group_of_one):
+    """At one rank the spatial function (its row block all the rows, the
+    fixed-point spread summed over one rank) equals the single-device
+    'tiled' energy within the kernels' tolerance, on both FFT paths."""
+    from blues_tpu_torch.core.build import solvated_ligand_box
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+    from blues_tpu_torch.parallel import make_replica_mesh, make_spatial_force_fn
+    from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
+
+    dev = _cuda()
+    group_of_one("nccl")
+    mesh = make_replica_mesh(axis_name="atoms")
+    lig, lig_x = toluene_system()
+    system, x = solvated_ligand_box(lig, lig_x, 2000, seed=3)
+    system = system.replace(alchemical=AlchemicalRegion(atoms=system.topology.select_resname("LIG")))
+    kw = dict(nonbonded_method="PME", cutoff=0.9)
+    sp = make_spatial_force_fn(system, mesh, distributed_fft=fft == "slab", **kw)
+    assert sp.distributed_fft == (fft == "slab") and mesh.device == dev
+    ref = make_force_fn(make_energy_fn(system, nonbonded_backend="tiled", device=dev, **kw))
+    xt = torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+    box = torch.as_tensor(np.asarray(system.box), dtype=torch.float32, device=dev)
+    for lam in (1.0, 0.35):
+        g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
+        e, f = sp(xt, box, g)
+        e0, f0 = ref(xt[None], box, g)
+        _assert_close(e[None], f[None], e0, f0)
+
+
+def test_sharded_iteration_on_the_card_is_the_unsharded_one(group_of_one):
+    """R = 4 graphed on the frozen 'sweep' box, two iterations, then the
+    same from the same state and seed sharded over one nccl rank: every
+    stat (gathered, (4,)), the positions and the generator bit for bit;
+    the graphs captured again after sharding."""
+    from blues_tpu_torch.parallel import gather_state, make_replica_mesh, make_sharded_iteration, shard_simulation_state
+
+    dev = _cuda()
+    group_of_one("nccl")
+    mesh = make_replica_mesh()
+    sim, x = _graph_sim("frozen", None, dev=dev, replicas=4)
+    runs = []
+    for sharded in (False, True):
+        sim.initialize(x, seed=9)
+        step = sim.run_iteration
+        if sharded:
+            shard_simulation_state(sim, mesh)
+            assert sim.runner is None
+            step = lambda: make_sharded_iteration(sim, mesh)()[0]  # noqa: E731
+        runs.append([(step(), sim.state.positions.clone(), sim.source.generator.get_state()) for _ in range(2)])
+    assert sim.graphs and sim.runner is not None
+    for (a, xa, ga), (b, xb, gb) in zip(*runs):
+        for k in a._fields:
+            assert tuple(getattr(b, k).shape) == (4,), k
+            assert _same_bits(getattr(a, k), getattr(b, k)), k
+        assert _same_bits(xa, xb) and torch.equal(ga, gb)
+    assert _same_bits(gather_state(sim, mesh).positions, runs[0][-1][1])
+
+
+def test_collectives_refuse_the_other_device(group_of_one):
+    """A gloo group takes no CUDA device or tensor, an nccl group no CPU
+    tensor: nothing is staged through the host."""
+    import torch.distributed as dist
+
+    from blues_tpu_torch.core.collectives import all_reduce
+    from blues_tpu_torch.parallel import make_replica_mesh
+
+    dev = _cuda()
+    group_of_one("gloo")
+    with pytest.raises(ValueError, match="gloo"):
+        make_replica_mesh(device=dev)
+    with pytest.raises(ValueError, match="gloo"):
+        all_reduce(torch.ones(2, device=dev))
+    dist.destroy_process_group()
+    group_of_one("nccl")
+    with pytest.raises(ValueError, match="nccl"):
+        all_reduce(torch.ones(2))
+    with pytest.raises(ValueError, match="nccl"):
+        make_replica_mesh(device="cpu")
