@@ -91,6 +91,17 @@ class MonteCarloBarostat:
         self.n_movable = int(movable.sum())
         self.device = dev = resolve_device(device)
         self._mol_id = torch.as_tensor(mol_id.astype(np.int64), device=dev)
+        # the molecules grouped by size: per size s, the (molecules,) ids and
+        # their (molecules, s) atoms, so that a centre of mass is a dense sum
+        # over each molecule's atoms in a fixed order (no float atomics)
+        sizes = np.bincount(mol_id, minlength=n_mol)
+        by_mol = np.argsort(mol_id, kind="stable")
+        first = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        self._groups = []
+        for size in np.unique(sizes):
+            mols = np.flatnonzero(sizes == size)
+            atoms = by_mol[first[mols][:, None] + np.arange(size)]
+            self._groups.append((torch.as_tensor(mols, device=dev), torch.as_tensor(atoms, device=dev)))
         self._np = dict(masses=masses, mol_mass=np.maximum(mol_mass, 1e-30), movable=movable.astype(np.float64))
         self._cache = {}
 
@@ -103,11 +114,14 @@ class MonteCarloBarostat:
     def init_state(self, box) -> BarostatState:
         """The proposal size at ``INITIAL_SCALE_FRACTION`` of replica 0's
         volume for every replica of the (R, 3, 3) ``box``; no attempt
-        counted yet."""
+        counted yet. Computed on the box's device (no host read): the
+        volume in the box's dtype, scaled in float64, as the JAX package
+        scales its host float."""
         R = box.shape[0]
-        v0 = float(np.prod(np.diagonal(box[0].cpu().numpy())))
+        L = box_lengths(box[0])
+        v0 = (L[0] * L[1] * L[2]).double()
         return BarostatState(
-            volume_scale=torch.full((R,), INITIAL_SCALE_FRACTION * v0, dtype=torch.float32, device=box.device),
+            volume_scale=(INITIAL_SCALE_FRACTION * v0).to(torch.float32).expand(R).clone(),
             n_attempted=torch.zeros(R, dtype=torch.int32, device=box.device),
             n_accepted=torch.zeros(R, dtype=torch.int32, device=box.device),
         )
@@ -124,7 +138,10 @@ class MonteCarloBarostat:
 
         # scale the movable molecules' centres of mass; internal geometry fixed
         mol_id = self._mol_id
-        com_sum = x.new_zeros((R, self.n_mol, 3)).index_add_(1, mol_id, x * self._t("masses", dt)[:, None])
+        xm = x * self._t("masses", dt)[:, None]
+        com_sum = x.new_empty((R, self.n_mol, 3))
+        for mols, atoms in self._groups:
+            com_sum.index_copy_(1, mols, xm[:, atoms].sum(2))
         com = com_sum / self._t("mol_mass", dt)[:, None]
         shift = (s - 1.0)[:, None, None] * com * self._t("movable", dt)[:, None]
         x_new = x + shift.index_select(1, mol_id)

@@ -21,10 +21,18 @@ not a Pallas kernel):
     cells a side, the home cell and 13 of them, each pair once, forces to
     both sides), cells taken a chunk at a time; with >= 3 cells a side the
     minimum image is a static lattice shift per (cell, neighbour), else the
-    rounded minimum image; the pair term is evaluated on the slots whose
-    pair counts (distinct atoms inside the cutoff), gathered per chunk;
-  * a replica's E and F are poisoned to NaN when one of its bins overflows
-    or its box has shrunk below the grid.
+    rounded minimum image; no shape depends on the data: the slots whose
+    pair counts (distinct atoms inside the cutoff) are compacted, in slot
+    order, into a fixed number of pair places per row slot
+    (``pair_cap``), the pair term runs on those, and its results go back
+    to their slots, every other slot holding zero (the JAX package's
+    masked sum, without computing the term on the slots it masks);
+  * every sum runs in a fixed order, with no float atomics: row forces
+    and energies are dense sums over the slot axis, the half
+    neighbourhood's reaction forces a dense sum over the neighbour axis,
+    and each slot's result goes back to its atom one to one;
+  * a replica's E and F are poisoned to NaN when one of its bins or a
+    chunk's pair places overflow, or its box has shrunk below the grid.
 
 The cell chunk is a constructor argument with JAX's default of 54 cells;
 each call takes fewer when R replicas of that many would exceed the
@@ -41,8 +49,8 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from .features import Consts, PairFeatures
 from .geometry import replica_boxes
 from .pairs import lam_scalar, pair_energy_force
-from .sweep import PLAIN_CHUNK_ELEMS, PairSumFunction
-from .triclinic import is_triclinic, rows_times
+from .sweep import PairSumFunction, plain_step
+from .triclinic import inverse3, is_triclinic, rows_times
 
 #: cells per step of the cell loop, the JAX package's default
 CELL_CHUNK = 54
@@ -171,6 +179,14 @@ class CellListPairSum:
         self.cap_col = _round8(mean_all + 5.0 * np.sqrt(mean_all) + 8.0)
         self.cap_row = min(self.cap_col, _round8(nr)) if nr < n else self.cap_col
         self.n_nbr = 14 if self.half else 27
+        # pair places per row slot: the pairs inside the cutoff of a row at
+        # the densest a bin allows (cap_col atoms a cell of the build box,
+        # five standard deviations over the mean); three quarters of that
+        # where each pair is visited once (a row near its cell's low corner
+        # sees more than half its sphere in the forward cells)
+        dense = self.cap_col * nc_tot / abs(np.linalg.det(B0))
+        per_row = dense * 4.0 / 3.0 * np.pi * float(cutoff) ** 3 * (0.75 if self.half else 1.0)
+        self.pair_cap = min(self.n_nbr * self.cap_col, _round8(per_row))
         self.use_shifts = bool(ncells.min() >= 3)
         self.grid, self.n_cells = tuple(int(v) for v in ncells), nc_tot
         self.n_atoms, self.n_rows, self.cell_chunk = n, nr, int(cell_chunk)
@@ -195,31 +211,47 @@ class CellListPairSum:
         )
         c["ghost"] = np.concatenate([np.full(3, 1e3), np.zeros(self.C - 4), [float(n)]])
         c["self_block"] = np.arange(self.n_nbr * self.cap_col) < self.cap_col
+        if self.half:
+            # nbr_inv[t, k]: the home cell whose neighbour k is cell t
+            inv = np.empty_like(table)
+            inv[table, np.arange(self.n_nbr)[None, :]] = np.arange(nc_tot)[:, None]
+            c["nbr_inv"] = inv
+            c["k_of"] = np.arange(self.n_nbr)[None, :]
         self.capacities = (self.cap_row, self.cap_col)
         self.shape_info = dict(
             grid=self.grid, n_cells=nc_tot, cap_row=self.cap_row, cap_col=self.cap_col, n_atoms=n, n_rows=nr,
             half=self.half, mean_occupancy=mean_all, pair_slots=nc_tot * self.cap_row * self.n_nbr * self.cap_col,
+            pair_places=nc_tot * self.cap_row * self.pair_cap,
         )
 
     def _pack(self, entries, cid, capacity, chan):
         """A ghost-initialised (R, n_cells + 1, capacity, C) buffer holding
-        the channel rows of ``entries`` ((m,) atom ids, cells ``cid`` (R, m))
-        and the (R,) overflow flags."""
+        the channel rows of ``entries`` ((m,) atom ids, cells ``cid`` (R, m)),
+        the (R,) overflow flags, and ``bin_entries``' (order, flat slot)
+        that place a slot's result back on its entry."""
         R = chan.shape[0]
         order, flat, over = bin_entries(cid, self.n_cells, capacity)
         buf = self.c("ghost", chan.dtype).repeat(R, (self.n_cells + 1) * capacity, 1)
         vals = chan.index_select(1, entries) if entries is not None else chan
         vals = vals.gather(1, order[..., None].expand(-1, -1, self.C))
         buf.scatter_(1, flat[..., None].expand(-1, -1, self.C), vals)
-        return buf.view(R, self.n_cells + 1, capacity, self.C), over
+        return buf.view(R, self.n_cells + 1, capacity, self.C), over, (order, flat)
+
+    @staticmethod
+    def _unpack(slots, placement):
+        """(R, m, k) per entry from (R, n_cells + 1, capacity, k) per slot:
+        a gather through each entry's slot, then a scatter through the
+        sort's permutation, both one to one."""
+        order, flat = placement
+        R, k = slots.shape[0], slots.shape[-1]
+        vals = slots.reshape(R, -1, k).gather(1, flat[..., None].expand(-1, -1, k))
+        return torch.zeros_like(vals).scatter_(1, order[..., None].expand(-1, -1, k), vals)
 
     def chunk_cells(self, n_replicas, device):
         """Cells per step of this call: the constructor's chunk, cut so that
         the step's (R, cells, row slots, column slots) block stays within
         the plain sums' element budget."""
-        per_cell = n_replicas * self.cap_row * self.n_nbr * self.cap_col
-        budget = PLAIN_CHUNK_ELEMS[device.type == "cuda"]
-        return max(1, min(self.cell_chunk, budget // per_cell))
+        return plain_step(n_replicas * self.cap_row * self.n_nbr * self.cap_col, self.cell_chunk, device)
 
     @torch.no_grad()
     def __call__(self, x, box, lam_s, f_na, f_aa):
@@ -235,7 +267,7 @@ class CellListPairSum:
             # the cell moves by an ulp); in float32 an excluded bonded
             # pair's steep force then changes by hundreds of kJ/mol/nm, which
             # the exclusion subtraction (on the raw x) never sees
-            u = rows_times(x, torch.linalg.inv(box_r))
+            u = rows_times(x, inverse3(box_r))
             n_img = torch.floor(u)
             frac = u - n_img
             xw = x - rows_times(n_img, box_r)
@@ -246,14 +278,14 @@ class CellListPairSum:
         ci = torch.minimum(torch.clamp(torch.floor(frac * ncf).long(), min=0), c("nmax"))
         cid = (ci * c("strides")).sum(-1)
         chan = torch.cat([xw if self.use_shifts else x, c("static", dt).expand(R, -1, -1)], 2)
-        cols_buf, over_c = self._pack(None, cid, self.cap_col, chan)
+        cols_buf, over_c, place_c = self._pack(None, cid, self.cap_col, chan)
         if self.n_rows == n:
-            rows_buf, over_r = cols_buf, over_c
+            rows_buf, over_r, place_r = cols_buf, over_c, place_c
         else:
             ri = c("row_idx")
-            rows_buf, over_r = self._pack(ri, cid.index_select(1, ri), self.cap_row, chan)
+            rows_buf, over_r, place_r = self._pack(ri, cid.index_select(1, ri), self.cap_row, chan)
         if self.triclinic:
-            inv = torch.linalg.inv(box_r)
+            inv = inverse3(box_r)
             widths = 1.0 / torch.sqrt((inv * inv).sum(-2))
         else:
             widths = L
@@ -262,10 +294,17 @@ class CellListPairSum:
         K, cap, rc2 = self.n_nbr, self.cap_col, self.cutoff * self.cutoff
         rcap = rows_buf.shape[2]
         nbr, shifts = c("nbr"), c("shifts", dt)
-        # per atom: the force and (in column 3) the energy of its row pairs,
-        # summed over atoms at the end
-        acc = torch.zeros((R * (n + 1), 4), dtype=dt, device=dev)
+        zero = torch.zeros((), dtype=dt, device=dev)
+        # every sum runs in a fixed order (no float atomics): per row slot
+        # its force and (in column 3) its energy; with the half
+        # neighbourhood, per (home cell, neighbour, column slot) the
+        # reaction force, summed over the neighbours after the loop
+        row_acc = torch.zeros((R, self.n_cells + 1, rcap, 4), dtype=dt, device=dev)
+        if self.half:
+            col_acc = torch.zeros((R, self.n_cells, K, cap, 3), dtype=dt, device=dev)
         step = self.chunk_cells(R, dev)
+        places = torch.arange(1, self.pair_cap + 1, device=dev)
+        over_p = torch.zeros(R, dtype=torch.bool, device=dev)
         for c0 in range(0, self.n_cells, step):
             c1 = min(c0 + step, self.n_cells)
             B = c1 - c0
@@ -288,34 +327,55 @@ class CellListPairSum:
             valid = (gid_i != gid_j) & (gid_i < n) & (gid_j < n) & (r2 < rc2)
             if self.half:
                 valid = valid & (~c("self_block") | (gid_i < gid_j))
-            # the pair term only where a pair counts (the JAX package masks
-            # it afterwards; the sums are the same)
-            r_, b_, i_, j_ = valid.nonzero(as_tuple=True)
-            ri, cj = rows[r_, b_, i_], cols[r_, b_, j_]  # (P, C)
-            drv = dr[r_, b_, i_, j_]
-            ai, aj = ri[:, 7], cj[:, 7]
+            # each row's counted slots, in order, into its pair_cap places:
+            # place p holds the column slot where the row's running count
+            # reaches p + 1 (K * cap where it never does)
+            KC, Q = K * cap, self.pair_cap
+            count = valid.cumsum(-1)  # (R, B, rcap, K * cap)
+            over_p = over_p | (count[..., -1] > Q).flatten(1).any(1)
+            j = torch.searchsorted(count, places.expand(R, B, rcap, Q).contiguous())
+            live = j < KC
+            j = torch.clamp(j, max=KC - 1)
+            # channels 3-8: q_std, q_alch, sigma, epsilon, alch flag, in_rows
+            fi = rows[:, :, :, None, 3:9]
+            fj = cols[:, :, None, :, 3:9].expand(-1, -1, rcap, -1, -1)
+            fj = fj.gather(3, j[..., None].expand(-1, -1, -1, -1, 6))
+            drp = dr.gather(3, j[..., None].expand(-1, -1, -1, -1, 3))  # (R, B, rcap, Q, 3)
+            ai, aj = fi[..., 4], fj[..., 4]
             aa = ai * aj
             e, g = pair_energy_force(
-                torch.clamp(r2[r_, b_, i_, j_], min=1e-6),
-                0.5 * (ri[:, 5] + cj[:, 5]),
-                torch.sqrt(ri[:, 6] * cj[:, 6]),
-                ri[:, 3] * cj[:, 3],
-                ri[:, 3] * cj[:, 4] + ri[:, 4] * cj[:, 3],
-                ri[:, 4] * cj[:, 4],
+                torch.clamp(r2.gather(3, j), min=1e-6),
+                0.5 * (fi[..., 2] + fj[..., 2]),
+                torch.sqrt(fi[..., 3] * fj[..., 3]),
+                fi[..., 0] * fj[..., 0],
+                fi[..., 0] * fj[..., 1] + fi[..., 1] * fj[..., 0],
+                fi[..., 1] * fj[..., 1],
                 ai + aj - 2.0 * aa + self.ann * aa,
                 lam_sterics=lam_s, f_na=f_na, f_aa=f_aa, **self.pair_kw,
             )
-            fpair = g[:, None] * drv
+            e = torch.where(live, e, zero)
+            g = torch.where(live, g, zero)
             if self.half:  # every pair once: full energy, forces to both sides
-                ew = e
-                acc[:, :3].index_add_(0, r_ * (n + 1) + cj[:, 9].long(), fpair)
+                # g back on its slot (a counted slot reads its place, one to
+                # one), the reactions summed over the rows
+                g_slot = torch.where(valid, g.gather(3, torch.clamp(count - 1, 0, Q - 1)), zero)
+                col_acc[:, c0:c1] = (g_slot[..., None] * dr).sum(2).view(R, B, K, cap, 3)
             else:  # both-sides visit: row-row pairs weigh 0.5, row-frozen 1.0
-                ew = (1.0 - 0.5 * ri[:, 8] * cj[:, 8]) * e
-            acc.index_add_(0, r_ * (n + 1) + ri[:, 9].long(), torch.cat([-fpair, ew[:, None]], 1))
+                e = (1.0 - 0.5 * fi[..., 5] * fj[..., 5]) * e
+            row_acc[:, c0:c1] = torch.cat([-(g[..., None] * drp).sum(3), e.sum(3)[..., None]], -1)
+        if self.half:
+            # each cell is neighbour k of exactly one home cell (the grid has
+            # >= 3 cells a side): its reaction forces, summed over k in order
+            cols_f = col_acc[:, c("nbr_inv"), c("k_of")].sum(2)  # (R, n_cells, cap, 3)
+            row_acc[:, : self.n_cells, :, :3] += cols_f
+        per_row = self._unpack(row_acc, place_r)  # (R, rows, 4)
+        if self.n_rows == n:
+            f = per_row[..., :3]
+        else:
+            f = torch.zeros((R, n, 3), dtype=dt, device=dev).index_copy_(1, c("row_idx"), per_row[..., :3])
         # poison both outputs: the MD driver reads only forces
-        nan = torch.where(invalid, float("nan"), 0.0).to(dt)
-        acc = acc.view(R, n + 1, 4)
-        return acc[..., 3].sum(1) + nan, acc[:, :n, :3] + nan[:, None, None]
+        nan = torch.where(invalid | over_p, float("nan"), 0.0).to(dt)
+        return per_row[..., 3].sum(1) + nan, f + nan[:, None, None]
 
     def energy(self, x, box, lam_s, f_na, f_aa):
         """(R,) energy, differentiable in ``x`` through the analytic forces."""

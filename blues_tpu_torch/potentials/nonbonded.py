@@ -561,6 +561,19 @@ class NonbondedEnergy(_NonbondedBase):
             return VerletPairSum(feats, box0=box0, name=f"verlet_{role}", **common)
         return TiledPairSum(feats, col_idx=col_idx, name=f"tiled_{role}", **tiled_kw, **common)
 
+    def half_neighborhood_sum(self):
+        """The every-atom 'cells' pair sum over the main term's features with
+        the half neighbourhood (each pair once, forces to both sides): a
+        constructor option of ``CellListPairSum``, as of the JAX package's
+        ``make_cell_pair_sum``, not of the configuration. Raises where it
+        does not engage (another backend, frozen rows, a grid below 3 cells
+        a side)."""
+        feats = build_pair_features(self._charges, self._sigmas, self._epsilons, self._is_alch)
+        ps = CellListPairSum(feats, box0=self.box0, half_neighborhood=True, name="celllist_half", **self.common)
+        if self.backend != "cells" or not ps.half:
+            raise ValueError(f"no half neighbourhood on backend {self.backend!r} with grid {ps.grid}")
+        return ps
+
     def _zeroed_e0_features(self, rows0):
         """E0's features for the cell lists, which have no static column
         subset: the alchemical atoms' charge and epsilon are zeroed, so
@@ -1133,7 +1146,10 @@ class DenseNonbondedEnergy(_NonbondedBase):
         i = c(prefix + "_i")
         if not len(i):
             return 0.0
-        dr = x.index_select(1, i) - x.index_select(1, c(prefix + "_j"))
+        # indexed, not index_select: the gradient of an index is a sorted,
+        # ordered accumulation on CUDA, where index_select's is float
+        # atomics, whose order (and last bits) vary between runs
+        dr = x[:, i] - x[:, c(prefix + "_j")]
         if self.periodic and box is not None:
             dr = periodic_displacement(dr, box)
         r2 = torch.clamp((dr * dr).sum(-1), min=1e-12)

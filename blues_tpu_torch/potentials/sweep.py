@@ -66,6 +66,15 @@ F_QSTD, F_QALCH, F_SIG, F_EPS, F_ALCH, F_INROWS, F_GID, F_VALID = range(8)
 #: pair elements per step of the plain version, by (on CUDA?): bounds its
 #: temporaries (a few tens of them per element)
 PLAIN_CHUNK_ELEMS = {False: 1 << 21, True: 1 << 25}
+
+
+def plain_step(per_item, most, device):
+    """Items (rows, cells) per step of a plain sum on ``device``: at most
+    ``most``, and no more than fit the element budget at ``per_item``
+    elements each, but at least one."""
+    return max(1, min(most, PLAIN_CHUNK_ELEMS[device.type == "cuda"] // per_item))
+
+
 _METHOD_CODE = {"PME": 0, "CutoffPeriodic": 1, "CutoffNonPeriodic": 1, "NoCutoff": 2}
 
 

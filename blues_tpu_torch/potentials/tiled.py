@@ -2,9 +2,11 @@
 
 Port of ``blues_tpu.potentials.tiled.make_tiled_pair_sum``, the JAX
 package's XLA pair backend and the correctness reference of its kernels:
-a loop over row tiles of ``TILE`` rows computes (R, TILE, columns) blocks
-with the shared per-pair formulas (``pairs.py``), and the analytic row
-forces in the same pass. ``energy`` exposes the sum to autograd through
+a loop over row tiles of ``TILE`` rows (fewer where R replicas would
+exceed the plain sums' element budget) computes (R, rows, columns) blocks
+with the shared per-pair formulas (``pairs.py``) on every slot, masked to
+the pairs that count as in the JAX package, and the analytic row forces
+in the same pass, as dense sums in a fixed order. ``energy`` exposes the sum to autograd through
 ``PairSumFunction`` (backward -F * grad_out), so E and F cost one pass, as
 JAX's custom VJP does. Plain PyTorch tensor ops on any device: in the JAX
 package this is XLA code, not a Pallas kernel.
@@ -43,7 +45,7 @@ from ..core.device import DEFAULT_DEVICE, resolve_device
 from .features import Consts, PairFeatures
 from .geometry import box_lengths, replica_boxes
 from .pairs import lam_scalar, pair_energy_force
-from .sweep import PairSumFunction
+from .sweep import PairSumFunction, plain_step
 
 TILE = 256
 CUTOFF_METHODS = ("PME", "CutoffPeriodic", "CutoffNonPeriodic")
@@ -202,9 +204,11 @@ class TiledPairSum:
         c0 = c("c0", dt)
         rc2 = self.cutoff * self.cutoff
         e_tot = torch.zeros(R, dtype=dt, device=dev)
+        zero = torch.zeros((), dtype=dt, device=dev)
         f_rows = [torch.zeros((R, 0, 3), dtype=dt, device=dev)]
-        for i0 in range(0, self.nr_pad, TILE):
-            sl = slice(i0, i0 + TILE)
+        step = self.rows_per_step(R, xpc.shape[1], dev)
+        for i0 in range(0, self.nr_pad, step):
+            sl = slice(i0, i0 + step)
             xi = xr[:, sl]
             dr = xi[:, :, None, :] - xpc[:, None, :, :]
             if bl is not None:
@@ -215,35 +219,32 @@ class TiledPairSum:
                 valid = valid & ~c("excl")[sl]
             if self.use_cutoff:
                 valid = valid & (r2 < rc2)
-            else:
-                valid = valid.expand(R, -1, -1)
+            # the pair term on every slot, masked afterwards (the JAX
+            # package's form: the shapes do not depend on the data)
+            e, g = self._pairs(torch.clamp(r2, min=1e-6), sl, slice(None), lam)
+            e = torch.where(valid, e, zero)
+            g = torch.where(valid, g, zero)
             if self.no_min_image:
-                e, g = self._pairs(torch.clamp(r2, min=1e-6), sl, slice(None), lam)
-                zero = torch.zeros((), dtype=dt, device=dev)
-                e = torch.where(valid, e, zero)
-                g = torch.where(valid, g, zero)
                 # f_i = -sum_j g_ij (x_i - x_j) as two contractions,
                 # recentred at c0 against float32 cancellation
                 f_i = -((xi - c0) * g.sum(2, keepdim=True) - torch.matmul(g, xpc - c0))
-                w = 1.0 - 0.5 * c("r_inr", dt)[sl, None] * c("c_inr", dt)[None, :]
-                e_tot = e_tot + (w * e).sum((1, 2))
             else:
-                # the pair term only where a pair counts (the JAX package
-                # masks it afterwards; the sums are the same)
-                r_, i_, j_ = valid.nonzero(as_tuple=True)
-                e, g = self._pairs(torch.clamp(r2[r_, i_, j_], min=1e-6), i_ + i0, j_, lam)
-                w = 1.0 - 0.5 * c("r_inr", dt)[i_ + i0] * c("c_inr", dt)[j_]
-                # forces and energy summed per row first, then over rows
-                acc = torch.zeros(xi.shape[:2] + (4,), dtype=dt, device=dev).index_put_(
-                    (r_, i_), torch.cat([-g[:, None] * dr[r_, i_, j_], (w * e)[:, None]], 1), accumulate=True
-                )
-                f_i = acc[..., :3]
-                e_tot = e_tot + acc[..., 3].sum(1)
+                f_i = -(g[..., None] * dr).sum(2)
+            w = 1.0 - 0.5 * c("r_inr", dt)[sl, None] * c("c_inr", dt)[None, :]
+            e_tot = e_tot + (w * e).sum((1, 2))
             f_rows.append(f_i)
-        f_rows = torch.cat(f_rows, 1) * c("row_live", dt)[None, :, None]
-        npad = xp.shape[1]
-        f = torch.zeros((R, npad, 3), dtype=dt, device=dev).index_add_(1, c("row_idx"), f_rows)
+        # each live row to its atom, one to one (no float atomics)
+        live = c("row_idx")[: self.n_rows]
+        f = torch.zeros((R, xp.shape[1], 3), dtype=dt, device=dev)
+        f = f.index_copy_(1, live, torch.cat(f_rows, 1)[:, : self.n_rows])
         return e_tot, f[:, :n]
+
+    def rows_per_step(self, n_replicas, n_cols, device):
+        """Rows per step of the tile loop: the most, up to ``TILE``, whose
+        (R, rows, columns) block fits the plain sums' element budget, cut to
+        a power of two so that it divides the padded row count."""
+        step = plain_step(n_replicas * n_cols, TILE, device)
+        return 1 << (step.bit_length() - 1)
 
     def energy(self, x, box, lam_s, f_na, f_aa):
         """(R,) energy, differentiable in ``x`` through the analytic forces."""

@@ -60,10 +60,26 @@ def rows_times(x, m):
     return (x[..., :, None] * m[:, None].to(x.dtype)).sum(-2)
 
 
+def inverse3(m):
+    """(..., 3, 3) inverses by cofactors, elementwise: ``torch.linalg.inv``
+    checks for a singular matrix on the host, which a CUDA graph cannot
+    hold."""
+    a = [[m[..., i, j] for j in range(3)] for i in range(3)]
+
+    def cof(i, j):
+        r, c = [k for k in range(3) if k != i], [k for k in range(3) if k != j]
+        return a[r[0]][c[0]] * a[r[1]][c[1]] - a[r[0]][c[1]] * a[r[1]][c[0]]
+
+    det = a[0][0] * cof(0, 0) - a[0][1] * cof(0, 1) + a[0][2] * cof(0, 2)
+    # inv[i, j] = (-1)^(i+j) cofactor(j, i) / det
+    rows = [torch.stack([(-1.0) ** (i + j) * cof(j, i) for j in range(3)], -1) for i in range(3)]
+    return torch.stack(rows, -2) / det[..., None, None]
+
+
 def fractional_coords(x, box):
     """(R, n, 3) positions -> fractional coordinates u in [0, 1) of each
     replica's lower-triangular box: x = u @ H, so u = x @ inv(H)."""
-    u = rows_times(x, torch.linalg.inv(box.to(x.dtype)))
+    u = rows_times(x, inverse3(box.to(x.dtype)))
     return u - torch.floor(u)
 
 
@@ -73,7 +89,7 @@ def reciprocal_m2(mx, my, mz, box):
     the aliased integer modes along each axis; ``box`` is (R, 3, 3). Returns
     (R, Kx, Ky, Kz[h]). The plane wave exp(2 pi i m.u) with u = x @ inv(H)
     has wavevector k_e = sum_d inv[e, d] m_d."""
-    inv = torch.linalg.inv(box)  # (R, 3, 3)
+    inv = inverse3(box)  # (R, 3, 3)
     m2 = 0.0
     for e in range(3):
         k = (

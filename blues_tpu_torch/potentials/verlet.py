@@ -37,7 +37,7 @@ from .cells import _grid_shape, _neighbor_table, bin_entries
 from .features import Consts, PairFeatures
 from .geometry import replica_boxes
 from .pairs import lam_scalar, pair_energy_force
-from .sweep import PLAIN_CHUNK_ELEMS, PairSumFunction
+from .sweep import PairSumFunction, plain_step
 from .tiled import CUTOFF_METHODS
 
 #: rows per build/apply step (the JAX package's), cut further so a step
@@ -123,8 +123,7 @@ class VerletPairSum:
         )
 
     def _rows_per_step(self, n_replicas, width, device):
-        budget = PLAIN_CHUNK_ELEMS[device.type == "cuda"]
-        return max(1, min(ROW_CHUNK, budget // (n_replicas * width)))
+        return plain_step(n_replicas * width, ROW_CHUNK, device)
 
     @torch.no_grad()
     def build(self, x, box) -> NeighborList:

@@ -40,20 +40,24 @@ Acceptance (reference semantics):
 With the 'verlet' backend the MD energy carries neighbour-list hooks
 (``potentials/energy.py``): MD rebuilds the list every
 ``nlist_rebuild_interval`` steps of each chunk (a remainder segment gets its
-own build) and applies it in between, as the JAX driver does;
-``nlist_builds`` counts the builds. NCMC keeps the stateless pair sum.
+own build) and applies it in between, as the JAX driver's ``seg`` scan
+does; ``nlist_builds`` counts the builds. NCMC keeps the stateless pair
+sum.
 
 The iteration is a sequence of phases over a carry of tensors (``_phases``:
 the NCMC prologue with E_md(x0), the protocol's micro-step and midpoint
 move, the epilogue with the correction, the Metropolis test and the MD
-start, the MD step, the MD end). The JAX package jits the whole iteration;
-here, on the card, ``simulation/graphs.py`` captures each phase into a
-CUDA graph at the first iteration and replays them (``graphs=None``, the
-default, wherever ``eager_reason`` finds nothing that keeps the iteration
-eager: a barostat, neighbour lists, the backends with data-dependent
-shapes, generalized Born). ``graphs=False`` runs the same phases one op at
-a time, the protocol as a whole through ``protocol_fn``; ``graphs=True``
-raises where the configuration stays eager. A capture that fails raises.
+start, the MD step, the neighbour-list build with the step after it
+('md_build'), the barostat's volume move ('baro'), the MD end). The
+carry holds the state, the box, the barostat state and the neighbour list.
+The JAX package jits the whole iteration; here, on the card,
+``simulation/graphs.py`` captures each phase into a CUDA graph at the first
+iteration and replays them (``graphs=None``, the default, wherever
+``eager_reason`` finds nothing that keeps the iteration eager: only a
+``MolDartMove`` with fit atoms, whose SVD copies through the host).
+``graphs=False`` runs the same phases one op at a time, the protocol as a
+whole through ``protocol_fn``; ``graphs=True`` raises where the
+configuration stays eager. A capture that fails raises.
 
 Configurations outside the port (segmented dispatch, ``use_pallas``) raise
 ``ValueError``, and so do the JAX driver's own refusals: pressure with
@@ -86,11 +90,6 @@ from ..potentials.energy import make_energy_fn, make_force_fn
 from .compact import build_mobile_compaction
 
 logger = logging.getLogger("blues_tpu_torch.simulation")
-
-#: backends whose pair sums call ``nonzero`` (data-dependent shapes): their
-#: iterations run eagerly
-EAGER_BACKENDS = ("cells", "tiled", "verlet")
-
 
 @dataclass
 class SimulationConfig:
@@ -269,7 +268,7 @@ class BLUESSimulation:
             else None
         )
         #: the barostat's per-replica state (proposal size, counters), kept
-        #: across iterations; set at the first iteration
+        #: across iterations; made by ``initialize``
         self.barostat_state = None
 
         #: neighbour-list builds of the MD segments (the 'verlet' backend)
@@ -372,7 +371,7 @@ class BLUESSimulation:
                 "pass graphs=False to draw from another source"
             )
         self._build_dynamics()
-        self.barostat_state = None
+        self.barostat_state = self._barostat.init_state(self.state.box) if self._barostat is not None else None
         self.runner = None
         return self.state
 
@@ -395,18 +394,8 @@ class BLUESSimulation:
     def eager_reason(self):
         """Why this configuration's iteration runs eagerly, or None when it
         is one that ``graphs`` captures."""
-        if self._barostat is not None:
-            return "the barostat's MD chunks (pressure)"
-        if self._has_nlist:
-            return "the 'verlet' backend's neighbour-list MD"
         if self.move is not None and not self.move.graphable:
             return "a move whose proposal copies through the host (MolDartMove with fit atoms: its SVD)"
-        for efn in (self.energy_md, self.energy_alch):
-            nb = getattr(efn, "nonbonded", None)
-            if nb is not None and nb.backend in EAGER_BACKENDS:
-                return f"backend {nb.backend!r}, whose nonzero calls give data-dependent shapes"
-            if getattr(efn, "gb", None) is not None:
-                return "generalized Born"
         return None
 
     def run_iteration(self) -> IterationStats:
@@ -431,15 +420,22 @@ class BLUESSimulation:
             if self.runner is None:
                 self.runner = self._capture()
             c = self.runner.carry
-            for k, t in zip(("x", "v", "box"), self.state):
-                c[k].copy_(t)
+            self.runner.load(self._carry_in())
             snaps = self._ncmc_graphed(c)
         else:
-            c = dict(zip(("x", "v", "box"), self.state))
+            c = self._carry_in()
             snaps = self._ncmc_eager(c)
         md_frames = self._md(c)
         self._run_phase("md_end", c)
         return self._finish(c, snaps, md_frames)
+
+    def _carry_in(self):
+        """What an iteration starts from: the state, and the barostat state
+        under pressure."""
+        c = dict(zip(("x", "v", "box"), self.state))
+        if self._barostat is not None:
+            c["bstate"] = self.barostat_state
+        return c
 
     def _run_phase(self, name, c):
         """Run phase ``name`` on the carry ``c``: replay its graph, or call
@@ -452,13 +448,18 @@ class BLUESSimulation:
     def _phases(self):
         """{name: phase(carry) -> outputs} of the iteration: 'begin', the
         protocol's 'micro' and 'move', 'end' (graphed); 'accept' (eager,
-        after the whole protocol); 'md', 'baro' (eager) and 'md_end'."""
+        after the whole protocol); 'md', 'md_build' (neighbour lists),
+        'baro' (a barostat) and 'md_end'."""
         out = dict(
             begin=self._ph_begin, micro=self._protocol.micro, end=self._ph_end, accept=self._ph_accept,
-            md=self._ph_md, baro=self._ph_baro, md_end=self._ph_md_end,
+            md=self._ph_md, md_end=self._ph_md_end,
         )
         if self._protocol.move is not None:
             out["move"] = self._protocol.apply_move
+        if self._has_nlist:
+            out["md_build"] = self._ph_md_build
+        if self._barostat is not None:
+            out["baro"] = self._ph_baro
         return out
 
     def _ncmc_eager(self, c):
@@ -529,17 +530,24 @@ class BLUESSimulation:
             correction=correction, log_accept=log_accept,
         )
         if self._barostat is not None:
-            if self.barostat_state is None:
-                self.barostat_state = self._barostat.init_state(box)
-            out["bstate"] = out["bstate_keep"] = self.barostat_state
+            out["bstate_keep"] = c["bstate"]
         return out
 
     def _ph_md(self, c):
-        """One MD step of the dynamics state (with the current neighbour
+        """One MD step of the dynamics state (with the carry's neighbour
         list on the 'verlet' backend)."""
-        step = self._md_step_d if self._md_nlist_step is None else self._md_nlist_step
+        if self._md_nlist_step is None:
+            step = self._md_step_d
+        else:
+            self._nlist, step = c["nlist"], self._md_nlist_step
         xd, vd, fd, _ = step(c["xd"], c["vd"], c["fd"], c["box"])
         return dict(xd=xd, vd=vd, fd=fd)
+
+    def _ph_md_build(self, c):
+        """A neighbour list built at the dynamics state, then one MD step
+        with it (the 'verlet' backend)."""
+        nlist = self.energy_md.nlist_build(c["xd"], c["box"])
+        return dict(self._ph_md({**c, "nlist": nlist}), nlist=nlist)
 
     def _ph_baro(self, c):
         """One Monte Carlo volume move per replica and the forces after it
@@ -597,9 +605,10 @@ class BLUESSimulation:
         def steps(k):
             for s in range(k):
                 if self._md_nlist_step is not None and s % every == 0:
-                    self._nlist = self.energy_md.nlist_build(c["xd"], c["box"])
+                    self._run_phase("md_build", c)
                     self.nlist_builds += 1
-                self._run_phase("md", c)
+                else:
+                    self._run_phase("md", c)
 
         for j in range(n_chunks):
             steps(chunk)
@@ -623,7 +632,7 @@ class BLUESSimulation:
             snap_x = self._put(full, snap_x.reshape(R * K, *snap_x.shape[2:])).reshape(R, K, *x.shape[1:])
         self.state = SimState(keep(c["x_out"]), keep(c["v_out"]), keep(c["box"]))
         if self._barostat is not None:
-            self.barostat_state = c["bstate"]
+            self.barostat_state = tree_map(keep, c["bstate"])
         self.iteration_count += 1
         aux = self.last_move_aux = tree_map(lambda t: keep(t) if torch.is_tensor(t) else t, c["aux"])
         if isinstance(aux, dict) and "selected" in aux:
@@ -661,14 +670,14 @@ class BLUESSimulation:
         from .graphs import GraphRunner
 
         phases = self._phases()
-        names = ["begin", "micro", "end", "md", "md_end"] + (["move"] if "move" in phases else [])
+        opt = lambda name: [name] if name in phases else []  # noqa: E731
+        names = ["begin", "micro", "end", "md", "md_end"] + opt("move") + opt("md_build") + opt("baro")
         runner = GraphRunner(
             {k: phases[k] for k in names}, self.device, generators=[self.source.generator],
             counted=self.kernel_counters(),
         )
-        x, v, box = self.state
-        warm = ["begin", "micro", "micro"] + (["move"] if "move" in phases else []) + ["end", "md", "md", "md_end"]
-        runner.capture(dict(x=x, v=v, box=box), warm)
+        warm = ["begin", "micro", "micro"] + opt("move") + ["end"] + opt("md_build") + ["md", "md"] + opt("baro")
+        runner.capture(self._carry_in(), warm + ["md_end"])
         return runner
 
     def run(self, n_iter: Optional[int] = None, reporters=()):

@@ -10,7 +10,8 @@ an iteration is a few graph launches per step in place of thousands of
 kernel launches.
 
 A phase is a function carry -> outputs over a dict of tensors (nested
-lists and dicts of tensors, or None, for a move's aux). The runner holds
+lists, dicts and named tuples of tensors, or None: a move's aux, the
+barostat state, a neighbour list). The runner holds
 one static carry: every tensor any phase reads or writes, allocated
 outside the graphs' pool. A captured phase reads the static carry and
 copies its outputs back into it, so a replay leaves its results where the
@@ -57,6 +58,8 @@ SYNCS = {
 }
 #: factories that copy host data into a tensor
 FACTORIES = {torch.tensor, torch.as_tensor, torch.from_numpy}
+#: indexing that reads a boolean mask's true entries on the host
+MASK_INDEXING = {torch.Tensor.__getitem__, torch.Tensor.__setitem__, torch.Tensor.index_put_, torch.index_put}
 
 
 class GraphCaptureError(RuntimeError):
@@ -81,6 +84,10 @@ class HostSyncGuard(TorchFunctionMode):
             )
             if func in FACTORIES and args and not isinstance(args[0], torch.Tensor):
                 bad = True
+            if func in MASK_INDEXING and len(args) > 1 and any(
+                isinstance(t, torch.Tensor) and t.dtype == torch.bool for t in tree_flatten(args[1])[0]
+            ):
+                bad = True  # a boolean mask index is a nonzero
             if func is torch.Tensor.to or func is torch.Tensor.copy_:
                 src = args[0] if func is torch.Tensor.to else args[1]
                 dst = args[0].device if func is torch.Tensor.copy_ else _to_device(args, kwargs)
@@ -205,7 +212,7 @@ class GraphRunner:
         if cuda:
             stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._on(stream):
-            c = {k: v.clone() for k, v in carry.items()}
+            c = {k: tree_map(_clone, v) for k, v in carry.items()}
             for name in warmup:
                 c.update(self.phases[name](c))
             self.carry = {k: tree_map(_clone, v) for k, v in c.items()}
@@ -264,11 +271,16 @@ class GraphRunner:
         self.launches[name] = {k: v - counts.get(k, 0) for k, v in after.items() if v != counts.get(k, 0)}
         _set_counts(self.counted, counts)
         self._restore_generators(gen_state)
-        for k, v in saved.items():
-            for dst, src in zip(_leaves(carry[k]), _leaves(v)):
-                dst.copy_(src)
+        self.load(saved)
         self.graphs[name] = graph
         self.replays[name] = 0
+
+    def load(self, values):
+        """Copy ``values`` ({key: a tensor, or lists, dicts and named tuples
+        of them}) into the static carry."""
+        for k, v in values.items():
+            for dst, src in zip(_leaves(self.carry[k]), _leaves(v)):
+                dst.copy_(src)
 
     def _write(self, out):
         """Copy a phase's outputs into the static carry; an output that

@@ -79,6 +79,9 @@ Phases (each prints its own line; any failure exits non-zero):
      was not rolled back, the boxes stay finite, orthorhombic and inside
      the K3 grid's validity, a volume move is accepted, at least two
      replicas end on different boxes, no non-finite work is accepted;
+     graphed ('baro' captured); after phase check, eager against graphed
+     (``ab_path``, one iteration each way from one state: boxes and barostat
+     state bit for bit too);
  12. mc: MonteCarloSimulation on the same box ('pcells', a rotation), R = 8,
      5 proposals per iteration, nstepsMD = 50, 2 iterations: (5, R) stats,
      a finite MD potential, a finite dPE wherever a proposal was accepted;
@@ -118,8 +121,11 @@ Phases (each prints its own line; any failure exits non-zero):
      raw-anchored tolerance; each one's ms per call, peak memory and pair
      slots visited beside K3's; 'auto' resolving to 'pcells' (K3, the
      card's fastest; JAX's TPU branch takes 'cells') and running graphed
-     with one iteration of 10 + 10 steps, and 'verlet' with one iteration of 10 +
-     20 steps that must rebuild its MD list 4 times (every 5 steps);
+     with one iteration of 10 + 10 steps; then each of 'verlet' (10 + 20
+     steps rebuilding its MD list every 5 steps, each a replay of
+     'md_build': 4 builds an iteration), 'cells', the half-neighbourhood
+     cell list and 'tiled' (4 + 4 steps) eager against graphed
+     (``ab_path``, one iteration each way);
  17. tiled_frozen: 'tiled' on the frozen slice (culled columns, and the
      no-minimum-image fast path where it engages) against K1, composed,
      at lambda 1, 0.5 and 0;
@@ -132,7 +138,8 @@ Phases (each prints its own line; any failure exits non-zero):
      (PME 0.8 nm): 'cells' against 'dense' on the card (float64) and
      against the CPU (float32) at lambda 1 and 0.4; the full-width box sheared (molecules moved
      rigidly): 'auto' and 'pcells' resolve to 'cells', and after 100 FIRE
-     steps one iteration of 10 + 10 steps ends finite;
+     steps one iteration of 10 + 10 steps eager against graphed
+     (``ab_path``) ends finite;
  20. cli: the YAML entry point on the main path. The 22,341-atom box is
      written as an Amber prmtop and inpcrd (tests/_torch_amber.py) with a
      JSON config equal to examples/rotmove.yml but for the main path's
@@ -154,12 +161,15 @@ Phases (each prints its own line; any failure exits non-zero):
      main's;
  21. gb: generalized Born on a 2,541-atom droplet (toluene and its 842
      nearest waters, mbondi2 radii), OBC2 with 0.1 M salt, NoCutoff, HBonds,
-     dt 2 fs, R = 8, FIRE 100 and 2 iterations of 50 + 50 steps through
-     ``create_simulation``: work as phase 20's (an overlap blows a
-     protocol up to a non-finite, rejected work), no lambda split; the GB term on
+     dt 2 fs, R = 8, on the default route ('auto' -> 'dense'), FIRE 100 and
+     2 iterations of 50 + 50 steps through ``create_simulation``, graphed:
+     work as phase 20's (an overlap blows a protocol up to a non-finite,
+     rejected work), no lambda split; the GB term on
      the card against the CPU in float64 (HCT, OBC1, OBC2 at lambda_e 1,
      0.5, 0), float32 against float64, and its time, launches and peak
-     memory per energy + forces call at R = 8;
+     memory per energy + forces call at R = 8; then eager against graphed
+     (``ab_path``); then FIRE 100 and 2 graphed iterations with the
+     nonbonded term on 'pallas' (K2's no-cutoff mode), K2 launched;
  22. nocutoff: K2 in its no-cutoff mode (NoCutoff: every pair, no minimum
      image, no prune) on the droplet's nonbonded term (2,541 atoms, no GB)
      and on toluene in vacuum, 'pallas': every instance against its plain
@@ -186,16 +196,15 @@ R = 64 run, finite unfrozen eval times, and K1, K2 and K3 launched; its
 line is printed before the kernels' line.
 
 The iteration runs graphed (CUDA graphs, simulation/graphs.py) on every
-path whose configuration allows it (5-10, 14, the dense phase's vacuum run,
-18, 20) and eagerly on the others (11-12, the plain backends, the
-triclinic box, 21); each path fails when a captured configuration ran
-eagerly. Each path (5-12, the three runs of phase 18 and phase 20's run) must
+path but phase 12's MonteCarloSimulation (its own loop); each path fails
+when a captured configuration ran eagerly. Each path (5-12, the three runs
+of phase 18, phase 20's run and phase 21) must
 launch its kernels: every count is set to 0 just before the path and read
 just after, a graph's replays counted as the launches they make. Phases
-14-17, 19 and 21 have no kernel of their own: the ethylene system has no
-NonbondedParams, and the dense, tiled, cells and verlet paths and
-generalized Born are plain tensor ops, as they are XLA code in the JAX
-package. Then the card's name and
+14-17 and 19 have no kernel of their own: the ethylene system has no
+NonbondedParams, and the dense, tiled, cells and verlet paths are plain
+tensor ops, as they are XLA code in the JAX package; generalized Born is
+plain tensor ops beside K2. Then the card's name and
 power limit, one JSON line of kernel results, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -296,7 +305,9 @@ NOCUT_STEPS = 20
 #: the bench phase's time limit for ``python -m blues_tpu_torch bench`` (s)
 BENCH_TIMEOUT_S = 600
 #: the graphs phase: iterations of each mode, and the seed both start from
-GRAPH_ITER, GRAPH_SEED = 3, 2031
+#: (the eager / graphed A/B of the npt, gb, backends and triclinic phases:
+#: one iteration each way, 'tiled' of TILED_AB_STEPS + TILED_AB_STEPS steps)
+GRAPH_ITER, GRAPH_SEED, TILED_AB_STEPS = 2, 2031, 2
 #: the parallel phase: the seed of its runs, the iterations of its frozen
 #: (K1) and 'pcells' (K3) runs, and the spatial check's cutoff (nm)
 PAR_SEED, PAR_ITER_FROZEN, PAR_ITER_PCELLS, PAR_CUTOFF = 2033, 2, 1, 0.9
@@ -316,8 +327,13 @@ PAIR_FLOPS = 90
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
+#: the script's start on the host clock: every phase line carries the
+#: seconds since it
+T_START = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name}] (t {time.perf_counter() - T_START:.1f} s) {msg}", flush=True)
 
 
 def card_line():
@@ -1390,19 +1406,28 @@ def agreement(runs_a, runs_b):
     """Two runs' iterations from the same starts ((state, generator) per
     iteration), compared per iteration bit for bit: {what: [equal per
     iteration]} for the decisions, log_accept, the protocol work, MD
-    rollbacks, the end positions and the generator state, with the max
-    |dx| (nm) and |dW| (kJ/mol, where both finite) beside them."""
+    rollbacks, the end positions and the generator state, and (where a
+    run entry carries them) the boxes and the barostat state, with the max
+    |dx| (nm) and |dW| (kJ/mol, where both finite) beside them. A run
+    entry is (stats, positions, generator state, seconds[, box, barostat
+    state or None])."""
     import numpy as np
     import torch
 
-    out = {k: [] for k in ("decisions", "log_accept", "work", "md_failed", "positions", "generator", "dx", "dw")}
-    for (sa, xa, ga, _), (sb, xb, gb, _) in zip(runs_a, runs_b):
+    keys = ("decisions", "log_accept", "work", "md_failed", "positions", "generator", "dx", "dw")
+    out = {k: [] for k in keys}
+    for ra, rb in zip(runs_a, runs_b):
+        (sa, xa, ga, _), (sb, xb, gb, _) = ra[:4], rb[:4]
         out["decisions"].append(same_bits(sa.accepted, sb.accepted))
         out["log_accept"].append(same_bits(sa.log_accept, sb.log_accept))
         out["work"].append(same_bits(sa.protocol_work, sb.protocol_work))
         out["md_failed"].append(same_bits(sa.md_failed, sb.md_failed))
         out["positions"].append(same_bits(xa, xb))
         out["generator"].append(same_bits(ga, gb))
+        if len(ra) > 4:
+            out.setdefault("boxes", []).append(same_bits(ra[4], rb[4]))
+            if ra[5] is not None:
+                out.setdefault("barostat", []).append(all(same_bits(a, b) for a, b in zip(ra[5], rb[5])))
         d = (xa.double() - xb.double()).abs()
         out["dx"].append(float(d[torch.isfinite(d)].max()) if bool(torch.isfinite(d).any()) else float("nan"))
         wa, wb = sa.protocol_work.double().cpu().numpy(), sb.protocol_work.double().cpu().numpy()
@@ -1416,123 +1441,150 @@ def identical(agree):
     return all(all(v) for k, v in agree.items() if k not in ("dx", "dw"))
 
 
-def run_graphs(card, paths):
-    """Phase graphs: each path of ``paths`` ((label, sim, x0, counted,
-    every): the frozen slice and the unfrozen 'pcells' box, R = 8, 50 + 50
-    steps) runs GRAPH_ITER iterations eagerly (``sim.graphs`` False) from x0
-    and one seed; then eagerly again and graphed, each iteration from the
-    state and the generator state the first eager run had before it (so
-    that the card's run-to-run spread does not compound over iterations).
-    The second eager run and the graphed run must each equal the first
-    bit for bit (``agreement``): decisions, log_accept, protocol work, MD
-    rollbacks, positions and the generator, every iteration (the port's
-    sums are deterministic on the card: no float atomics). Prints each
-    mode's iteration time (host clock, synchronised per iteration),
-    aggregate switching steps/s, micro-step and MD step (CUDA events around
-    each phase, iterations 2 on: the first graphed one captures), the
-    capture's time and memory, the launches of the path's kernels, and one
-    more graphed iteration under torch.profiler: its cudaGraphLaunch
-    calls, the cudaLaunchKernel calls outside the graphs, its kernel time
-    and device busy time (the union of the kernels' intervals) beside the
-    unprofiled graphed iteration's wall time, and which of K1, K2, K3 ran."""
-    import numpy as np
+def profile_iteration(sim):
+    """One more iteration of ``sim`` under torch.profiler: {wall s, its
+    cudaGraphLaunch and cudaLaunchKernel calls, kernels, kernel ms, device
+    busy ms (the union of the kernels' intervals: a graph's independent
+    kernels may overlap), K1/K2/K3 launches seen}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.run_iteration()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    kern = [ev for ev in avg if ev.device_type == DeviceType.CUDA]
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return dict(
+        wall=wall,
+        graph_launches=sum(ev.count for ev in avg if ev.key == "cudaGraphLaunch"),
+        kernel_launches=sum(ev.count for ev in avg if ev.key.startswith("cudaLaunchKernel")),
+        kernels=sum(ev.count for ev in kern),
+        kernel_ms=sum(ev.device_time_total for ev in kern) / 1e3,
+        busy_ms=union / 1e3,
+        seen={k: sum(ev.count for ev in kern if n in ev.key) for k, n in (
+            ("K1", "sweep_rows_kernel"), ("K2", "pair_kernel"), ("K3", "cells_kernel"))},
+    )
+
+
+def ab_path(card, where, label, sim, x0, counted, every, n_iter=1, again=False):
+    """Eager against graphed on one path, in one process from one state:
+    ``sim`` runs n_iter iterations eagerly (``sim.graphs`` False) from x0
+    and one seed, then (with ``again``) eagerly once more, then graphed,
+    each iteration from the state, box, barostat state and generator state
+    the first eager run had before it (so that the card's run-to-run
+    spread does not compound over iterations). The graphed run, and the
+    second eager one, must equal the first bit for bit (``agreement``):
+    decisions, log_accept, protocol work, MD rollbacks, positions, boxes,
+    barostat state and generator, every iteration (no reduction on these
+    paths is order-dependent: no float atomics). A configuration that
+    ``BLUESSimulation`` captures must run graphed (``graph_line``). Prints each
+    mode's iteration time (host clock, synchronised per iteration),
+    switching steps/s, micro-step, MD step and barostat attempt (CUDA
+    events around each phase, from iteration 2 when there are two), the
+    capture's time and memory, the launches of the path's kernels counted
+    by the runner, and one more graphed iteration under
+    torch.profiler (``profile_iteration``): its cudaGraphLaunch calls and
+    the device's busy share of the unprofiled graphed iteration. With one
+    iteration, the graphed iteration's time is its wall time less its
+    capture. Returns the graphed run's (launches, stats)."""
+    import numpy as np
+    import torch
+
     from blues_tpu_torch.core.state import SimState
 
     ncmc_names = ("protocol",) + NCMC_PHASES
-    out = {}
-    for label, sim, x0, counted, every in paths:
-        res, starts = {}, []
-        for mode in ("eager", "eager again", "graphed"):
-            sim.graphs = mode == "graphed"
-            zero_counts(every)
-            sim.initialize(x0, seed=GRAPH_SEED)
-            log, restore = phase_clock(sim)
-            runs = []
-            for it in range(GRAPH_ITER):
-                if mode == "eager":
-                    starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()))
-                else:
-                    sim.state = starts[it][0]
-                    sim.source.generator.set_state(starts[it][1])
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                st = sim.run_iteration()
-                torch.cuda.synchronize()
-                runs.append((st, sim.state.positions.clone(), sim.source.generator.get_state(),
-                             time.perf_counter() - t0))
-                if it == 0:
-                    log.clear()
-            restore()
-            ms = {}
-            for name, a, b in log:
-                ms.setdefault(name, []).append(a.elapsed_time(b))
-            ncmc = sum(sum(v) for k, v in ms.items() if k in ncmc_names) / (GRAPH_ITER - 1)
-            res[mode] = dict(
-                runs=runs, t_it=[r[3] for r in runs], launches=read_counts(counted),
-                micro_ms=ncmc / sim.schedule.n_micro, md_ms=float(np.mean(ms.get("md", [float("nan")]))),
-                sps=sim.cfg.n_replicas * sim.schedule.n_micro / (ncmc / 1e3),
-                line=graph_line(sim, f"graphs {label}") if sim.graphs else "eager (graphs=False)",
-            )
-        eager = res["eager"]["runs"]
-        again = agreement(eager, res["eager again"]["runs"])
-        graphed = agreement(eager, res["graphed"]["runs"])
-        t_graphed = float(np.mean(res["graphed"]["t_it"][1:]))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sim.run_iteration()
+    res, starts = {}, []
+    for mode in ("eager",) + (("eager again",) if again else ()) + ("graphed",):
+        sim.graphs = mode == "graphed"
+        zero_counts(every)
+        sim.initialize(x0, seed=GRAPH_SEED)
+        log, restore = phase_clock(sim)
+        runs = []
+        for it in range(n_iter):
+            if mode == "eager":
+                bs = None if sim.barostat_state is None else tuple(t.clone() for t in sim.barostat_state)
+                starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state(), bs))
+            else:
+                sim.state = starts[it][0]
+                sim.source.generator.set_state(starts[it][1])
+                if starts[it][2] is not None:
+                    sim.barostat_state = type(sim.barostat_state)(*starts[it][2])
             torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        avg = prof.key_averages()
-        graph_launches = sum(ev.count for ev in avg if ev.key == "cudaGraphLaunch")
-        kernel_launches = sum(ev.count for ev in avg if ev.key.startswith("cudaLaunchKernel"))
-        kern = [ev for ev in avg if ev.device_type == DeviceType.CUDA]
-        busy = sum(ev.device_time_total for ev in kern) / 1e3
-        # a graph's independent kernels may overlap: the busy time is the
-        # union of the kernels' intervals, not the sum of their times
-        spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                       if ev.device_type == DeviceType.CUDA)
-        union, end = 0.0, float("-inf")
-        for a, b in spans:
-            union += max(0.0, b - max(a, end))
-            end = max(end, b)
-        union /= 1e3
-        present = {k: sum(ev.count for ev in kern if n in ev.key) for k, n in (
-            ("K1", "sweep_rows_kernel"), ("K2", "pair_kernel"), ("K3", "cells_kernel"))}
-        for mode in ("eager", "graphed"):
-            r = res[mode]
-            phase(
-                "graphs",
-                f"{label} {mode} on {card}: R={sim.cfg.n_replicas}, {GRAPH_ITER} iterations of "
-                f"{sim.cfg.nstepsNC} + {sim.cfg.nstepsMD} steps, iteration wall time "
-                f"{', '.join(f'{t:.4f}' for t in r['t_it'])} s (synchronised per iteration), switching steps/s "
-                f"{r['sps']:.1f}, NCMC micro-step {r['micro_ms']:.4f} ms, MD step {r['md_ms']:.4f} ms (CUDA events "
-                f"around each phase, iterations 2-{GRAPH_ITER}); launches {r['launches']}; {r['line']}",
-            )
-        fmt = lambda v: ['%.3e' % u for u in v]  # noqa: E731
-        said = lambda a: ", ".join(f"{k} {v}" for k, v in a.items() if k not in ("dx", "dw"))  # noqa: E731
-        phase(
-            "graphs",
-            f"{label}: each iteration from the first eager run's start, bit for bit; eager again vs eager: "
-            f"{said(again)}, max |dx| {fmt(again['dx'])} nm, |dW| {fmt(again['dw'])} kJ/mol; graphed vs eager: "
-            f"{said(graphed)}, max |dx| {fmt(graphed['dx'])} nm, |dW| {fmt(graphed['dw'])} kJ/mol; steady iteration "
-            f"{np.mean(res['eager']['t_it'][1:]):.4f} s eager vs {t_graphed:.4f} s graphed; one more graphed "
-            f"iteration under torch.profiler (wall {wall:.4f} s there): {graph_launches} cudaGraphLaunch and "
-            f"{kernel_launches} cudaLaunchKernel calls, kernel time {busy:.1f} ms in {sum(ev.count for ev in kern)} "
-            f"kernels, device busy (union of the kernels' intervals) {union:.1f} ms = "
-            f"{100 * union / (1e3 * t_graphed):.1f} % of the unprofiled graphed iteration; kernel launches seen "
-            f"{present}",
+            t0 = time.perf_counter()
+            st = sim.run_iteration()
+            torch.cuda.synchronize()
+            bs = None if sim.barostat_state is None else tuple(t.clone() for t in sim.barostat_state)
+            runs.append((st, sim.state.positions.clone(), sim.source.generator.get_state(),
+                         time.perf_counter() - t0, sim.state.box.clone(), bs))
+            if it == 0 and n_iter > 1:
+                log.clear()
+        restore()
+        ms = {}
+        for name, a, b in log:
+            ms.setdefault(name, []).append(a.elapsed_time(b))
+        n_timed = max(n_iter - 1, 1)
+        ncmc = sum(sum(v) for k, v in ms.items() if k in ncmc_names) / n_timed
+        md = ms.get("md", []) + ms.get("md_build", [])
+        res[mode] = dict(
+            runs=runs, t_it=[r[3] for r in runs], launches=read_counts(counted),
+            micro_ms=ncmc / sim.schedule.n_micro, md_ms=float(np.mean(md)) if md else float("nan"),
+            baro_ms=float(np.mean(ms["baro"])) if "baro" in ms else None,
+            sps=sim.cfg.n_replicas * sim.schedule.n_micro / (ncmc / 1e3),
+            line=graph_line(sim, f"{where} {label}") if sim.graphs else "eager (graphs=False)",
         )
-        if not (identical(again) and identical(graphed)):
-            raise RuntimeError(f"graphs {label}: the runs are not bit for bit equal (eager again: {said(again)}; "
-                               f"graphed: {said(graphed)})")
-        sim.graphs = True
-        out[label] = dict(eager=res["eager"]["t_it"], graphed=res["graphed"]["t_it"], busy=union / (1e3 * t_graphed))
-    return out
+    eager = res["eager"]["runs"]
+    capture_s = sim.runner.capture_s
+    again_agree = agreement(eager, res["eager again"]["runs"]) if again else None
+    graphed = agreement(eager, res["graphed"]["runs"])
+    # one iteration: the graphed one less its capture
+    t_graphed = float(np.mean(res["graphed"]["t_it"][1:])) if n_iter > 1 else res["graphed"]["t_it"][0] - capture_s
+    t_eager = float(np.mean(res["eager"]["t_it"][1:] or res["eager"]["t_it"]))
+    prof = profile_iteration(sim)
+    for mode in res:
+        r = res[mode]
+        baro = "" if r["baro_ms"] is None else f", barostat attempt {r['baro_ms']:.4f} ms"
+        phase(
+            where,
+            f"{label} {mode} on {card}: R={sim.cfg.n_replicas}, {n_iter} iterations of {sim.cfg.nstepsNC} + "
+            f"{sim.cfg.nstepsMD} steps, iteration wall time {', '.join(f'{t:.4f}' for t in r['t_it'])} s "
+            f"(synchronised per iteration), switching steps/s {r['sps']:.1f}, NCMC micro-step {r['micro_ms']:.4f} "
+            f"ms, MD step {r['md_ms']:.4f} ms{baro} (CUDA events around each phase, "
+            f"{'iterations 2-' + str(n_iter) if n_iter > 1 else 'iteration 1'}); launches {r['launches']}; "
+            f"{r['line']}",
+        )
+    fmt = lambda v: ['%.3e' % u for u in v]  # noqa: E731
+    said = lambda a: ", ".join(f"{k} {v}" for k, v in a.items() if k not in ("dx", "dw"))  # noqa: E731
+    vs_again = (f"eager again vs eager: {said(again_agree)}, max |dx| {fmt(again_agree['dx'])} nm, |dW| "
+                f"{fmt(again_agree['dw'])} kJ/mol; " if again else "")
+    steady = "" if n_iter > 1 else f" (iteration 1, the graphed one less its {capture_s:.2f} s capture)"
+    profiled = (
+        f"one more graphed iteration under torch.profiler (wall {prof['wall']:.4f} s there): "
+        f"{prof['graph_launches']} cudaGraphLaunch and {prof['kernel_launches']} cudaLaunchKernel calls, kernel "
+        f"time {prof['kernel_ms']:.1f} ms in {prof['kernels']} kernels, device busy (union of the kernels' "
+        f"intervals) {prof['busy_ms']:.1f} ms = {100 * prof['busy_ms'] / (1e3 * t_graphed):.1f} % of the "
+        f"unprofiled graphed iteration; kernel launches seen {prof['seen']}"
+    )
+    phase(
+        where,
+        f"{label}: each iteration from the first eager run's start, bit for bit; {vs_again}graphed vs eager: "
+        f"{said(graphed)}, max |dx| {fmt(graphed['dx'])} nm, |dW| {fmt(graphed['dw'])} kJ/mol; iteration "
+        f"{t_eager:.4f} s eager vs {t_graphed:.4f} s graphed{steady}; {profiled}",
+    )
+    if not (identical(graphed) and (not again or identical(again_agree))):
+        raise RuntimeError(f"{where} {label}: the runs are not bit for bit equal (graphed: {said(graphed)}"
+                           + (f"; eager again: {said(again_agree)}" if again else "") + ")")
+    sim.graphs = True
+    return res["graphed"]["launches"], [r[0] for r in res["graphed"]["runs"]]
 
 
 def ethylene_stderr(dist, n_points=10):
@@ -1743,6 +1795,13 @@ def check_run(sim, stats, label, finite_velocities=True):
         raise RuntimeError(f"{label}: MD rolled back everywhere")
 
 
+def half_cells(sim):
+    """Swap ``sim``'s every-atom cell lists for half-neighbourhood ones over
+    the same features."""
+    for efn in (sim.energy_md, sim.energy_alch):
+        efn.nonbonded.pair_sum = efn.nonbonded.half_neighborhood_sum()
+
+
 def run_backends(device, card, system, x_min, cutoff=1.0):
     """Phase backends: the plain pair backends 'cells' (full and half
     neighbourhood), 'tiled' and 'verlet' on the unfrozen box (every atom
@@ -1761,9 +1820,7 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
     import torch
 
     from blues_tpu_torch.moves import RandomLigandRotationMove
-    from blues_tpu_torch.potentials.cells import CellListPairSum
     from blues_tpu_torch.potentials.energy import make_energy_fn, make_force_fn
-    from blues_tpu_torch.potentials.features import build_pair_features
     from blues_tpu_torch.simulation import BLUESSimulation
 
     t0 = time.perf_counter()
@@ -1812,11 +1869,9 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
         ps = nb.pair_sum
         if be == "cells":
             report("cells", ps, ps.shape_info["pair_slots"], 5,
-                   f"; grid {ps.grid}, capacities {ps.capacities}, {ps.chunk_cells(R, device)} cells a step")
-            feats = build_pair_features(nb._charges, nb._sigmas, nb._epsilons, nb._is_alch)
-            half = CellListPairSum(feats, box0=system.box, half_neighborhood=True, name="celllist_half", **nb.common)
-            if not half.half:
-                raise RuntimeError("backends: the half neighbourhood did not engage")
+                   f"; grid {ps.grid}, capacities {ps.capacities}, {ps.chunk_cells(R, device)} cells a step, the "
+                   f"pair term on {ps.shape_info['pair_places']} places ({ps.pair_cap} a row slot)")
+            half = nb.half_neighborhood_sum()
             for lam in lams:
                 g = {"lambda_sterics": lam, "lambda_electrostatics": lam}
                 lam3 = nb.pair_factors(g, torch.float32, device)
@@ -1824,7 +1879,8 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
                 e_raw, f_raw = e_r.double().abs().cpu().numpy(), float(f_r.abs().max())
                 compare(f"cells half neighbourhood lambda {lam} vs K3, raw pair sums", *half(xs, box, *lam3),
                         e_r, f_r, e_extra=RAW_REL * e_raw, f_extra=RAW_REL * f_raw, name="backends")
-            report("cells_half", half, half.shape_info["pair_slots"], 5)
+            report("cells_half", half, half.shape_info["pair_slots"], 5,
+                   f"; the pair term on {half.shape_info['pair_places']} places ({half.pair_cap} a row slot)")
         elif be == "tiled":
             report("tiled", ps, ps.shape_info["all_pairs_slots"], 3)
         else:
@@ -1871,24 +1927,36 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
     )
     if not hasattr(sim.energy_md, "nlist_build") or sim.energy_md.nonbonded.backend != "verlet":
         raise RuntimeError("backends: the verlet MD energy has no neighbour-list hooks")
-    sim.initialize(x_min, seed=2030)
-    stats = [sim.run_iteration()]
-    torch.cuda.synchronize()
+    # each plain backend eagerly and graphed, from one state, one iteration
+    # each way ('md_build' replays counted as builds), and one profiled
+    # graphed iteration
+    _, stats = ab_path(card, "backends", "verlet", sim, x_min, {}, [])
     # what the JAX driver guarantees: positions, box and MD energy finite
     check_run(sim, stats, "backends verlet", finite_velocities=False)
     nan_v = int((~torch.isfinite(sim.state.velocities)).flatten(1).any(1).sum())
-    want = -(-VERLET_MD_STEPS // VERLET_EVERY)
-    t_verlet = time.perf_counter() - t1
+    want = 3 * -(-VERLET_MD_STEPS // VERLET_EVERY)  # eager, graphed and the profiled iteration
     phase(
         "backends",
-        f"'verlet': 1 iteration of {BACKENDS_STEPS} + {VERLET_MD_STEPS} steps at R = {R}, list rebuilt every "
-        f"{VERLET_EVERY} MD steps: {sim.nlist_builds} builds (expected {want}), MD failed "
+        f"'verlet': iterations of {BACKENDS_STEPS} + {VERLET_MD_STEPS} steps at R = {R}, list rebuilt every "
+        f"{VERLET_EVERY} MD steps: {sim.nlist_builds} builds in 3 iterations (expected {want}), graphed MD failed "
         f"{stats[0].md_failed.cpu().numpy()}, replicas ending with NaN velocities {nan_v} (kept, as the JAX "
-        f"driver keeps them), work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {t_verlet:.1f} s",
+        f"driver keeps them), work {stats[0].protocol_work.cpu().numpy()} kJ/mol, {time.perf_counter() - t1:.1f} s",
     )
     if sim.nlist_builds != want:
         raise RuntimeError(f"backends: the verlet MD built its list {sim.nlist_builds} times, expected {want}")
-    phase("backends", f"phase time {time.perf_counter() - t0:.1f} s (checks {t_check:.1f} s)")
+    for be in ("cells", "cells_half", "tiled"):
+        steps = TILED_AB_STEPS if be == "tiled" else BACKENDS_STEPS
+        sim_b = BLUESSimulation(
+            system, RandomLigandRotationMove(lig, system.masses),
+            _config(nstepsNC=steps, nstepsMD=steps, cutoff=cutoff, n_replicas=R,
+                    nonbonded_backend="tiled" if be == "tiled" else "cells"),
+            device=device,
+        )
+        if be == "cells_half":
+            half_cells(sim_b)
+        ab_path(card, "backends", be, sim_b, x_min, {}, [])
+    phase("backends", f"verlet and A/B {time.perf_counter() - t1:.1f} s; phase time {time.perf_counter() - t0:.1f} s "
+          f"(checks {t_check:.1f} s)")
     return out
 
 
@@ -2127,8 +2195,8 @@ def run_triclinic(device, card, n_atoms=N_ATOMS, cutoff=1.0):
         raise RuntimeError(f"triclinic: 'pcells' and 'auto' on the sheared box resolved to {resolved}")
     sim.initialize(xsh, seed=2031)
     sim.minimize(TRI_MIN)
-    stats = [sim.run_iteration()]
-    torch.cuda.synchronize()
+    # the iteration eagerly and graphed, from the minimised state
+    _, stats = ab_path(card, "triclinic", "sheared cells", sim, sim.state.positions[0].cpu().numpy(), {}, [])
     check_run(sim, stats, "triclinic")
     xe, ve, be = sim.state
     if not (torch.isfinite(xe).all() and torch.isfinite(ve).all()):
@@ -2137,7 +2205,7 @@ def run_triclinic(device, card, n_atoms=N_ATOMS, cutoff=1.0):
         "triclinic",
         f"{sheared.n_atoms} atoms sheared, grid {sim.energy_md.nonbonded.pair_sum.grid}: "
         f"'pcells' and 'auto' -> 'cells'; FIRE {TRI_MIN} steps, 1 iteration of {BACKENDS_STEPS} + {BACKENDS_STEPS} "
-        f"steps at R = {R}: work {stats[0].protocol_work.cpu().numpy()} kJ/mol, MD failed "
+        f"steps at R = {R} each way: graphed work {stats[0].protocol_work.cpu().numpy()} kJ/mol, MD failed "
         f"{stats[0].md_failed.cpu().numpy()}, MD potential {stats[0].md_potential.cpu().numpy()}, "
         f"{time.perf_counter() - t1:.1f} s; phase time {time.perf_counter() - t0:.1f} s on {card}",
     )
@@ -2758,7 +2826,10 @@ def run_gb(device, card, every, n_atoms=N_ATOMS):
     CPU in float64 for HCT, OBC1 and OBC2 at lambda_e 1, 0.5 and 0 (energy
     1e-9 relative, forces 1e-8*(max|F| + 1)), the card's float32 against
     the CPU's float64 (GB_F32_REL); and the GB term's ms per energy+forces
-    call at R = 8, its kernel launches, peak memory and bound."""
+    call at R = 8, its kernel launches, peak memory and bound; then eager
+    against graphed on 'dense', and FIRE and two graphed iterations with
+    the nonbonded term on K2's no-cutoff mode ('pallas'), whose K2
+    launches it returns."""
     import dataclasses
     import shutil
     import tempfile
@@ -2786,15 +2857,24 @@ def run_gb(device, card, every, n_atoms=N_ATOMS):
             "simulation": {"dt": "0.002 * picoseconds", "friction": "1 * 1/picoseconds", "temperature": "300 * kelvin",
                            "nIter": N_ITER_SHORT, "nstepsNC": NSTEPS, "nstepsMD": NSTEPS, "minimize": 0},
         }
+
+        def create(backend):
+            sim = create_simulation(cfg, n_replicas=R_MAIN, device=device, seed=2033)[0]
+            efn = sim.energy_alch
+            if efn.gb is None or efn.has_split or sim.protocol_fn.use_split or efn.nonbonded.backend != backend:
+                raise RuntimeError(f"gb: GB term {efn.gb is not None}, split {efn.has_split}/"
+                                   f"{sim.protocol_fn.use_split}, backend {efn.nonbonded.backend!r} ({backend!r} "
+                                   "expected)")
+            return sim
+
+        # the route a user gets: 'auto' resolves a GB droplet of <= 4,096
+        # atoms to 'dense'
         t0 = time.perf_counter()
-        sim, _, _ = create_simulation(cfg, n_replicas=R_MAIN, device=device, seed=2033)
+        sim = create("dense")
         torch.cuda.synchronize()
         t_create = time.perf_counter() - t0
         efn = sim.energy_alch
-        if efn.gb is None or efn.has_split or sim.protocol_fn.use_split or efn.nonbonded.backend != "dense":
-            raise RuntimeError(f"gb: GB term {efn.gb is not None}, split {efn.has_split}/{sim.protocol_fn.use_split}, "
-                               f"backend {efn.nonbonded.backend!r}")
-        res, _ = run_path(sim, sim.state.positions[0].cpu().numpy(), {}, every, GB_MIN, N_ITER_SHORT, "gb", card)
+        res, x_gb = run_path(sim, sim.state.positions[0].cpu().numpy(), {}, every, GB_MIN, N_ITER_SHORT, "gb", card)
         work = np.stack([s.protocol_work.double().cpu().numpy() for s in res["stats"]])
 
         # the GB term alone: the card against the CPU, float64, replica 0
@@ -2844,9 +2924,25 @@ def run_gb(device, card, every, n_atoms=N_ATOMS):
             f"energy rel {e32_rel:.3e} (tol {GB_F32_REL[0]:.0e}), forces {f32_err:.3e} (tol {GB_F32_REL[1]:.0e}); GB "
             f"energy+forces at R = {R_MAIN}: {ms:.3f} ms per call, {n_launch} kernel launches, peak {peak:.1f} MiB, chunk {efn.gb.chunk} replicas, bound {max(t_ops, t_bytes):.4f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'}: {GB_PAIR_FLOPS} flops per ordered pair); "
-            f"phase {time.perf_counter() - t_phase:.1f} s on {card}",
+            f"{res['graphs']}",
         )
-        return dict(ms=ms, launches=n_launch, peak_mib=peak, bound_ms=max(t_ops, t_bytes))
+        ab_path(card, "gb", "gb", sim, x_gb, {}, every)
+
+        # the nonbonded term on K2's no-cutoff mode ('pallas'), graphed: MAIN
+        # as phase nocutoff's droplet, whose kernels line gets these
+        # launches (no split, no E0)
+        cfg["simulation"].update(nonbonded_backend="pallas")
+        sim = create("pallas")
+        gb_sums = {"pair_nocut_droplet_main": sums_of(sim, "pair", "pair_nocut_droplet")["pair_nocut_droplet_main"]}
+        res_k2, _ = run_path(sim, sim.state.positions[0].cpu().numpy(), gb_sums, every + list(gb_sums.values()),
+                             GB_MIN, N_ITER_SHORT, "gb on K2", card)
+        phase("gb", f"the same droplet with its nonbonded term on K2 ('pallas'): FIRE {GB_MIN}, {N_ITER_SHORT} "
+                    f"iterations of {NSTEPS} + {NSTEPS} steps at R = {R_MAIN}: NCMC micro-step "
+                    f"{res_k2['micro_ms']:.2f} ms, MD step {res_k2['md_ms']:.2f} ms, launches {res_k2['launches']}; "
+                    f"{res_k2['graphs']}")
+        phase("gb", f"phase {time.perf_counter() - t_phase:.1f} s on {card}")
+        return dict(ms=ms, launches=n_launch, peak_mib=peak, bound_ms=max(t_ops, t_bytes),
+                    kernel_launches=res_k2["launches"])
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
@@ -3002,8 +3098,12 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     L_npt = torch.diagonal(sim_n.state[2], dim1=-2, dim2=-1)
     other = int(torch.nonzero((L_npt != L_npt[0]).any(-1))[0])  # check_npt: two boxes differ
     check_against_cpu(sim_n, unfrozen, "npt", raw_anchor=True, replicas=[0, other])
-    # the frozen and the unfrozen path eagerly and graphed, from one state
-    run_graphs(card, [("frozen", sim, xf_min, sweep_sums, every), ("pcells", sim_c, xu_min, cells_sums, every)])
+    # the npt path eagerly and graphed, from one state: boxes and barostat state too
+    ab_path(card, "npt", "npt", sim_n, xu_min, npt_sums, every)
+    # phase graphs: the frozen and the unfrozen path eagerly, eagerly again
+    # and graphed, from one state (no float atomics: all three bit for bit)
+    ab_path(card, "graphs", "frozen", sim, xf_min, sweep_sums, every, GRAPH_ITER, again=True)
+    ab_path(card, "graphs", "pcells", sim_c, xu_min, cells_sums, every, GRAPH_ITER, again=True)
     # the reference's two-state gate and the dense backend (no kernel of
     # their own: the ethylene system has no NonbondedParams, and the dense
     # path is plain tensor ops, as in the JAX package)
@@ -3017,7 +3117,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     run_triclinic(device, card, n_atoms, cutoff)
     # the YAML entry point on the main path, and generalized Born
     run_cli(device, card, every, main_res, n_atoms, cutoff)
-    run_gb(device, card, every, n_atoms)
+    gb = run_gb(device, card, every, n_atoms)
     # K2's no-cutoff mode (the droplet and toluene in vacuum)
     nocut, nocut_launches = run_nocutoff(device, card, every, n_atoms)
     # blues_tpu_torch.parallel at world size 1: sharded replicas (K1, K3)
@@ -3035,7 +3135,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     kres.update(nocut)
     for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):
         launches.update(r["launches"])
-    for k, n in par_launches.items():
+    for k, n in list(par_launches.items()) + list(gb["kernel_launches"].items()):
         launches[k] = launches.get(k, 0) + n
     kernels = [
         {
@@ -3111,6 +3211,67 @@ def time_kernels(root, reps=20):
             finally:
                 sys.stdout = stdout
         out[f"{backend}_micro_step"], out[f"{backend}_md_step"] = res["micro_ms"], res["md_ms"]
+    return out
+
+
+def time_backends(root):
+    """{name: number} of the checkout at ``root``, run with its own code as
+    a user runs it (eagerly where that checkout's driver keeps a
+    configuration eager, else graphed): at R = BACKENDS_R on the unfrozen
+    box, 'cells' (full and half neighbourhood), 'tiled' and 'cells' on the
+    sheared box (``skewed_box``): one call of the main pair sum (CUDA
+    events over 5 calls, perturbed minimised positions), and the
+    micro-step and MD step (host clock, synchronised per phase) of two
+    iterations of BACKENDS_STEPS + BACKENDS_STEPS steps (TILED_AB_STEPS
+    for 'tiled') after FIRE (TRI_MIN steps on 'cells' and on the sheared
+    box; the half neighbourhood and 'tiled' start from the first's)."""
+    import numpy as np
+    import torch
+
+    mod = _checkout(root)
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation
+
+    dev = torch.device("cuda", 0)
+    system, x0, lig = mod._box(N_ATOMS)
+    sheared, xsh = mod.skewed_box(system, x0, TRI_SKEW)
+    out, x_min = {}, None
+    for label, sysl, be, start, steps in (
+        ("cells", system, "cells", x0, BACKENDS_STEPS), ("cells_half", system, "cells", None, BACKENDS_STEPS),
+        ("tiled", system, "tiled", None, TILED_AB_STEPS), ("triclinic", sheared, "cells", xsh, BACKENDS_STEPS),
+    ):
+        sim = BLUESSimulation(
+            sysl, RandomLigandRotationMove(lig, sysl.masses),
+            mod._config(nstepsNC=steps, nstepsMD=steps, cutoff=1.0, nonbonded_backend=be, n_replicas=BACKENDS_R),
+            device=dev,
+        )
+        if label == "cells_half":
+            for efn in (sim.energy_md, sim.energy_alch):
+                nb = efn.nonbonded
+                if hasattr(nb, "half_neighborhood_sum"):
+                    nb.pair_sum = nb.half_neighborhood_sum()
+                else:  # a checkout from before it: the same sum, built as it built it
+                    from blues_tpu_torch.potentials.cells import CellListPairSum
+                    from blues_tpu_torch.potentials.features import build_pair_features
+
+                    feats = build_pair_features(nb._charges, nb._sigmas, nb._epsilons, nb._is_alch)
+                    nb.pair_sum = CellListPairSum(feats, box0=nb.box0, half_neighborhood=True, **nb.common)
+        with open(os.devnull, "w") as quiet:
+            stdout, sys.stdout = sys.stdout, quiet
+            try:
+                res, xm = mod.run_path(sim, x_min if start is None else start, {}, [],
+                                       0 if start is None else TRI_MIN, 2, "ab", "")
+            finally:
+                sys.stdout = stdout
+        if label == "cells":
+            x_min = xm
+        ps = sim.energy_md.nonbonded.pair_sum
+        xs = mod.perturbed(xm, np.ones(sysl.n_atoms, bool), BACKENDS_R, np.random.default_rng(0), dev)
+        box = torch.as_tensor(np.asarray(sysl.box), dtype=torch.float32, device=dev)
+        out[f"{label}_call"] = mod.time_ms(lambda: ps(xs, box, 1.0, 1.0, 1.0), 5)
+        out[f"{label}_micro_step"], out[f"{label}_md_step"] = res["micro_ms"], res["md_ms"]
+        out[f"{label}_graphed"] = float(bool(sim.graphs and sim.runner is not None))
+        del sim
     return out
 
 
@@ -3195,15 +3356,17 @@ def determinism(other, card):
         phase("determinism", f"{label} ({root}) on {card}: {out.stdout.strip().splitlines()[-1]}")
 
 
-def ab(other, card):
-    """K1, K2, K3 and the three paths' steps of this checkout and of
-    ``other`` in alternating processes (this, other, other, this), each
-    timing at R = R_MAIN (times in ms, launches per call as counts)."""
+def ab(other, card, what="kernels"):
+    """K1, K2, K3 and the three paths' steps (``what`` 'kernels': at R =
+    R_MAIN, ``time_kernels``) or the plain backends' calls and steps
+    ('backends': ``time_backends``) of this checkout and of ``other`` in
+    alternating processes (this, other, other, this); times in ms,
+    launches per call as counts."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for label, root in (("this", here), ("other", other), ("other", other), ("this", here)):
         out = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--time-kernels", root],
+            [sys.executable, os.path.abspath(__file__), f"--time-{what}", root],
             capture_output=True, text=True, timeout=900,
         )
         if out.returncode != 0:
@@ -3505,7 +3668,10 @@ def main(argv=None):
     )
     ap.add_argument("--determinism", metavar="OTHER_ROOT",
                     help="repeat one eager iteration of this checkout and another, plainly and deterministically")
+    ap.add_argument("--ab-backends", metavar="OTHER_ROOT",
+                    help="time the plain backends' calls and steps against another checkout")
     ap.add_argument("--time-kernels", metavar="ROOT", help=argparse.SUPPRESS)
+    ap.add_argument("--time-backends", metavar="ROOT", help=argparse.SUPPRESS)
     ap.add_argument("--determinism-at", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3513,6 +3679,9 @@ def main(argv=None):
         return 2
     if args.time_kernels:
         print(json.dumps(time_kernels(args.time_kernels)), flush=True)
+        return 0
+    if args.time_backends:
+        print(json.dumps(time_backends(args.time_backends)), flush=True)
         return 0
     if args.determinism_at:
         print(json.dumps(determinism_at(args.determinism_at)), flush=True)
@@ -3525,11 +3694,13 @@ def main(argv=None):
     name = torch.cuda.get_device_name(0)
     card = card_line()
     phase("device", f"{name} | nvidia-smi: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    if args.ab or args.profile or args.determinism:
+    if args.ab or args.ab_backends or args.profile or args.determinism:
         if args.determinism:
             determinism(args.determinism, card)
         if args.ab:
             ab(args.ab, card)
+        if args.ab_backends:
+            ab(args.ab_backends, card, "backends")
         if args.profile:
             profile_sweep(card)
             if args.profile != "sweep":

@@ -19,9 +19,10 @@ sweep tests': energy 5e-5*|E| + 1e-2, forces 2e-5*(max|F| + 1).
   * frozen rows: 'tiled' (culled columns, the no-minimum-image fast path,
     the cull guard) and 'cells' (frozen rows compacted) against JAX
     'tiled';
-  * the cells poison of one replica on a shrunken box and on an
-    overflowing bin; the verlet list reused across positions, and its
-    poison when stale or overflowed (these at a 0.6 nm cutoff);
+  * the cells poison of one replica on a shrunken box, an overflowing
+    bin and a row with more pairs than pair places; the verlet list
+    reused across positions, and its poison when stale or overflowed
+    (these at a 0.6 nm cutoff);
   * 'exact' on 'sweep', 'pcells', 'pallas', 'tiled' and 'cells' (frozen
     box) and 'verlet' (unfrozen box), the kernel backends through their
     plain versions, against JAX 'tiled' under 'exact' at lambda 1 and 0.1;
@@ -212,22 +213,50 @@ def _cells_sum(system, x, **kw):
     )
 
 
-@pytest.mark.parametrize("fault", ["shrunk", "overflow"])
+def _neighbours(x, L, cutoff):
+    """(N,) atoms within ``cutoff`` of each atom of an orthorhombic box of
+    lengths ``L`` (minimum image)."""
+    out = []
+    for i0 in range(0, len(x), 500):
+        dr = x[i0 : i0 + 500, None] - x[None]
+        dr -= L * np.round(dr / L)
+        out.append(((dr * dr).sum(-1) < cutoff * cutoff).sum(1) - 1)
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("fault", ["shrunk", "overflow", "pair_places"])
 def test_cells_poison(box, fault):
     """Two replicas; the second's box shrunk below the grid (ncells x
-    cutoff), or one of its bins over capacity: its E and every F are NaN,
-    the first replica's are finite and equal to a one-replica call."""
+    cutoff), one of its bins over capacity, or one of its rows with more
+    pairs inside the cutoff than a row has pair places (the densest row of
+    the first replica fills them; ten atoms moved next to it in the second):
+    its E and every F are NaN, the first replica's are finite and equal to
+    a one-replica call (with the default pair places too)."""
     system, _, x = box
     ps = _cells_sum(system, x)
     xs = np.stack([x, x])
     boxes = np.stack([system.box, system.box])
     if fault == "shrunk":
         boxes[1] *= 0.95 * ps.grid[0] * SMALL_CUT / system.box[0, 0]
-    else:
+    elif fault == "overflow":
         w = system.box[0, 0] / ps.grid[0]
         xs[1, : ps.cap_col + 1] = np.random.default_rng(3).uniform(0.1 * w, 0.9 * w, (ps.cap_col + 1, 3))
+    else:
+        L = np.diag(system.box)
+        counts = _neighbours(x, L, SMALL_CUT)
+        a = int(counts.argmax())
+        far = np.argsort(-np.abs((x - x[a]) - L * np.round((x - x[a]) / L)).sum(1))[:10]
+        rng = np.random.default_rng(5)
+        u = rng.normal(size=(10, 3))
+        xs[1, far] = x[a] + u / np.linalg.norm(u, axis=1, keepdims=True) * rng.uniform(0.3, 0.55, (10, 1))
+        assert _neighbours(xs[1], L, SMALL_CUT).max() >= counts.max() + 10
+        e_def, f_def = ps(torch.as_tensor(xs[:1]), torch.as_tensor(boxes[:1]), 1.0, 1.0, 1.0)
+        assert ps.pair_cap > counts.max()
+        ps.pair_cap = int(counts.max())
     e, f = ps(torch.as_tensor(xs), torch.as_tensor(boxes), 1.0, 1.0, 1.0)
     e1, f1 = ps(torch.as_tensor(xs[:1]), torch.as_tensor(boxes[:1]), 1.0, 1.0, 1.0)
+    if fault == "pair_places":
+        assert torch.equal(e1, e_def) and torch.equal(f1, f_def)
     assert torch.isfinite(e[0]) and torch.isfinite(f[0]).all()
     assert torch.allclose(e[0], e1[0], rtol=1e-12) and torch.allclose(f[0], f1[0], rtol=1e-12, atol=1e-9)
     assert torch.isnan(e[1]) and torch.isnan(f[1]).all()

@@ -21,8 +21,10 @@ ops) on the card against the CPU in float64 (energy 1e-9 relative, forces
 prmtop on the card, its energies against the CPU's. The graphed iteration
 (CUDA graphs) against the eager one on a frozen 'sweep' box and an
 unfrozen 'pcells' box at R = 2, and two eager runs from one state and
-generator, bit for bit; K2 in its no-cutoff mode against its plain
-version; and a capture refusing a host sync. The parallel package at world
+generator, bit for bit; likewise the barostat, 'cells', 'verlet' and
+generalized Born ('dense' and K2), captured with ``graphs=None``; K2 in
+its no-cutoff mode against its plain version; and a capture refusing a
+host sync. The parallel package at world
 size 1 over ``nccl``: the spatial force function on both FFT paths
 against the single-device 'tiled' energy, a sharded R = 4 graphed
 iteration bit for bit equal to the unsharded one, and the refusals of a
@@ -579,6 +581,103 @@ def test_two_eager_runs_are_bit_identical_on_the_card(case):
     for k in a._fields:
         assert _same_bits(getattr(a, k), getattr(b, k)), k
     assert _same_bits(xa, xb) and _same_bits(va, vb) and torch.equal(ga, gb)
+
+
+#: configurations that run eagerly before and are captured now: the
+#: barostat on K3, the plain 'cells' and 'verlet' sums, GB on the route a
+#: user gets ('auto' -> 'dense') and with K2's no-cutoff mode (the droplet
+#: is read from a prmtop)
+CAPTURED_CASES = {
+    "npt": dict(nonbonded_backend="pcells", cutoff=0.6, pressure=1.0, barostat_frequency=5),
+    "cells": dict(nonbonded_backend="cells", cutoff=0.6),
+    "verlet": dict(nonbonded_backend="verlet", cutoff=0.6, nlist_rebuild_interval=5),
+    "gb": dict(nonbonded_method="NoCutoff", nonbonded_backend="pallas", dt=0.001),
+    "gb_dense": dict(nonbonded_method="NoCutoff", dt=0.001),
+}
+
+
+def _captured_sim(case, graphs, dev, tmp_path):
+    """The 1,202-atom unfrozen toluene + TIP3P box of ``_graph_sim`` (PME)
+    or a toluene + 30-water droplet under OBC2, R = 2, 10 + 10 steps with
+    MD frames every 5, and its positions."""
+    from _torch_amber import droplet, write_amber
+    from blues_tpu_torch.core.build import solvated_ligand_box
+    from blues_tpu_torch.core.prmtop import load_prmtop
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
+    from blues_tpu_torch.testsystems import t4_scale_toluene_box
+
+    if case.startswith("gb"):
+        box, xb = t4_scale_toluene_box(n_atoms=1500)
+        d, x = droplet(box, xb, 30)
+        write_amber(d, x, str(tmp_path / "drop.prmtop"), gb=True)
+        system = load_prmtop(str(tmp_path / "drop.prmtop"), implicit_solvent="OBC2", implicit_solvent_kappa=0.73)
+    else:
+        lig, lig_x = toluene_system()
+        system, x = solvated_ligand_box(lig, lig_x, 1200, seed=5)
+    li = system.topology.select_resname("LIG")
+    system = system.replace(alchemical=AlchemicalRegion(atoms=li))
+    cfg = SimulationConfig(**{**dict(
+        nstepsNC=10, nstepsMD=10, md_report_interval=5, dt=0.002, nonbonded_method="PME", n_replicas=2,
+        ewald_tolerance=5e-4,
+    ), **CAPTURED_CASES[case]})
+    return BLUESSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, device=dev, graphs=graphs), np.asarray(x)
+
+
+@pytest.mark.parametrize("case", sorted(CAPTURED_CASES))
+def test_captured_configurations_match_eager_on_the_card(case, tmp_path):
+    """The barostat, 'cells', 'verlet' and generalized Born: with
+    ``graphs=None`` the simulation captures (``eager_reason`` None); two
+    iterations eagerly, then graphed, each graphed iteration from the eager
+    one's start (state, barostat state, generator), bit for bit: stats, MD
+    frames, NCMC snapshots, positions, boxes, barostat state, neighbour-list
+    builds and generator; K3 (npt) and K2 (gb) launched by the replays,
+    GB's default route resolved to 'dense'."""
+    from blues_tpu_torch.core.state import SimState
+
+    dev = _cuda()
+    out, starts = {}, []
+    for graphs in (False, None):
+        sim, x = _captured_sim(case, graphs, dev, tmp_path)
+        assert sim.eager_reason() is None and sim.graphs == (graphs is None)
+        assert (sim.energy_md.nonbonded.backend == "dense") == (case == "gb_dense")
+        sim.initialize(x, seed=5)
+        sim.minimize(50)
+        ps = getattr(sim.energy_md.nonbonded, "pair_sum", None)
+        if ps is not None:
+            ps.launches = 0
+        runs = []
+        for it in range(2):
+            if graphs is None:
+                sim.state, gen, bs = starts[it]
+                sim.source.generator.set_state(gen)
+                if bs is not None:
+                    sim.barostat_state = type(sim.barostat_state)(*bs)
+            else:
+                bs = None if sim.barostat_state is None else tuple(t.clone() for t in sim.barostat_state)
+                starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state(), bs))
+            res = sim.run_iteration_frames()
+            bs = [] if sim.barostat_state is None else [t.clone() for t in sim.barostat_state]
+            runs.append(res + (sim.state.positions.clone(), sim.state.box.clone(), bs, sim.source.generator.get_state()))
+        torch.cuda.synchronize()
+        out[graphs] = (sim, runs, getattr(ps, "launches", 0))
+    (se, re_, ne), (sg, rg, ng) = out[False], out[None]
+    for (a, fa, na, xa, ba, bsa, ga), (b, fb, nb, xb, bb, bsb, gb) in zip(re_, rg):
+        for k in a._fields:
+            assert _same_bits(getattr(a, k), getattr(b, k)), k
+        assert _same_bits(fa, fb) and _same_bits(na.positions, nb.positions) and _same_bits(na.work, nb.work)
+        assert _same_bits(xa, xb) and _same_bits(ba, bb) and torch.equal(ga, gb)
+        assert all(_same_bits(u, v) for u, v in zip(bsa, bsb))
+    replays = sg.runner.replays
+    assert replays["micro"] == 2 * sg.schedule.n_micro
+    if case == "npt":
+        assert replays["baro"] == 4 and sg.barostat_state.n_attempted.tolist() == [4, 4]
+    if case == "verlet":
+        assert replays["md_build"] == 4 and replays["md"] == 16 and se.nlist_builds == sg.nlist_builds == 4
+    if case in ("npt", "gb"):
+        assert ne > 0 and ng >= ne  # the replays counted, and the warm-up's launches
 
 
 @pytest.mark.parametrize("R", [1, 8])

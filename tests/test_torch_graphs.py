@@ -16,10 +16,16 @@ On a frozen toluene + TIP3P box (8,001 atoms, 'sweep' with culled columns, the c
 iteration) and an unfrozen one (1,202 atoms, 'pcells', the full-array
 iteration), R = 2, two iterations from one seed: the graphed runner's
 stats, state, NCMC snapshots and their work, MD frames and generator equal
-the eager phases' bit for bit; likewise toluene frozen by ``freeze_atoms``
-on 'pallas', with and without a cutoff. ``graphs=True`` on a configuration that
-runs eagerly raises at construction, and a phase that syncs the host
-raises at capture without running the iteration eagerly.
+the eager phases' bit for bit; likewise the same unfrozen box under the
+barostat (the box and the barostat state too), generalized Born on a
+toluene + water droplet read from a prmtop, and the plain pair backends on
+a 300-atom box ('cells' full, half and on a sheared triclinic box, one
+replica; 'tiled'; 'verlet' with its 'md_build' phase), whose pair sums
+run under the guard with nothing paused; and toluene frozen by ``freeze_atoms`` on
+'pallas', with and without a cutoff. ``graphs=True`` on a configuration
+that runs eagerly (a ``MolDartMove`` with fit atoms) raises at
+construction, and a phase that syncs the host raises at capture without
+running the iteration eagerly.
 """
 
 import warnings
@@ -29,13 +35,17 @@ import pytest
 import torch
 
 from blues_tpu_torch.core.build import solvated_ligand_box
+from blues_tpu_torch.core.prmtop import load_prmtop
 from blues_tpu_torch.core.system import AlchemicalRegion
 from blues_tpu_torch.ligands import toluene_system
-from blues_tpu_torch.moves import RandomLigandRotationMove
+from blues_tpu_torch.moves import MolDartMove, RandomLigandRotationMove
 from blues_tpu_torch.potentials.clusters import ClusterPairSum
 from blues_tpu_torch.potentials.sweep import SweepPairSum
+from blues_tpu_torch.potentials.triclinic import reduce_box_vectors
 from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig, graphs
+from blues_tpu_torch.testsystems import t4_scale_toluene_box
 
+from _torch_amber import droplet, write_amber
 from _torch_helpers import DEVICE
 
 
@@ -67,7 +77,7 @@ def rerun(monkeypatch):
         monkeypatch.setattr(cls, "plain", paused_plain)
 
 
-def _box(n_atoms, frozen):
+def _box(n_atoms, frozen, skew=None):
     lig, lig_x = toluene_system()
     system, x = solvated_ligand_box(lig, lig_x, n_atoms, seed=5)
     li = system.topology.select_resname("LIG")
@@ -76,12 +86,52 @@ def _box(n_atoms, frozen):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             system = system.freeze_radius(np.asarray(x), li, 0.4, solvent_resnames=())
+    if skew is not None:  # sheared onto a reduced triclinic lattice, as tests/test_torch_triclinic.py
+        L = np.diag(np.asarray(system.box))
+        box = reduce_box_vectors(np.array(
+            [[L[0], 0.0, 0.0], [skew * L[0] * 0.45, L[1], 0.0], [-skew * L[0] * 0.3, skew * L[1] * 0.4, L[2]]]
+        ))
+        x = np.asarray(x) / L @ box
+        system = system.replace(box=box)
     return system, np.asarray(x), li
 
 
+def _droplet(tmp_path):
+    """Toluene and its 30 nearest waters, written with mbondi2 radii and
+    read back with OBC2 (the system ``tests/test_torch_gb.py`` builds)."""
+    system, x = t4_scale_toluene_box(n_atoms=1500)
+    d, xd = droplet(system, x, 30)
+    path = str(tmp_path / "drop.prmtop")
+    write_amber(d, xd, path, gb=True)
+    drop = load_prmtop(path, implicit_solvent="OBC2", implicit_solvent_kappa=0.73)
+    li = drop.topology.select_resname("LIG")
+    return drop.replace(alchemical=AlchemicalRegion(atoms=li)), np.asarray(xd), li
+
+
+def _half(sim):
+    """Every-atom cell lists of ``sim`` swapped for half-neighbourhood ones
+    over the same features."""
+    for efn in (sim.energy_md, sim.energy_alch):
+        efn.nonbonded.pair_sum = efn.nonbonded.half_neighborhood_sum()
+
+
+PLAIN = dict(cutoff=0.35, ewald_tolerance=5e-4)
+#: the cell lists scan 3-6x the slots of 'tiled' on so small a
+#: box: their cases take one replica and 2 + 2 steps, an MD frame after each
+SHORT = dict(nstepsNC=2, nstepsMD=2, md_report_interval=1, n_replicas=1)
+#: case -> (atoms, frozen, config, box shear); the GB case reads its droplet
 CASES = {
-    "frozen": (8000, True, dict(nonbonded_backend="sweep", cutoff=0.65, sweep_row_group=16, frozen_cull_skin=0.15)),
-    "unfrozen": (1200, False, dict(nonbonded_backend="pcells", cutoff=0.6)),
+    "frozen": (8000, True, dict(nonbonded_backend="sweep", cutoff=0.65, sweep_row_group=16, frozen_cull_skin=0.15),
+               None),
+    "unfrozen": (1200, False, dict(nonbonded_backend="pcells", cutoff=0.6), None),
+    "barostat": (1200, False, dict(nonbonded_backend="pcells", cutoff=0.6, pressure=1.0, barostat_frequency=2,
+                                   nstepsNC=2), None),
+    "gb": (None, False, dict(nonbonded_method="NoCutoff", dt=0.001), None),
+    "cells": (300, False, dict(nonbonded_backend="cells", **PLAIN, **SHORT), None),
+    "cells_half": (300, False, dict(nonbonded_backend="cells", **PLAIN, **SHORT), None),
+    "cells_triclinic": (300, False, dict(nonbonded_backend="cells", **PLAIN, **SHORT), 0.55),
+    "tiled": (300, False, dict(nonbonded_backend="tiled", **PLAIN), None),
+    "verlet": (300, False, dict(nonbonded_backend="verlet", nlist_rebuild_interval=2, **PLAIN), None),
 }
 
 
@@ -92,28 +142,42 @@ def _config(case, **kw):
     ), **CASES[case][2], **kw})
 
 
-def _run(system, x, li, cfg, graphed, n_iter=2):
+def _run(system, x, li, cfg, graphed, n_iter=2, prepare=None):
     sim = BLUESSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, device=DEVICE, graphs=graphed)
+    if prepare is not None:
+        prepare(sim)
     sim.initialize(x, seed=11)
     out = [sim.run_iteration_frames() for _ in range(n_iter)]
     return sim, out
 
 
-@pytest.mark.parametrize("case", ["frozen", "unfrozen"])
-def test_graphed_iteration_equals_eager(case, rerun):
-    system, x, li = _box(*CASES[case][:2])
-    frozen, n_atoms = CASES[case][1], system.n_atoms
+@pytest.mark.parametrize("case", list(CASES))
+def test_graphed_iteration_equals_eager(case, rerun, tmp_path):
+    """Two iterations graphed equal two eager ones bit for bit: stats, MD
+    frames, NCMC snapshots and work, state (the boxes too), barostat state,
+    neighbour-list builds and generator; each phase replayed as often as
+    the eager iteration ran it ('baro' after each MD chunk under pressure,
+    'md_build' at every second step of a chunk on 'verlet')."""
+    n_atoms, frozen, kw, skew = CASES[case]
+    system, x, li = _droplet(tmp_path) if case == "gb" else _box(n_atoms, frozen, skew)
+    n_atoms = system.n_atoms
     cfg = _config(case)
-    eager, e_out = _run(system, x, li, cfg, False)
-    graphed, g_out = _run(system, x, li, cfg, True)
-    assert not eager.graphs and graphed.graphs
+    prepare = _half if case == "cells_half" else None
+    eager, e_out = _run(system, x, li, cfg, False, prepare=prepare)
+    graphed, g_out = _run(system, x, li, cfg, True, prepare=prepare)
+    assert not eager.graphs and graphed.graphs and graphed.eager_reason() is None
     assert (graphed._compact is not None) == frozen
-    assert graphed.energy_alch.nonbonded.backend == CASES[case][2]["nonbonded_backend"]
+    want_backend = {"gb": "dense", "cells_half": "cells", "cells_triclinic": "cells"}.get(case)
+    assert graphed.energy_alch.nonbonded.backend == (want_backend or kw["nonbonded_backend"])
+    assert (graphed.energy_alch.gb is not None) == (case == "gb")
+    if case == "cells_triclinic":
+        assert graphed.energy_md.nonbonded.pair_sum.triclinic
     for (se, me, ne), (sg, mg, ng) in zip(e_out, g_out):
         for k in se._fields:
             assert torch.equal(getattr(se, k), getattr(sg, k)), k
-        assert me.shape == (2, 2, n_atoms, 3) and torch.equal(me, mg)
-        assert ne.positions.shape == (2, 3, n_atoms, 3)
+        R = cfg.n_replicas
+        assert me.shape == (R, cfg.nstepsMD // cfg.md_report_interval, n_atoms, 3) and torch.equal(me, mg)
+        assert ne.positions.shape == (R, 3, n_atoms, 3)
         assert torch.equal(ne.positions, ng.positions) and torch.equal(ne.work, ng.work)
     for a, b in zip(eager.state, graphed.state):
         assert torch.equal(a, b)
@@ -121,7 +185,17 @@ def test_graphed_iteration_equals_eager(case, rerun):
     # the stats of iteration 1 are not overwritten by iteration 2's replays
     assert not torch.equal(g_out[0][0].protocol_work, g_out[1][0].protocol_work)
     n_micro = graphed.schedule.n_micro
-    assert graphed.runner.replays == {"begin": 2, "micro": 2 * n_micro, "move": 2, "end": 2, "md": 8, "md_end": 2}
+    want = {"begin": 2, "micro": 2 * n_micro, "move": 2, "end": 2, "md": 2 * cfg.nstepsMD, "md_end": 2}
+    if case == "barostat":
+        want["baro"] = 4
+        assert eager.barostat_state.n_attempted.tolist() == [4, 4]
+        for a, b in zip(eager.barostat_state, graphed.barostat_state):
+            assert torch.equal(a, b)
+        assert not torch.equal(graphed.state.box[0], graphed.state.box[1])  # a volume move was accepted
+    if case == "verlet":
+        want.update(md=4, md_build=4)
+        assert eager.nlist_builds == graphed.nlist_builds == 4
+    assert graphed.runner.replays == want
 
 
 @pytest.mark.parametrize("method", ["NoCutoff", "CutoffNonPeriodic"])
@@ -171,21 +245,19 @@ def test_graphed_iteration_without_move_or_md_equals_eager(rerun):
     assert sim.runner.replays["md"] == 0 and sim.runner.replays["micro"] == 3 * sim.schedule.n_micro
 
 
-@pytest.mark.parametrize(
-    "kw", [dict(pressure=1.0), dict(nonbonded_backend="verlet"), dict(nonbonded_backend="cells"),
-           dict(nonbonded_backend="tiled")],
-    ids=["barostat", "verlet", "cells", "tiled"],
-)
-def test_graphs_true_outside_the_captured_set_raises(kw):
-    """The configurations that stay eager (a barostat, the backends with
-    data-dependent shapes) refuse ``graphs=True`` at construction; with
-    ``graphs=None`` they run eagerly, as every simulation on the CPU."""
+def test_graphs_true_outside_the_captured_set_raises():
+    """The one configuration that stays eager, a ``MolDartMove`` with fit
+    atoms (its SVD copies through the host), refuses ``graphs=True`` at
+    construction; with ``graphs=None`` it runs eagerly, as every
+    simulation on the CPU."""
     system, x, li = _box(1200, False)
-    cfg = _config("unfrozen", **kw)
+    cfg = _config("unfrozen")
+    move = MolDartMove.from_coordinates(li, [x, x + 0.3], dart_radius=0.1, fit_atoms=np.arange(3))
+    assert not move.graphable
     with pytest.raises(ValueError, match="runs eagerly"):
-        BLUESSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, device=DEVICE, graphs=True)
-    sim = BLUESSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, device=DEVICE)
-    assert not sim.graphs and sim.eager_reason() is not None
+        BLUESSimulation(system, move, cfg, device=DEVICE, graphs=True)
+    sim = BLUESSimulation(system, move, cfg, device=DEVICE)
+    assert not sim.graphs and "MolDartMove" in sim.eager_reason()
 
 
 def test_a_phase_that_syncs_the_host_raises_at_capture(rerun):
