@@ -40,7 +40,9 @@ class Move:
     teleports = False
 
     #: False for a move that a CUDA graph cannot capture (its proposal
-    #: copies through the host); the driver then runs the iteration eagerly
+    #: copies through the host); the simulations then run their iterations
+    #: eagerly. Every move of the package is capturable; a user's own move
+    #: may set it
     graphable = True
 
     def before(self, source, x, v, box):

@@ -168,12 +168,6 @@ class MolDartMove(Move):
         fit = np.asarray(fit_atoms, np.int64)
         return cls(ligand_atoms, poses, dart_radius, fit_atoms=fit, fit_reference=np.stack([c[fit] for c in coords]))
 
-    @property
-    def graphable(self):
-        """Without fit atoms: with them, ``torch.linalg.svd`` of the
-        Kabsch covariances copies through the host on the card."""
-        return self.fit_atoms is None
-
     def _t(self, device):
         t = self._idx.get(device)
         if t is None:

@@ -82,29 +82,129 @@ def axis_angle_rotation_matrix(axis, theta):
     return torch.stack([torch.stack(r, -1) for r in rows], -2)
 
 
+#: Newton steps toward the key matrix's largest eigenvalue (``kabsch_align``):
+#: from an upper bound at most twice the root, each step takes at least a
+#: quarter of the distance off, and the last few converge quadratically
+KABSCH_NEWTON_STEPS = 40
+
+
+def _det3(m):
+    """(...,) determinants of (..., 3, 3) matrices, written out."""
+    return (
+        m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
+        - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
+        + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0])
+    )
+
+
+def _adjugate4(a):
+    """(adj, det) of (..., 4, 4) matrices from their 2x2 minors (rows 0-1
+    and rows 2-3), written out."""
+    e = [[a[..., i, j] for j in range(4)] for i in range(4)]
+    s0 = e[0][0] * e[1][1] - e[1][0] * e[0][1]
+    s1 = e[0][0] * e[1][2] - e[1][0] * e[0][2]
+    s2 = e[0][0] * e[1][3] - e[1][0] * e[0][3]
+    s3 = e[0][1] * e[1][2] - e[1][1] * e[0][2]
+    s4 = e[0][1] * e[1][3] - e[1][1] * e[0][3]
+    s5 = e[0][2] * e[1][3] - e[1][2] * e[0][3]
+    c5 = e[2][2] * e[3][3] - e[3][2] * e[2][3]
+    c4 = e[2][1] * e[3][3] - e[3][1] * e[2][3]
+    c3 = e[2][1] * e[3][2] - e[3][1] * e[2][2]
+    c2 = e[2][0] * e[3][3] - e[3][0] * e[2][3]
+    c1 = e[2][0] * e[3][2] - e[3][0] * e[2][2]
+    c0 = e[2][0] * e[3][1] - e[3][0] * e[2][1]
+    rows = [
+        [e[1][1] * c5 - e[1][2] * c4 + e[1][3] * c3, -e[0][1] * c5 + e[0][2] * c4 - e[0][3] * c3,
+         e[3][1] * s5 - e[3][2] * s4 + e[3][3] * s3, -e[2][1] * s5 + e[2][2] * s4 - e[2][3] * s3],
+        [-e[1][0] * c5 + e[1][2] * c2 - e[1][3] * c1, e[0][0] * c5 - e[0][2] * c2 + e[0][3] * c1,
+         -e[3][0] * s5 + e[3][2] * s2 - e[3][3] * s1, e[2][0] * s5 - e[2][2] * s2 + e[2][3] * s1],
+        [e[1][0] * c4 - e[1][1] * c2 + e[1][3] * c0, -e[0][0] * c4 + e[0][1] * c2 - e[0][3] * c0,
+         e[3][0] * s4 - e[3][1] * s2 + e[3][3] * s0, -e[2][0] * s4 + e[2][1] * s2 - e[2][3] * s0],
+        [-e[1][0] * c3 + e[1][1] * c1 - e[1][2] * c0, e[0][0] * c3 - e[0][1] * c1 + e[0][2] * c0,
+         -e[3][0] * s3 + e[3][1] * s1 - e[3][2] * s0, e[2][0] * s3 - e[2][1] * s1 + e[2][2] * s0],
+    ]
+    det = s0 * c5 - s1 * c4 + s2 * c3 + s3 * c2 - s4 * c1 + s5 * c0
+    return torch.stack([torch.stack(r, -1) for r in rows], -2), det
+
+
+def _quaternion_rotation(q):
+    """(..., 3, 3) rotations of (..., 4) unit quaternions (w, x, y, z)."""
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        [w * w + x * x - y * y - z * z, 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), w * w - x * x + y * y - z * z, 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), w * w - x * x - y * y + z * z],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
 def kabsch_align(P, Q, weights=None):
     """Optimal rigid superposition of the point sets P onto Q, (..., F, 3)
     each, batched over the leading axes: (R, com_P, com_Q) such that
-    ``matvec_rows(P - com_P, R) + com_Q`` is the aligned copy of P (the JAX
-    package's ``kabsch_align``: a 3x3 SVD with the determinant correction,
-    so R is a proper rotation)."""
-    F = P.shape[-2]
+    ``matvec_rows(P - com_P, R) + com_Q`` is the aligned copy of P, R a
+    proper rotation (the JAX package's ``kabsch_align``, a 3x3 SVD with the
+    determinant correction).
+
+    Here the closed form of Theobald's quaternion characteristic polynomial
+    (QCP, the method of mdtraj's ``superpose``): R maximises tr(R H) over
+    rotations, H the weighted covariance, and its quaternion is the
+    eigenvector of the largest eigenvalue of the 4x4 key matrix K of H. The
+    eigenvalue comes from a fixed number of Newton steps on det(K - l I)
+    from above, the eigenvector from the column of adj(K - l I) of largest
+    norm. Every step is a tensor op in float64 on the device, whatever the
+    positions' dtype: no SVD, no host read, so a CUDA graph holds it. A
+    reflection needs no correction (the best proper rotation is what QCP
+    finds); coincident points in either set (H = 0) give the identity."""
+    F, dt = P.shape[-2], P.dtype
     if weights is None:
-        w = torch.full((F,), 1.0 / F, dtype=P.dtype, device=P.device)
+        w = torch.full((F,), 1.0 / F, dtype=torch.float64, device=P.device)
     else:
-        w = torch.as_tensor(weights, dtype=P.dtype, device=P.device)
+        w = torch.as_tensor(weights, dtype=torch.float64, device=P.device)
         w = w / w.sum()
-    com_P = (P * w[:, None]).sum(-2)
-    com_Q = (Q * w[:, None]).sum(-2)
-    Pc = P - com_P[..., None, :]
-    Qc = (Q - com_Q[..., None, :]) * w[:, None]
-    H = (Pc[..., :, :, None] * Qc[..., :, None, :]).sum(-3)  # (..., 3, 3) weighted covariance
-    U, _, Vh = torch.linalg.svd(H)
-    d = torch.sign(torch.linalg.det(Vh) * torch.linalg.det(U))
-    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
-    # R = V diag(D) U^T, elementwise: R[i, j] = sum_k Vh[k, i] D[k] U[j, k]
-    R = (Vh.transpose(-1, -2)[..., :, None, :] * D[..., None, None, :] * U[..., None, :, :]).sum(-1)
-    return R, com_P, com_Q
+    # each set relative to its first point, so that coincident points
+    # centre to exact zeros (and H = 0 exactly)
+    P0, Q0 = P[..., :1, :].double(), Q[..., :1, :].double()
+    P, Q = P.double() - P0, Q.double() - Q0
+    dP, dQ = (P * w[:, None]).sum(-2), (Q * w[:, None]).sum(-2)
+    Pc, Qc = P - dP[..., None, :], Q - dQ[..., None, :]
+    com_P, com_Q = P0[..., 0, :] + dP, Q0[..., 0, :] + dQ
+    H = (Pc[..., :, :, None] * (Qc * w[:, None])[..., :, None, :]).sum(-3)  # (..., 3, 3) weighted covariance
+    # the problem scaled to |H|_F = 1: the largest eigenvalue lies in [1/sqrt(3), sqrt(3)]
+    h_norm = torch.sqrt((H * H).sum((-2, -1)))
+    h_norm = torch.where(h_norm > 0, h_norm, torch.ones_like(h_norm))
+    H = H / h_norm[..., None, None]
+    (sxx, sxy, sxz), (syx, syy, syz), (szx, szy, szz) = (row.unbind(-1) for row in H.unbind(-2))
+    K = torch.stack([
+        torch.stack([sxx + syy + szz, syz - szy, szx - sxz, sxy - syx], -1),
+        torch.stack([syz - szy, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([szx - sxz, sxy + syx, -sxx + syy - szz, syz + szy], -1),
+        torch.stack([sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz], -1),
+    ], -2)
+    # det(K - l I) = l^4 + c2 l^2 + c1 l + c0 (K is traceless)
+    c2 = -2.0 * (H * H).sum((-2, -1))
+    c1 = -8.0 * _det3(H)
+    c0 = _adjugate4(K)[1]
+    # Newton from above: sqrt(3), or half the summed mean squared radii of
+    # the two sets (the RMSD is real), whichever is smaller; the
+    # polynomial's roots are real, so the steps fall monotonically onto the
+    # largest
+    e0 = 0.5 * ((Pc * Pc + Qc * Qc) * w[:, None]).sum((-2, -1))
+    lam = torch.clamp(e0 / h_norm, max=math.sqrt(3.0))
+    for _ in range(KABSCH_NEWTON_STEPS):
+        lam2 = lam * lam
+        p = (lam2 + c2) * lam2 + c1 * lam + c0
+        dp = (4.0 * lam2 + 2.0 * c2) * lam + c1
+        nonzero = dp != 0
+        lam = lam - torch.where(nonzero, p / torch.where(nonzero, dp, torch.ones_like(dp)), torch.zeros_like(dp))
+    eye = torch.eye(4, dtype=torch.float64, device=P.device)
+    adj = _adjugate4(K - lam[..., None, None] * eye)[0]
+    norms = torch.sqrt((adj * adj).sum(-2))  # (..., 4) column norms
+    pick = torch.argmax(norms, -1, keepdim=True)
+    q = adj.gather(-1, pick[..., None, :].expand(*adj.shape[:-1], 1))[..., 0]
+    n = norms.gather(-1, pick)
+    ok = n > 0
+    q = torch.where(ok, q / torch.where(ok, n, torch.ones_like(n)), eye[0].expand_as(q))
+    return _quaternion_rotation(q).to(dt), com_P.to(dt), com_Q.to(dt)
 
 
 def superpose(P, Q, weights=None):

@@ -53,11 +53,13 @@ carry holds the state, the box, the barostat state and the neighbour list.
 The JAX package jits the whole iteration; here, on the card,
 ``simulation/graphs.py`` captures each phase into a CUDA graph at the first
 iteration and replays them (``graphs=None``, the default, wherever
-``eager_reason`` finds nothing that keeps the iteration eager: only a
-``MolDartMove`` with fit atoms, whose SVD copies through the host).
-``graphs=False`` runs the same phases one op at a time, the protocol as a
-whole through ``protocol_fn``; ``graphs=True`` raises where the
-configuration stays eager. A capture that fails raises.
+``eager_reason`` finds nothing that keeps the iteration eager: every move of
+the package is capturable; a user's move that sets ``graphable = False``
+keeps it eager). ``graphs=False`` runs the same phases one op at a time, the
+protocol as a whole through ``protocol_fn``; ``graphs=True`` raises where
+the configuration stays eager. A capture that fails raises. ``minimize``
+runs FIRE the same way: graphed, its phases are captured at the first call
+(``minimizer``) and replayed by every later one.
 
 Configurations outside the port (segmented dispatch, ``use_pallas``) raise
 ``ValueError``, and so do the JAX driver's own refusals: pressure with
@@ -83,11 +85,13 @@ from ..core.system import System
 from ..integrators.barostat import MonteCarloBarostat
 from ..integrators.constraints import make_constraint_fns
 from ..integrators.langevin import LangevinParams, make_md_step
+from ..integrators.minimize import FireMinimizer
 from ..integrators.ncmc import make_ncmc_protocol
 from ..integrators.schedules import build_ncmc_schedule, calculate_ncmc_steps, resolve_frame_indices
 from ..moves.base import Move
 from ..potentials.energy import make_energy_fn, make_force_fn
 from .compact import build_mobile_compaction
+from .graphs import kernel_counters, move_eager_reason
 
 logger = logging.getLogger("blues_tpu_torch.simulation")
 
@@ -297,6 +301,9 @@ class BLUESSimulation:
         self.graphs = bool(graphs)
         #: the ``GraphRunner`` of a graphed simulation, captured at its first iteration
         self.runner = None
+        #: the ``FireMinimizer`` of ``minimize`` (its own runner, captured at
+        #: the first graphed call), made at the first call
+        self.minimizer = None
         #: the move's aux at the end of the last iteration's protocol
         self.last_move_aux = None
         #: (lo, hi, R): this rank's replicas lo:hi of R on a replica mesh
@@ -377,26 +384,26 @@ class BLUESSimulation:
 
     @torch.no_grad()
     def minimize(self, n_steps: int = 1000):
-        """FIRE-minimise the current positions of every replica."""
-        from ..integrators.minimize import minimize_fire
-
+        """FIRE-minimise the current positions of every replica on the MD
+        energy, graphed when ``graphs`` is set (the first graphed call
+        captures FIRE's phases, later ones replay them), else eagerly."""
         if self.state is None:
             raise RuntimeError("call initialize() first")
+        if self.minimizer is None:
+            self.minimizer = FireMinimizer(
+                self.force_md, self.system.masses, self.device, counted=self.kernel_counters(),
+                constrain_x=self._constrain[0],
+            )
         x, v, box = self.state
-        xm, _ = minimize_fire(
-            self.force_md, self.system.masses, x, box, n_steps=n_steps,
-            constrain_x=self._constrain[0],
-        )
+        xm, _ = self.minimizer(x, box, n_steps, graphs=self.graphs)
         self.state = SimState(xm, v, box)
         return self.state
 
     # ------------------------------------------------------------------
     def eager_reason(self):
         """Why this configuration's iteration runs eagerly, or None when it
-        is one that ``graphs`` captures."""
-        if self.move is not None and not self.move.graphable:
-            return "a move whose proposal copies through the host (MolDartMove with fit atoms: its SVD)"
-        return None
+        is one that ``graphs`` captures (every move of the package is)."""
+        return move_eager_reason(self.move)
 
     def run_iteration(self) -> IterationStats:
         """One MD <-> NCMC iteration on every replica; returns its stats."""
@@ -656,14 +663,7 @@ class BLUESSimulation:
     def kernel_counters(self):
         """The kernel wrappers of this simulation's energies, whose
         ``*launches`` counts the runner advances at each replay."""
-        out = {}
-        for efn in (self.energy_md, self.energy_alch):
-            nb = getattr(efn, "nonbonded", None)
-            for name in ("pair_sum", "pair_sum0", "ea_sweep"):
-                ps = getattr(nb, name, None)
-                if ps is not None and hasattr(ps, "launches"):
-                    out[id(ps)] = ps
-        return list(out.values())
+        return kernel_counters(self.energy_md, self.energy_alch)
 
     def _capture(self):
         """Warm every graphed phase up, then capture it (``graphs.py``)."""

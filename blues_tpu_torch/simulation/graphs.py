@@ -167,6 +167,28 @@ def _set_counts(counted, counts):
         setattr(counted[i], k, v)
 
 
+def move_eager_reason(move):
+    """Why a simulation with ``move`` runs eagerly, or None: only a move
+    that says it cannot be captured (``graphable`` False: a user's move
+    whose proposal copies through the host) keeps it eager."""
+    if move is not None and not move.graphable:
+        return f"a move whose proposal copies through the host ({type(move).__name__}.graphable is False)"
+    return None
+
+
+def kernel_counters(*energies):
+    """The kernel wrappers of ``energies`` (each pair sum once), whose
+    ``*launches`` counts a runner advances at each replay."""
+    out = {}
+    for efn in energies:
+        nb = getattr(efn, "nonbonded", None)
+        for name in ("pair_sum", "pair_sum0", "ea_sweep"):
+            ps = getattr(nb, name, None)
+            if ps is not None and hasattr(ps, "launches"):
+                out[id(ps)] = ps
+    return list(out.values())
+
+
 class GraphRunner:
     """The captured phases of one simulation over one static carry.
 

@@ -49,11 +49,19 @@ Phases (each prints its own line; any failure exits non-zero):
      one-box call's of the same run; and K3's poison of the one replica
      whose box shrank below ncells x cutoff (NaN), and K2's of the one
      whose box shrank below 2 (cutoff + PRUNE_MARGIN), the other seven
-     finite and equal to the plain version;
-  5. main: FIRE, then BLUESSimulation on the frozen slice, R = 8, nstepsNC =
-     nstepsMD = 50, 3 iterations;
+     finite and equal to the plain version; kabsch: the closed-form
+     (quaternion) Kabsch fit of potentials/geometry.py on 4,096 sets of 16
+     points (unrelated, rotated, reflected, turned by nearly 180 degrees,
+     planar) against torch.linalg.svd's Kabsch on the card in float64,
+     every rotation entry within KABSCH_TOL, with its time beside the SVD's;
+  5. main: FIRE (400 steps, graphed), then BLUESSimulation on the frozen
+     slice, R = 8, nstepsNC = nstepsMD = 50, 3 iterations; then FIRE again
+     from the same start eagerly and graphed (replaying the graphs the
+     first call captured): positions and energies bit for bit, ms per FIRE
+     step in each mode, the capture's time and pool;
   6. unfrozen: FIRE (200 steps), then BLUESSimulation on the unfrozen box
      with backend 'pcells', R = 8, nstepsNC = nstepsMD = 50, 3 iterations;
+     then FIRE's eager / graphed A/B as in phase 5;
   7. pallas: a short run on backend 'pallas' from the minimised positions,
      R = 2, nstepsNC = nstepsMD = 10, 1 iteration;
   8. darting: FIRE (200 steps), then the darting system at R = 8, nstepsNC
@@ -64,7 +72,10 @@ Phases (each prints its own line; any failure exits non-zero):
      every sub-move is selected, each dart moves the ligand on a replica
      that selected it at least once, and no non-finite work is accepted
      (an overlapping proposal can blow up, as in the JAX package: see
-     tests/test_torch_frozen_pairs.py);
+     tests/test_torch_frozen_pairs.py); darting_fit: the same system and
+     checks with the MolDartMove's poses fitted to the receptor frame
+     (Kabsch over the water oxygens within FIT_RADIUS of pose 1), 10 + 10
+     steps, graphed, then eager against graphed (``ab_path``);
   9. frozen_pallas, frozen_pcells: short runs of the slice on K2 with
      culled columns (compact) and on K3 with a CombinationMove (the
      full-array iteration), R = 2, 10 + 10 steps, 2 iterations;
@@ -83,8 +94,12 @@ Phases (each prints its own line; any failure exits non-zero):
      (``ab_path``, one iteration each way from one state: boxes and barostat
      state bit for bit too);
  12. mc: MonteCarloSimulation on the same box ('pcells', a rotation), R = 8,
-     5 proposals per iteration, nstepsMD = 50, 2 iterations: (5, R) stats,
-     a finite MD potential, a finite dPE wherever a proposal was accepted;
+     5 proposals per iteration, nstepsMD = 50, 2 iterations, graphed: (5, R)
+     stats, a finite MD potential, a finite dPE wherever a proposal was
+     accepted; then eager against graphed from one state (``ab_mc``):
+     decisions, dPE, MD potential, positions and generator bit for bit, the
+     proposal and MD step times in each mode, the capture, and one profiled
+     graphed iteration;
  13. check: the MD energy and forces of the final states on the card
      against the port's CPU path (the plain sums) on the same positions
      and boxes, for the frozen slice, the unfrozen box, the darting system
@@ -196,8 +211,8 @@ R = 64 run, finite unfrozen eval times, and K1, K2 and K3 launched; its
 line is printed before the kernels' line.
 
 The iteration runs graphed (CUDA graphs, simulation/graphs.py) on every
-path but phase 12's MonteCarloSimulation (its own loop); each path fails
-when a captured configuration ran eagerly. Each path (5-12, the three runs
+path, MonteCarloSimulation's and FIRE's too; each path fails when a
+captured configuration ran eagerly. Each path (5-12, the three runs
 of phase 18, phase 20's run and phase 21) must
 launch its kernels: every count is set to 0 just before the path and read
 just after, a graph's replays counted as the launches they make. Phases
@@ -311,6 +326,12 @@ GRAPH_ITER, GRAPH_SEED, TILED_AB_STEPS = 2, 2031, 2
 #: the parallel phase: the seed of its runs, the iterations of its frozen
 #: (K1) and 'pcells' (K3) runs, and the spatial check's cutoff (nm)
 PAR_SEED, PAR_ITER_FROZEN, PAR_ITER_PCELLS, PAR_CUTOFF = 2033, 2, 1, 0.9
+#: the closed-form Kabsch fit against the SVD one on the card: tolerance on
+#: the rotation's entries (float64); the fitted darting path's fit atoms:
+#: the water oxygens within FIT_RADIUS (nm) of pose 1's ligand
+KABSCH_TOL, FIT_RADIUS = 1e-10, 1.0
+#: FIRE's A/B: the graphed step replays profiled for the busy share
+FIRE_PROFILE_STEPS = 10
 #: kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "sweep": ("blues_tpu_torch/csrc/sweep_kernel.cu", "blues_tpu/potentials/pallas/sweep_kernel.py:550"),
@@ -424,7 +445,7 @@ def build_mc(device, n_atoms=N_ATOMS, cutoff=1.0):
     )
 
 
-def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
+def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0, fit=False, nsteps=None):
     """The darting path: the box with a second site, pose 2 = the ligand
     moved 1.0 nm along x, the waters whose oxygen lies within 0.4 nm of a
     pose-2 ligand atom (minimum image) removed; frozen outside 0.5 nm of
@@ -432,14 +453,19 @@ def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
     culling asked for; the move an engine of rotation (0.4), SmartDartMove
     (0.3, lab frame, radius 0.2 nm) and MolDartMove (0.3, radius 0.1 nm)
     over the two poses. The darts teleport, so the driver turns culling
-    off and the sweep resolves to the pair kernel K2. Returns the system,
-    its positions, the simulation and, per dart, its ``MovedRecorder``."""
+    off and the sweep resolves to the pair kernel K2. With ``fit`` the
+    MolDartMove superposes its poses onto the current receptor frame first
+    (Kabsch over the water oxygens within FIT_RADIUS of pose 1, frozen and
+    mobile ones). ``nsteps``: its NCMC and MD steps (NSTEPS by default).
+    Returns the system, its positions, the simulation and, per dart, its
+    ``MovedRecorder``."""
     import numpy as np
 
     from blues_tpu_torch.core.build import extract_atoms
     from blues_tpu_torch.moves import MolDartMove, MoveEngine, RandomLigandRotationMove, SmartDartMove
     from blues_tpu_torch.simulation import BLUESSimulation
 
+    nsteps = nsteps or NSTEPS
     system, x0, lig = _box(n_atoms)
     pose2 = x0.copy()
     pose2[lig] += (1.0, 0.0, 0.0)
@@ -455,16 +481,22 @@ def build_darting(device, n_atoms=N_ATOMS, cutoff=1.0):
         frozen = system.freeze_radius(x0, lig, 0.5, solvent_resnames=())
     pose2 = x0.copy()
     pose2[lig] += (1.0, 0.0, 0.0)
+    fit_atoms = None
+    if fit:
+        oxy = system.topology.select_resname("WAT")[::3]
+        d = x0[oxy][:, None] - x0[lig][None]
+        d -= L * np.round(d / L)
+        fit_atoms = oxy[np.linalg.norm(d, axis=-1).min(1) < FIT_RADIUS]
     move = MoveEngine(
         [
             RandomLigandRotationMove(lig, frozen.masses),
             SmartDartMove.from_coordinates(lig, frozen.masses, None, [x0, pose2], 0.2),
-            MolDartMove.from_coordinates(lig, [x0, pose2], 0.1),
+            MolDartMove.from_coordinates(lig, [x0, pose2], 0.1, fit_atoms=fit_atoms),
         ],
         [0.4, 0.3, 0.3],
     )
     cfg = _config(
-        nstepsNC=NSTEPS, nstepsMD=NSTEPS, cutoff=cutoff, nonbonded_backend="sweep", sweep_row_group=32,
+        nstepsNC=nsteps, nstepsMD=nsteps, cutoff=cutoff, nonbonded_backend="sweep", sweep_row_group=32,
         frozen_cull_skin=0.45, n_replicas=R_MAIN,
     )
     moved = [MovedRecorder(m, lig) for m in move.moves[1:]]
@@ -1173,7 +1205,8 @@ def _has_step(ps, step):
 
 
 def run_mc(sim, x0, counted, every, n_iter, label, card):
-    """MonteCarloSimulation from x0 for n_iter iterations, with every
+    """MonteCarloSimulation from x0 for n_iter iterations, graphed (a
+    captured configuration must run graphed: ``graph_line``), with every
     kernel count 0 just before and ``counted``'s read just after: (R,)
     finite MD potentials, (mc_per_iter, R) stats, a finite dPE wherever a
     proposal was accepted."""
@@ -1188,6 +1221,7 @@ def run_mc(sim, x0, counted, every, n_iter, label, card):
     torch.cuda.synchronize()
     t_iter = time.perf_counter() - t0
     launches = read_counts(counted)
+    graphs = graph_line(sim, label)
     R, m = sim.cfg.n_replicas, sim.mc_per_iter
     acc = np.stack([s.accepted.cpu().numpy() for s in stats])
     dpe = np.stack([s.delta_pe.double().cpu().numpy() for s in stats])
@@ -1197,7 +1231,8 @@ def run_mc(sim, x0, counted, every, n_iter, label, card):
         f"R={R} x {n_iter} iterations of {m} proposals + {sim.cfg.nstepsMD} MD steps on {card}: accepted "
         f"{int(acc.sum())} of {acc.size}, dPE median {float(np.median(dpe[np.isfinite(dpe)])):.3f} kJ/mol, non-finite "
         f"dPE {int((~np.isfinite(dpe)).sum())} (rejected), MD potential {md[-1].min():.2f} to {md[-1].max():.2f} "
-        f"kJ/mol, {t_iter / n_iter:.2f} s per iteration, launches {launches}",
+        f"kJ/mol, {t_iter / n_iter:.2f} s per iteration (the first with its capture), launches {launches}; "
+        f"{graphs}",
     )
     if acc.shape[1:] != (m, R) or dpe.shape[1:] != (m, R) or md.shape[1:] != (R,):
         raise RuntimeError(f"{label}: stats of shape {acc.shape[1:]}, {md.shape[1:]}, expected ({m}, {R}), ({R},)")
@@ -1207,6 +1242,179 @@ def run_mc(sim, x0, counted, every, n_iter, label, card):
         if n <= 0:
             raise RuntimeError(f"{label}: kernel {k} was not launched on its path")
     return dict(launches=launches)
+
+
+def ab_mc(card, sim, x0, n_iter=GRAPH_ITER):
+    """Eager against graphed on the mc path, in one process from one state:
+    ``sim`` (a MonteCarloSimulation) runs n_iter iterations eagerly from x0
+    and one seed, then graphed, each graphed iteration from the state and
+    generator state the eager one had before it. Decisions, dPE, the MD
+    potential, positions and generator must be bit for bit equal. Prints
+    each mode's iteration time, proposal ('mc') and MD step times (CUDA
+    events around each phase, iterations 2-n), the capture's time and pool,
+    and one more graphed iteration under torch.profiler: its
+    cudaGraphLaunch calls and the device's busy share."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.core.state import SimState
+
+    res, starts = {}, []
+    for mode in ("eager", "graphed"):
+        sim.graphs = mode == "graphed"
+        sim.initialize(x0, seed=GRAPH_SEED)
+        log, restore = phase_clock(sim)
+        runs = []
+        for it in range(n_iter):
+            if mode == "eager":
+                starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()))
+            else:
+                sim.state = starts[it][0]
+                sim.source.generator.set_state(starts[it][1])
+            if it == 1:
+                log.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = sim.run_iteration()
+            torch.cuda.synchronize()
+            runs.append((st, sim.state.positions.clone(), sim.source.generator.get_state(), time.perf_counter() - t0))
+        restore()
+        ms = {}
+        for name, a, b in log:
+            ms.setdefault(name, []).append(a.elapsed_time(b))
+        res[mode] = dict(runs=runs, mc_ms=float(np.mean(ms["mc"])), md_ms=float(np.mean(ms["md"])),
+                         line=graph_line(sim, "mc A/B") if sim.graphs else "eager (graphs=False)")
+    agree = {k: [] for k in ("decisions", "delta_pe", "md_potential", "positions", "generator")}
+    for (sa, xa, ga, _), (sb, xb, gb, _) in zip(res["eager"]["runs"], res["graphed"]["runs"]):
+        agree["decisions"].append(same_bits(sa.accepted, sb.accepted))
+        agree["delta_pe"].append(same_bits(sa.delta_pe, sb.delta_pe))
+        agree["md_potential"].append(same_bits(sa.md_potential, sb.md_potential))
+        agree["positions"].append(same_bits(xa, xb))
+        agree["generator"].append(same_bits(ga, gb))
+    t_graphed = float(np.mean([r[3] for r in res["graphed"]["runs"][1:]]))
+    prof = profile_iteration(sim)
+    for mode, r in res.items():
+        phase(
+            "mc",
+            f"A/B {mode} on {card}: R={sim.cfg.n_replicas}, {n_iter} iterations of {sim.mc_per_iter} proposals + "
+            f"{sim.cfg.nstepsMD} MD steps, iteration wall time {', '.join('%.4f' % u[3] for u in r['runs'])} s "
+            f"(synchronised per iteration), proposal {r['mc_ms']:.4f} ms, MD step {r['md_ms']:.4f} ms (CUDA events "
+            f"around each phase, iterations 2-{n_iter}); {r['line']}",
+        )
+    said = ", ".join(f"{k} {v}" for k, v in agree.items())
+    phase(
+        "mc",
+        f"A/B: each iteration from the eager run's start; graphed vs eager: {said}; one more graphed iteration "
+        f"under torch.profiler (wall {prof['wall']:.4f} s there): {prof['graph_launches']} cudaGraphLaunch and "
+        f"{prof['kernel_launches']} cudaLaunchKernel calls, kernel time {prof['kernel_ms']:.1f} ms in "
+        f"{prof['kernels']} kernels, device busy {prof['busy_ms']:.1f} ms = "
+        f"{100 * prof['busy_ms'] / (1e3 * t_graphed):.1f} % of the unprofiled graphed iteration; kernel launches "
+        f"seen {prof['seen']}",
+    )
+    if not all(all(v) for v in agree.values()):
+        raise RuntimeError(f"mc: graphed and eager runs are not bit for bit equal ({said})")
+    sim.graphs = True
+
+
+def ab_minimize(card, label, sim, x0, n_steps):
+    """Eager against graphed FIRE on one path, in one process from one
+    state: ``sim.minimize(n_steps)`` from x0 eagerly (``sim.graphs``
+    False), then graphed, replaying the FIRE graphs that the path's own
+    minimisation captured (a second call captures nothing). Final positions
+    and energies must be bit for bit equal. Prints ms per FIRE step in each
+    mode (host clock around the synchronised call over its steps, the
+    restart blocks' energies included), the capture's time and pool, and
+    FIRE_PROFILE_STEPS more step replays under torch.profiler: their
+    cudaGraphLaunch calls and the device's busy share of as many unprofiled
+    graphed steps."""
+    import torch
+
+    out = {}
+    runner = sim.minimizer.runner
+    for mode in ("eager", "graphed"):
+        sim.graphs = mode == "graphed"
+        sim.initialize(x0, seed=GRAPH_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.minimize(n_steps)
+        torch.cuda.synchronize()
+        out[mode] = (1e3 * (time.perf_counter() - t0) / n_steps, sim.state.positions.clone(),
+                     sim.minimizer.energy.clone())
+    same_x, same_e = same_bits(out["eager"][1], out["graphed"][1]), same_bits(out["eager"][2], out["graphed"][2])
+    mib = "not measured" if runner.pool_bytes is None else f"{runner.pool_bytes / 2**20:.1f} MiB"
+    prof = profile_iteration(sim, lambda: [runner.replay("fire_step") for _ in range(FIRE_PROFILE_STEPS)])
+    busy = 100 * prof["busy_ms"] / (FIRE_PROFILE_STEPS * out["graphed"][0])
+    phase(
+        label,
+        f"FIRE A/B on {card}: R={sim.cfg.n_replicas}, {n_steps} steps from one state, eager "
+        f"{out['eager'][0]:.4f} ms per step vs graphed {out['graphed'][0]:.4f} "
+        f"({out['eager'][0] / out['graphed'][0]:.2f}x; host clock, synchronised); capture {runner.capture_s:.2f} s, "
+        f"graph pool {mib}; graphed vs eager: "
+        f"positions {same_x}, energies {same_e} (E {float(out['graphed'][2].min()):.2f} to "
+        f"{float(out['graphed'][2].max()):.2f} kJ/mol); captured again: {sim.minimizer.runner is not runner}; "
+        f"{FIRE_PROFILE_STEPS} more step replays under torch.profiler (wall {prof['wall']:.4f} s there): "
+        f"{prof['graph_launches']} cudaGraphLaunch and {prof['kernel_launches']} cudaLaunchKernel calls, kernel time "
+        f"{prof['kernel_ms']:.1f} ms in {prof['kernels']} kernels, device busy {prof['busy_ms']:.1f} ms = {busy:.1f} % "
+        f"of as many unprofiled graphed steps; kernel launches seen {prof['seen']}",
+    )
+    if not (same_x and same_e) or sim.minimizer.runner is not runner:
+        raise RuntimeError(f"{label}: graphed FIRE is not eager FIRE bit for bit, or it captured again")
+    sim.graphs = True
+
+
+def check_kabsch(device, n_sets=4096, n_fit=16):
+    """The closed-form (QCP) Kabsch fit of ``potentials/geometry.py`` on the
+    card against ``torch.linalg.svd``'s Kabsch (the determinant correction
+    included) in float64, on n_sets sets of n_fit points batched (R, P) =
+    (64, n_sets / 64): a fifth each unrelated, rotated with noise,
+    reflected, turned by nearly 180 degrees and planar. Every rotation entry
+    within KABSCH_TOL; prints the worst per kind and each call's time, and
+    at the darting path's shape (R = 8, 2 poses) beside the SVD's."""
+    import numpy as np
+    import torch
+
+    from blues_tpu_torch.potentials.geometry import axis_angle_rotation_matrix, kabsch_align
+
+    rng = np.random.default_rng(17)
+    kinds = ("random", "rotated", "reflected", "near180", "planar")
+    P = rng.normal(size=(n_sets, n_fit, 3))
+    kind = np.arange(n_sets) % len(kinds)
+    P[kind == 4, :, 2] = 0.0
+    axis = rng.normal(size=(n_sets, 3))
+    theta = np.where(kind == 3, np.pi - rng.uniform(0.0, 1e-3, n_sets), rng.uniform(0.0, 2 * np.pi, n_sets))
+    rot = axis_angle_rotation_matrix(torch.as_tensor(axis), torch.as_tensor(theta)).numpy()
+    Q = np.einsum("nij,nfj->nfi", rot, P) + rng.normal(size=(n_sets, 1, 3)) + 0.02 * rng.normal(size=P.shape)
+    Q[kind == 2, :, 0] *= -1.0
+    Q[kind == 0] = rng.normal(size=(int((kind == 0).sum()), n_fit, 3))
+    shape = (64, n_sets // 64, n_fit, 3)
+    Pt = torch.as_tensor(P, device=device).reshape(shape)
+    Qt = torch.as_tensor(Q, device=device).reshape(shape)
+
+    def svd_kabsch(P, Q):
+        Pc, Qc = P - P.mean(-2, keepdim=True), Q - Q.mean(-2, keepdim=True)
+        H = (Pc[..., :, :, None] * Qc[..., :, None, :]).sum(-3) / P.shape[-2]
+        U, _, Vh = torch.linalg.svd(H)
+        d = torch.sign(torch.linalg.det(Vh) * torch.linalg.det(U))
+        D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+        return (Vh.transpose(-1, -2)[..., :, None, :] * D[..., None, None, :] * U[..., None, :, :]).sum(-1)
+
+    r_qcp, r_svd = kabsch_align(Pt, Qt)[0], svd_kabsch(Pt, Qt)
+    err = (r_qcp - r_svd).abs().amax((-2, -1)).reshape(-1).cpu().numpy()
+    det = float((torch.linalg.det(r_qcp) - 1.0).abs().max())
+    small = (Pt[:8, :2], Qt[:8, :2])
+    ms = {k: time_ms(lambda f=f: f(*small), 20) for k, f in (("qcp", lambda a, b: kabsch_align(a, b)[0]),
+                                                            ("svd", svd_kabsch))}
+    ms_all = time_ms(lambda: kabsch_align(Pt, Qt), 5)
+    worst = {k: float(err[kind == i].max()) for i, k in enumerate(kinds)}
+    phase(
+        "kabsch",
+        f"closed form vs torch.linalg.svd Kabsch, float64 on the card, {n_sets} sets of {n_fit} points as "
+        f"{tuple(shape[:2])}: max |dR| per kind {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} (tol "
+        f"{KABSCH_TOL:g}), max |det R - 1| {det:.3e}; {ms_all:.4f} ms a call on all sets; at the darting shape "
+        f"(8, 2): closed form {ms['qcp']:.4f} ms vs SVD {ms['svd']:.4f} ms a call (CUDA events)",
+    )
+    if not (np.isfinite(err).all() and err.max() <= KABSCH_TOL and det <= KABSCH_TOL):
+        raise RuntimeError(f"kabsch: the closed form disagrees with the SVD fit: {worst}, |det - 1| {det}")
 
 
 def run_path(sim, x0, counted, every, n_min, n_iter, label, card, after=None):
@@ -1225,6 +1433,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card, after=None):
         sim.minimize(n_min)
     torch.cuda.synchronize()
     t_min = time.perf_counter() - t0
+    fire = fire_line(sim, label) if n_min else "no FIRE"
     x_min = sim.state[0][0].cpu().numpy()
 
     timers, restore = step_timers(sim)
@@ -1268,7 +1477,7 @@ def run_path(sim, x0, counted, every, n_min, n_iter, label, card, after=None):
         f"work medians {['%.3f' % w for w in res['work_median']]} kJ/mol, "
         f"md rollbacks {res['md_failed']}, aggregate switching steps/s {res['sps']:.1f}, "
         f"NCMC micro-step {res['micro_ms']:.2f} ms, MD step {res['md_ms']:.2f} ms (synchronised per step), "
-        f"minimise {n_min} steps {t_min:.1f} s, iterations {t_iter:.1f} s, launches {launches}; {graphs}",
+        f"minimise {n_min} steps {t_min:.1f} s ({fire}), iterations {t_iter:.1f} s, launches {launches}; {graphs}",
     )
     restore()
     return res, x_min
@@ -1363,12 +1572,12 @@ def check_against_cpu(sim, system, label, raw_anchor=False, replicas=None):
 
 def phase_clock(sim):
     """CUDA events around each of ``sim``'s phases (a replay, or an eager
-    call) and around its eager protocol: (log, restore); ``log`` holds
-    (name, start, end), the protocol's under 'protocol'."""
+    call) and around its eager protocol, where it has one: (log, restore);
+    ``log`` holds (name, start, end), the protocol's under 'protocol'."""
     import torch
 
     log = []
-    run_phase, protocol = sim._run_phase, sim.protocol_fn
+    run_phase, protocol = sim._run_phase, getattr(sim, "protocol_fn", None)
 
     def event():
         e = torch.cuda.Event(enable_timing=True)
@@ -1386,11 +1595,14 @@ def phase_clock(sim):
         log.append(("protocol", a, event()))
         return out
 
-    sim._run_phase, sim.protocol_fn = timed_phase, timed_protocol
+    sim._run_phase = timed_phase
+    if protocol is not None:
+        sim.protocol_fn = timed_protocol
 
     def restore():
         del sim._run_phase
-        sim.protocol_fn = protocol
+        if protocol is not None:
+            sim.protocol_fn = protocol
 
     return log, restore
 
@@ -1441,11 +1653,11 @@ def identical(agree):
     return all(all(v) for k, v in agree.items() if k not in ("dx", "dw"))
 
 
-def profile_iteration(sim):
-    """One more iteration of ``sim`` under torch.profiler: {wall s, its
-    cudaGraphLaunch and cudaLaunchKernel calls, kernels, kernel ms, device
-    busy ms (the union of the kernels' intervals: a graph's independent
-    kernels may overlap), K1/K2/K3 launches seen}."""
+def profile_iteration(sim, work=None):
+    """One more iteration of ``sim`` (or ``work()``) under torch.profiler:
+    {wall s, its cudaGraphLaunch and cudaLaunchKernel calls, kernels, kernel
+    ms, device busy ms (the union of the kernels' intervals: a graph's
+    independent kernels may overlap), K1/K2/K3 launches seen}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1453,7 +1665,7 @@ def profile_iteration(sim):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.run_iteration()
+        (work or sim.run_iteration)()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     avg = prof.key_averages()
@@ -1795,13 +2007,6 @@ def check_run(sim, stats, label, finite_velocities=True):
         raise RuntimeError(f"{label}: MD rolled back everywhere")
 
 
-def half_cells(sim):
-    """Swap ``sim``'s every-atom cell lists for half-neighbourhood ones over
-    the same features."""
-    for efn in (sim.energy_md, sim.energy_alch):
-        efn.nonbonded.pair_sum = efn.nonbonded.half_neighborhood_sum()
-
-
 def run_backends(device, card, system, x_min, cutoff=1.0):
     """Phase backends: the plain pair backends 'cells' (full and half
     neighbourhood), 'tiled' and 'verlet' on the unfrozen box (every atom
@@ -1953,7 +2158,7 @@ def run_backends(device, card, system, x_min, cutoff=1.0):
             device=device,
         )
         if be == "cells_half":
-            half_cells(sim_b)
+            _helpers().half_cells(sim_b)
         ab_path(card, "backends", be, sim_b, x_min, {}, [])
     phase("backends", f"verlet and A/B {time.perf_counter() - t1:.1f} s; phase time {time.perf_counter() - t0:.1f} s "
           f"(checks {t_check:.1f} s)")
@@ -2296,7 +2501,7 @@ def graph_line(sim, label):
     eagerly, or the other way round."""
     reason = sim.eager_reason()
     runner = sim.runner
-    ran = bool(sim.graphs and runner is not None and runner.replays.get("begin", 0) > 0)
+    ran = bool(sim.graphs and runner is not None and any(runner.replays.values()))
     if ran != (reason is None):
         raise RuntimeError(f"{label}: the configuration is {'eager (' + reason + ')' if reason else 'captured'}, "
                            f"but its iterations ran {'graphed' if ran else 'eagerly'}")
@@ -2305,6 +2510,21 @@ def graph_line(sim, label):
     mib = "not measured" if runner.pool_bytes is None else f"{runner.pool_bytes / 2**20:.1f} MiB"
     return (f"graphed: {sum(runner.replays.values())} replays of {len(runner.graphs)} graphs, capture "
             f"{runner.capture_s:.2f} s, graph pool {mib}, static carry {runner.carry_bytes / 2**20:.1f} MiB")
+
+
+def fire_line(sim, label):
+    """How ``sim``'s last ``minimize`` ran; fails when a graphed simulation
+    minimised eagerly."""
+    runner = getattr(sim.minimizer, "runner", None)
+    ran = bool(runner is not None and runner.replays.get("fire_step", 0) > 0)
+    if ran != bool(sim.graphs):
+        raise RuntimeError(f"{label}: the simulation is {'graphed' if sim.graphs else 'eager'}, but FIRE ran "
+                           f"{'graphed' if ran else 'eagerly'}")
+    if not ran:
+        return "FIRE eager"
+    mib = "not measured" if runner.pool_bytes is None else f"{runner.pool_bytes / 2**20:.1f} MiB"
+    return (f"FIRE graphed: {runner.replays['fire_step']} step replays, capture {runner.capture_s:.2f} s, "
+            f"graph pool {mib}")
 
 
 class KeepStats:
@@ -2390,6 +2610,19 @@ def _fixtures():
     import _torch_amber
 
     return _torch_amber
+
+
+def _helpers():
+    """tests/_torch_helpers.py (``half_cells``), with this process's
+    intra-op threads kept: the module sets one, for the tests' workers."""
+    import torch
+
+    n = torch.get_num_threads()
+    _fixtures()
+    import _torch_helpers
+
+    torch.set_num_threads(n)
+    return _torch_helpers
 
 
 def run_cli(device, card, every, main_res, n_atoms=N_ATOMS, cutoff=1.0):
@@ -3037,6 +3270,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     kres.update(check_kernels(of(nocull_sums), xs_d, box_d, (20, 3)))
     kres.update(check_kernels(of({**culled_sums, **fcells_sums}), xs_f, box_f, (20, 3)))
     check_periodic_sweeps(device)
+    check_kabsch(device)
     x8 = xs_u[R_MAIN]
     pair_main = pair_sums["pair_main"][0]
     compare(
@@ -3078,11 +3312,25 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
         v for sums in (sweep_sums, cells_sums, pair_sums, frozen_off, npt_sums, mc_sums) for v in sums.values()
     ]
     main_res, xf_min = run_path(sim, x0, sweep_sums, every, N_MIN_FROZEN, N_ITER, "main", card)
+    # FIRE eagerly and graphed from one state (K1, then K3)
+    ab_minimize(card, "main", sim, x0, N_MIN_FROZEN)
     unf_res, xu_min = run_path(sim_c, xu0, cells_sums, every, N_MIN_UNFROZEN, N_ITER, "unfrozen", card)
+    ab_minimize(card, "unfrozen", sim_c, xu0, N_MIN_UNFROZEN)
     pal_res, _ = run_path(sim_p, xu_min, pair_sums, every, 0, 1, "pallas", card)
     dart_res, _ = run_path(sim_d, xd0, nocull_sums, every, N_MIN_DART, N_ITER, "darting", card,
                            after=lambda: [m.take() for m in dart_moved])
     check_darting(sim_d, dart, dart_res, sweep_sums, dart_moved)
+    # the same with the MolDartMove's poses fitted to the receptor frame
+    # (its closed-form Kabsch fit, graphed), then eager against graphed
+    dart_f, xf0_d, sim_df, fit_moved = build_darting(device, n_atoms, cutoff, fit=True, nsteps=NSTEPS_PALLAS)
+    fit_sums = sums_of(sim_df, "pair", "pair_nocull")
+    every_fit = every + list(fit_sums.values())
+    fit_res, xdf_min = run_path(sim_df, xf0_d, fit_sums, every_fit, N_MIN_DART, N_ITER, "darting_fit", card,
+                                after=lambda: [m.take() for m in fit_moved])
+    check_darting(sim_df, dart_f, fit_res, sweep_sums, fit_moved, label="darting_fit")
+    phase("darting_fit", f"{len(sim_df.move.moves[2].fit_atoms)} fit atoms (water oxygens within {FIT_RADIUS} nm "
+          "of pose 1), the MolDartMove's fit in closed form")
+    ab_path(card, "darting_fit", "fitted MolDartMove", sim_df, xdf_min, fit_sums, every_fit)
     fp_res, _ = run_path(sim_fp, xf_min, culled_sums, every, 0, N_ITER_SHORT, "frozen_pallas", card)
     fc_res, _ = run_path(sim_fc, xf_min, fcells_sums, every, 0, N_ITER_SHORT, "frozen_pcells", card)
     water, _, sim_w = build_water(device, n_atoms, cutoff)
@@ -3092,6 +3340,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     npt_res, _ = run_path(sim_n, xu_min, npt_sums, every, 0, N_ITER, "npt", card)
     check_npt(sim_n, npt_res)
     mc_res = run_mc(sim_mc, xu_min, mc_sums, every, N_ITER_SHORT, "mc", card)
+    ab_mc(card, sim_mc, xu_min)
     check_against_cpu(sim, frozen, "frozen")
     check_against_cpu(sim_c, unfrozen, "unfrozen", raw_anchor=True, replicas=[0])
     check_against_cpu(sim_d, dart, "darting", raw_anchor=True, replicas=[0])
@@ -3135,7 +3384,7 @@ def smoke(device, card, n_atoms=N_ATOMS, cutoff=1.0):
     kres.update(nocut)
     for r in (main_res, unf_res, pal_res, dart_res, fp_res, fc_res, npt_res, mc_res):
         launches.update(r["launches"])
-    for k, n in list(par_launches.items()) + list(gb["kernel_launches"].items()):
+    for k, n in list(par_launches.items()) + list(gb["kernel_launches"].items()) + list(fit_res["launches"].items()):
         launches[k] = launches.get(k, 0) + n
     kernels = [
         {

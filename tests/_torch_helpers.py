@@ -1,6 +1,8 @@
-"""Shared settings of the PyTorch-port parity tests (test_torch_*.py)."""
+"""Shared settings of the PyTorch-port parity tests (test_torch_*.py).
 
-import jax.numpy as jnp
+Importing it imports no JAX (``F64Jnp`` imports ``jax.numpy`` when it is
+used), so ``chip_smoke.py`` takes ``half_cells`` from here too."""
+
 import torch
 
 # the tier-1 run spreads test files over several worker processes on one
@@ -26,14 +28,23 @@ class F64Jnp:
     under x64, it runs the JAX PME formulas with the charge grid in float64
     (the package spreads into a float32 grid even under x64)."""
 
-    float32 = jnp.float64
-
     def __getattr__(self, name):
-        return getattr(jnp, name)
+        import jax.numpy as jnp
+
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
 
     @staticmethod
     def einsum(*args, preferred_element_type=None, **kw):
+        import jax.numpy as jnp
+
         return jnp.einsum(*args, **kw)
+
+
+def half_cells(sim):
+    """Swap the every-atom cell lists of ``sim``'s energies for
+    half-neighbourhood ones over the same features."""
+    for efn in (sim.energy_md, sim.energy_alch):
+        efn.nonbonded.pair_sum = efn.nonbonded.half_neighborhood_sum()
 
 
 def assert_same_fields(p, j, path="system"):

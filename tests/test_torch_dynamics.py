@@ -177,3 +177,37 @@ def test_compacted_protocol_matches_full(sys_):
     for k in ("protocol_work", "e_initial", "e_final", "mid_work"):
         assert torch.allclose(getattr(cmp_, k), getattr(full, k), rtol=1e-12, atol=1e-9), k
     assert torch.allclose(x.index_copy(1, comp.mobile_idx_t, cmp_.positions), full.positions, rtol=0, atol=1e-12)
+
+
+def test_fire_matches_jax(sys_):
+    """FIRE minimisation, 200 steps (two restart blocks) at f64 from the
+    same two starts (the box, and its mobile atoms shifted by up to 0.01
+    nm): the port's ``minimize_fire`` at R = 2 against the JAX package's
+    under ``jax.vmap``, with the constraint projection every step; final
+    positions within 1e-6 nm and energies within the sweep tests' energy
+    tolerance. The port's phases run eagerly here; graphed they give the
+    same bits (``tests/test_torch_graphs.py``)."""
+    from blues_tpu.integrators.minimize import minimize_fire as j_fire
+    from blues_tpu_torch.integrators.minimize import minimize_fire as t_fire
+
+    fr, pt, x = sys_["jax"], sys_["port"], sys_["x"]
+    md, pm = fr.replace(alchemical=None), pt.replace(alchemical=None)
+    shift = 0.01 * np.random.default_rng(4).uniform(-1.0, 1.0, x.shape) * (fr.masses > 0)[:, None]
+    xs = np.stack([x, x + shift])
+    boxes = np.stack([np.asarray(md.box, np.float64)] * 2)
+    with jax.enable_x64(True):
+        ffn = je.make_force_fn(je.make_energy_fn(md, nonbonded_backend="tiled", **KW))
+        cx, _ = jc.make_constraint_fns(md.constraints, md.masses)
+
+        def _min(xr, box):
+            return j_fire(ffn, md.masses, xr, box, n_steps=200, constrain_x=cx)
+
+        xj, ej = jax.jit(jax.vmap(_min))(jnp.asarray(xs), jnp.asarray(boxes))
+        xj, ej = np.asarray(xj), np.asarray(ej)
+    ffn_t = te.make_force_fn(te.make_energy_fn(pm, nonbonded_backend="sweep", **KW, device=DEVICE))
+    tcx, _ = tc.make_constraint_fns(pm.constraints, pm.masses, device=DEVICE)
+    xt, et = t_fire(ffn_t, pm.masses, torch.as_tensor(xs), torch.as_tensor(boxes), n_steps=200, constrain_x=tcx)
+    moved = np.abs(xj - xs).max()
+    assert moved > 0.01 and (ej < 0).all()
+    np.testing.assert_allclose(xt.numpy(), xj, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(et.numpy(), ej, rtol=5e-5, atol=1e-2)

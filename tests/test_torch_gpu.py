@@ -23,8 +23,9 @@ prmtop on the card, its energies against the CPU's. The graphed iteration
 unfrozen 'pcells' box at R = 2, and two eager runs from one state and
 generator, bit for bit; likewise the barostat, 'cells', 'verlet' and
 generalized Born ('dense' and K2), captured with ``graphs=None``; K2 in
-its no-cutoff mode against its plain version; and a capture refusing a
-host sync. The parallel package at world
+its no-cutoff mode against its plain version; a capture refusing a host
+sync; and ``MonteCarloSimulation``, FIRE minimisation (K1 and K3) and a
+``MolDartMove`` with fit atoms graphed against eager, bit for bit. The parallel package at world
 size 1 over ``nccl``: the spatial force function on both FFT paths
 against the single-device 'tiled' energy, a sharded R = 4 graphed
 iteration bit for bit equal to the unsharded one, and the refusals of a
@@ -720,6 +721,124 @@ def test_graph_capture_refuses_a_host_sync_on_the_card():
     with pytest.raises(GraphCaptureError):
         sim.run_iteration()
     assert torch.equal(sim.state.positions, x0) and torch.equal(sim.source.generator.get_state(), gen0)
+
+
+def _unfrozen_box():
+    """The 1,202-atom unfrozen toluene + TIP3P box of ``_graph_sim``:
+    (system, positions, ligand atoms)."""
+    from blues_tpu_torch.core.build import solvated_ligand_box
+    from blues_tpu_torch.core.system import AlchemicalRegion
+    from blues_tpu_torch.ligands import toluene_system
+
+    lig, lig_x = toluene_system()
+    system, x = solvated_ligand_box(lig, lig_x, 1200, seed=5)
+    li = system.topology.select_resname("LIG")
+    return system.replace(alchemical=AlchemicalRegion(atoms=li)), np.asarray(x), li
+
+
+def _replayed_runs(sim, n_iter, starts, step):
+    """n_iter iterations of ``sim`` (``step()``), each from ``starts[it]``
+    (state, generator state) when given, else recording its start there:
+    [(result, positions, generator state)]."""
+    from blues_tpu_torch.core.state import SimState
+
+    out, record = [], not starts
+    for it in range(n_iter):
+        if record:
+            starts.append((SimState(*(t.clone() for t in sim.state)), sim.source.generator.get_state()))
+        else:
+            sim.state = starts[it][0]
+            sim.source.generator.set_state(starts[it][1])
+        out.append((step(), sim.state.positions.clone(), sim.source.generator.get_state()))
+    torch.cuda.synchronize()
+    return out
+
+
+def test_montecarlo_graphed_matches_eager_on_the_card():
+    """``MonteCarloSimulation`` on the unfrozen 'pcells' box (K3), R = 2, 2
+    proposals and 10 MD steps an iteration: with ``graphs=None`` it
+    captures; two iterations eagerly, then graphed from the eager ones'
+    starts, bit for bit (decisions, dPE, MD potential, positions,
+    generator); K3 launched by the replays."""
+    from blues_tpu_torch.moves import RandomLigandRotationMove
+    from blues_tpu_torch.simulation import MonteCarloSimulation, SimulationConfig
+
+    dev = _cuda()
+    system, x, li = _unfrozen_box()
+    cfg = SimulationConfig(nstepsMD=10, dt=0.002, nonbonded_method="PME", cutoff=0.6, nonbonded_backend="pcells",
+                           ewald_tolerance=5e-4, n_replicas=2)
+    out, starts = {}, []
+    for graphs in (False, None):
+        sim = MonteCarloSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, mc_per_iter=2,
+                                   device=dev, graphs=graphs)
+        assert sim.graphs == (graphs is None)
+        sim.initialize(x, seed=5)
+        ps = sim.energy.nonbonded.pair_sum
+        ps.launches = 0
+        out[graphs] = (sim, _replayed_runs(sim, 2, starts, sim.run_iteration), ps.launches)
+    (se, re_, ne), (sg, rg, ng) = out[False], out[None]
+    for (a, xa, ga), (b, xb, gb) in zip(re_, rg):
+        for k in a._fields:
+            assert _same_bits(getattr(a, k), getattr(b, k)), k
+        assert _same_bits(xa, xb) and torch.equal(ga, gb)
+    assert sg.runner.replays == {"mc": 4, "mc_md_start": 2, "md": 20, "mc_end": 2}
+    assert ne > 0 and ng >= ne
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_minimize_graphed_matches_eager_on_the_card(case):
+    """``BLUESSimulation.minimize``, 200 FIRE steps at R = 2 on the frozen
+    'sweep' box (K1) and the unfrozen 'pcells' box (K3), eagerly and
+    graphed from one state: positions and energies bit for bit; a second
+    graphed call replays the graphs it captured."""
+    dev = _cuda()
+    out = {}
+    for graphs in (False, None):
+        sim, x = _graph_sim(case, graphs, dev=dev)
+        sim.initialize(x, seed=5)
+        sim.minimize(200)
+        torch.cuda.synchronize()
+        out[graphs] = sim
+    se, sg = out[False], out[None]
+    assert se.minimizer.runner is None and sg.minimizer.runner is not None
+    assert _same_bits(se.state.positions, sg.state.positions)
+    assert _same_bits(se.minimizer.energy, sg.minimizer.energy) and torch.isfinite(sg.minimizer.energy).all()
+    runner = sg.minimizer.runner
+    sg.minimize(100)
+    assert sg.minimizer.runner is runner and runner.replays["fire_step"] == 300
+
+
+def test_fitted_mol_dart_graphed_matches_eager_on_the_card():
+    """A ``MolDartMove`` with fit atoms (the waters within 0.6 nm of the
+    ligand; the second pose 0.5 nm along x) on the unfrozen 'pcells' box,
+    R = 2: with ``graphs=None`` it captures (its Kabsch fit is a closed form
+    in tensor ops); two iterations eagerly, then graphed from the eager
+    ones' starts, bit for bit, the dart firing in iteration 1."""
+    from blues_tpu_torch.moves import MolDartMove, MoveEngine
+    from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig
+
+    dev = _cuda()
+    system, x, li = _unfrozen_box()
+    oxy = system.topology.select_resname("WAT")[::3]
+    near = oxy[np.linalg.norm(x[oxy][:, None] - x[li][None], axis=-1).min(1) < 0.6]
+    pose2 = x.copy()
+    pose2[li] += (0.5, 0.0, 0.0)
+    move = MoveEngine([MolDartMove.from_coordinates(li, [x, pose2], dart_radius=0.1, fit_atoms=near)])
+    cfg = SimulationConfig(nstepsNC=10, nstepsMD=10, md_report_interval=5, dt=0.002, nonbonded_method="PME",
+                           cutoff=0.6, nonbonded_backend="pcells", ewald_tolerance=5e-4, n_replicas=2)
+    out, starts = {}, []
+    for graphs in (False, None):
+        sim = BLUESSimulation(system, move, cfg, device=dev, graphs=graphs)
+        assert sim.eager_reason() is None and sim.graphs == (graphs is None)
+        sim.initialize(x, seed=5)
+        out[graphs] = _replayed_runs(sim, 2, starts, sim.run_iteration_frames)
+    for ((a, fa, na), xa, ga), ((b, fb, nb), xb, gb) in zip(out[False], out[None]):
+        for k in a._fields:
+            assert _same_bits(getattr(a, k), getattr(b, k)), k
+        assert _same_bits(fa, fb) and _same_bits(na.positions, nb.positions) and _same_bits(na.work, nb.work)
+        assert _same_bits(xa, xb) and torch.equal(ga, gb)
+    centres = out[None][0][0][2].positions[:, :, li].mean(2)  # (R, 3 frames, 3): start, move, end
+    assert bool(((centres[:, 1, 0] - centres[:, 0, 0]) > 0.3).all())
 
 
 # --- parallel: world size 1 over nccl (blues_tpu_torch.parallel) ----------

@@ -42,11 +42,11 @@ from blues_tpu_torch.moves import MolDartMove, RandomLigandRotationMove
 from blues_tpu_torch.potentials.clusters import ClusterPairSum
 from blues_tpu_torch.potentials.sweep import SweepPairSum
 from blues_tpu_torch.potentials.triclinic import reduce_box_vectors
-from blues_tpu_torch.simulation import BLUESSimulation, SimulationConfig, graphs
+from blues_tpu_torch.simulation import BLUESSimulation, MonteCarloSimulation, SimulationConfig, graphs
 from blues_tpu_torch.testsystems import t4_scale_toluene_box
 
 from _torch_amber import droplet, write_amber
-from _torch_helpers import DEVICE
+from _torch_helpers import DEVICE, half_cells
 
 
 class RerunGraph:
@@ -108,13 +108,6 @@ def _droplet(tmp_path):
     return drop.replace(alchemical=AlchemicalRegion(atoms=li)), np.asarray(xd), li
 
 
-def _half(sim):
-    """Every-atom cell lists of ``sim`` swapped for half-neighbourhood ones
-    over the same features."""
-    for efn in (sim.energy_md, sim.energy_alch):
-        efn.nonbonded.pair_sum = efn.nonbonded.half_neighborhood_sum()
-
-
 PLAIN = dict(cutoff=0.35, ewald_tolerance=5e-4)
 #: the cell lists scan 3-6x the slots of 'tiled' on so small a
 #: box: their cases take one replica and 2 + 2 steps, an MD frame after each
@@ -162,7 +155,7 @@ def test_graphed_iteration_equals_eager(case, rerun, tmp_path):
     system, x, li = _droplet(tmp_path) if case == "gb" else _box(n_atoms, frozen, skew)
     n_atoms = system.n_atoms
     cfg = _config(case)
-    prepare = _half if case == "cells_half" else None
+    prepare = half_cells if case == "cells_half" else None
     eager, e_out = _run(system, x, li, cfg, False, prepare=prepare)
     graphed, g_out = _run(system, x, li, cfg, True, prepare=prepare)
     assert not eager.graphs and graphed.graphs and graphed.eager_reason() is None
@@ -245,19 +238,35 @@ def test_graphed_iteration_without_move_or_md_equals_eager(rerun):
     assert sim.runner.replays["md"] == 0 and sim.runner.replays["micro"] == 3 * sim.schedule.n_micro
 
 
+class HostMove(RandomLigandRotationMove):
+    """A user's move that says its proposal copies through the host."""
+
+    graphable = False
+
+
 def test_graphs_true_outside_the_captured_set_raises():
-    """The one configuration that stays eager, a ``MolDartMove`` with fit
-    atoms (its SVD copies through the host), refuses ``graphs=True`` at
-    construction; with ``graphs=None`` it runs eagerly, as every
-    simulation on the CPU."""
+    """Every move of the package is capturable, a ``MolDartMove`` with fit
+    atoms too (its Kabsch fit is a closed form in tensor ops); a user's
+    move that sets ``graphable = False`` keeps both simulations eager: it
+    refuses ``graphs=True`` at construction and with ``graphs=None`` runs
+    eagerly, as every simulation on the CPU."""
+    import blues_tpu_torch.moves as moves
+
     system, x, li = _box(1200, False)
     cfg = _config("unfrozen")
-    move = MolDartMove.from_coordinates(li, [x, x + 0.3], dart_radius=0.1, fit_atoms=np.arange(3))
-    assert not move.graphable
-    with pytest.raises(ValueError, match="runs eagerly"):
-        BLUESSimulation(system, move, cfg, device=DEVICE, graphs=True)
-    sim = BLUESSimulation(system, move, cfg, device=DEVICE)
-    assert not sim.graphs and "MolDartMove" in sim.eager_reason()
+    fitted = MolDartMove.from_coordinates(li, [x, x + 0.3], dart_radius=0.1, fit_atoms=np.arange(3))
+    engine = moves.MoveEngine([RandomLigandRotationMove(li, system.masses), fitted])
+    for m in (fitted, engine, moves.CombinationMove([fitted, moves.NullMove()])):
+        assert m.graphable and BLUESSimulation(system, m, cfg, device=DEVICE).eager_reason() is None
+    # every move class of the package: capturable, or (engine, combination) as its sub-moves are
+    classes = [c for c in vars(moves).values() if isinstance(c, type) and issubclass(c, moves.Move)]
+    assert len(classes) == 9 and all(c.graphable is True or isinstance(c.graphable, property) for c in classes)
+    move = HostMove(li, system.masses)
+    for cls in (BLUESSimulation, MonteCarloSimulation):
+        with pytest.raises(ValueError, match="runs eagerly"):
+            cls(system, move, cfg, device=DEVICE, graphs=True)
+        sim = cls(system, move, cfg, device=DEVICE)
+        assert not sim.graphs and "HostMove.graphable is False" in sim.eager_reason()
 
 
 def test_a_phase_that_syncs_the_host_raises_at_capture(rerun):
@@ -312,3 +321,119 @@ def test_runner_counts_replays_and_copies_aliased_outputs(rerun):
     assert torch.equal(runner.carry["a"], b0) and torch.equal(runner.carry["b"], a0 + u)
     runner.replay("swap")
     assert w.launches == 4 and runner.replays == {"swap": 2}
+
+
+def _mc(system, li, cfg, graphed):
+    return MonteCarloSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, mc_per_iter=2,
+                                device=DEVICE, graphs=graphed)
+
+
+def test_montecarlo_graphed_equals_eager(rerun, tmp_path):
+    """``MonteCarloSimulation`` at R = 2, 2 proposals and 5 MD steps an
+    iteration on the unfrozen 'pcells' box: two iterations graphed equal two
+    eager ones bit for bit (decisions, dPE, MD potential, state,
+    generator), each phase replayed as often as it ran; a checkpoint of the
+    graphed run after iteration 1, loaded into the graphed simulation,
+    captures anew and repeats iteration 2 bit for bit."""
+    from blues_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+
+    system, x, li = _box(1200, False)
+    cfg = _config("unfrozen", nstepsMD=5)
+    runs = {}
+    for graphed in (False, True):
+        sim = _mc(system, li, cfg, graphed)
+        sim.initialize(x, seed=13)
+        out = [sim.run_iteration()]
+        if graphed:
+            save_checkpoint(str(tmp_path / "mc.npz"), sim)
+        out.append(sim.run_iteration())
+        runs[graphed] = (sim, out)
+    (eager, e_out), (graphed, g_out) = runs[False], runs[True]
+    assert not eager.graphs and graphed.graphs and graphed.eager_reason() is None
+    for a, b in zip(e_out, g_out):
+        assert a.accepted.shape == (2, 2) and a.md_potential.shape == (2,)
+        for k in a._fields:
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert all(torch.equal(a, b) for a, b in zip(eager.state, graphed.state))
+    assert torch.equal(eager.source.generator.get_state(), graphed.source.generator.get_state())
+    assert graphed.runner.replays == {"mc": 4, "mc_md_start": 2, "md": 10, "mc_end": 2}
+    assert not torch.equal(g_out[0].delta_pe, g_out[1].delta_pe)  # iteration 1's stats kept, not overwritten
+    load_checkpoint(str(tmp_path / "mc.npz"), graphed)
+    assert graphed.runner is None
+    again = graphed.run_iteration()
+    for k in again._fields:
+        assert torch.equal(getattr(again, k), getattr(g_out[1], k)), k
+    assert all(torch.equal(a, b) for a, b in zip(eager.state, graphed.state))
+
+
+def test_montecarlo_capture_refuses_an_unstaged_velocity_scale(rerun):
+    """The MD start draws Maxwell-Boltzmann velocities with the scale
+    ``initialize`` staged; without it the scale is made from the host
+    masses in the phase, which the capture guard refuses, naming the
+    phase, and nothing runs eagerly in its place."""
+    system, x, li = _box(1200, False)
+    sim = _mc(system, li, _config("unfrozen", nstepsMD=2), True)
+    sim.initialize(x, seed=13)
+    sim._v_scale = None
+    x0, gen0 = sim.state[0].clone(), sim.source.generator.get_state()
+    with pytest.raises(graphs.GraphCaptureError, match="'mc_md_start' calls .*as_tensor"):
+        sim.run_iteration()
+    assert torch.equal(sim.state[0], x0) and torch.equal(sim.source.generator.get_state(), gen0)
+
+
+def test_minimize_graphed_equals_eager(rerun):
+    """``BLUESSimulation.minimize`` at R = 2, 200 FIRE steps (two restart
+    blocks) on a frozen 3,001-atom 'sweep' box (FIRE on the full state):
+    graphed equals eager bit for bit (positions, energies); a second call
+    replays the same graphs (no new capture), whatever its step count."""
+    system, x, li = _box(3000, True)
+    cfg = _config("frozen")
+    out = {}
+    for graphed in (False, True):
+        sim = BLUESSimulation(system, RandomLigandRotationMove(li, system.masses), cfg, device=DEVICE,
+                              graphs=graphed)
+        sim.initialize(x, seed=3)
+        sim.minimize(200)
+        out[graphed] = sim
+    eager, graphed = out[False], out[True]
+    assert torch.equal(eager.state.positions, graphed.state.positions)
+    assert torch.equal(eager.minimizer.energy, graphed.minimizer.energy)
+    assert eager.minimizer.runner is None
+    runner = graphed.minimizer.runner
+    assert runner.replays == {"fire_begin": 1, "fire_reset": 2, "fire_step": 200, "fire_block": 2, "fire_end": 1}
+    e0 = graphed.energy_md(torch.as_tensor(x, dtype=torch.float32)[None].expand(2, -1, -1), graphed.state.box)
+    assert (graphed.minimizer.energy < e0).all()
+    graphed.minimize(100)
+    assert graphed.minimizer.runner is runner and runner.replays["fire_step"] == 300
+
+
+def test_fitted_mol_dart_graphed_equals_eager(rerun):
+    """A ``BLUESSimulation`` whose move is a ``MolDartMove`` with fit atoms
+    (the waters within 0.6 nm of the ligand; the second pose 0.5 nm along
+    x) on the unfrozen 'pcells' box, R = 2: graphed equals eager bit for
+    bit over two iterations, the dart firing (the ligand jumps at the
+    midpoint on every replica of iteration 1)."""
+    from blues_tpu_torch.moves import MoveEngine
+
+    system, x, li = _box(1200, False)
+    oxy = system.topology.select_resname("WAT")[::3]
+    near = oxy[np.linalg.norm(x[oxy][:, None] - x[li][None], axis=-1).min(1) < 0.6]
+    pose2 = x.copy()
+    pose2[li] += (0.5, 0.0, 0.0)
+    move = MolDartMove.from_coordinates(li, [x, pose2], dart_radius=0.1, fit_atoms=near)
+    assert len(near) >= 3 and move.graphable
+    cfg = _config("unfrozen")
+    out = {}
+    for graphed in (False, True):
+        sim = BLUESSimulation(system, MoveEngine([move]), cfg, device=DEVICE, graphs=graphed)
+        sim.initialize(x, seed=21)
+        out[graphed] = (sim, [sim.run_iteration_frames() for _ in range(2)])
+    (eager, e_out), (graphed, g_out) = out[False], out[True]
+    assert graphed.graphs and graphed.runner.replays["move"] == 2
+    for (se, me, ne), (sg, mg, ng) in zip(e_out, g_out):
+        for k in se._fields:
+            assert torch.equal(getattr(se, k), getattr(sg, k)), k
+        assert torch.equal(me, mg) and torch.equal(ne.positions, ng.positions) and torch.equal(ne.work, ng.work)
+    assert all(torch.equal(a, b) for a, b in zip(eager.state, graphed.state))
+    snaps = g_out[0][2].positions[:, :, li].mean(2)  # (R, 3 frames, 3) ligand centres: start, move, end
+    assert ((snaps[:, 1, 0] - snaps[:, 0, 0]) > 0.3).all()

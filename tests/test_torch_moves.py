@@ -451,6 +451,74 @@ def test_combination_matches_jax():
 # --- geometry and draws --------------------------------------------------------
 
 
+def _kabsch_sets(kind, rng, n=8, f=7):
+    """(n, f, 3) pairs of point sets P, Q of one kind: Q a random rotation
+    (about 180 degrees for 'near180') and translation of P plus noise,
+    mirrored ('reflected'), P flat ('planar'), unrelated ('random'), or
+    every point of each set at one place ('coincident')."""
+    P = rng.normal(size=(n, f, 3))
+    if kind == "coincident":
+        return np.broadcast_to(P[:, :1], P.shape).copy(), np.broadcast_to(rng.normal(size=(n, 1, 3)), P.shape).copy()
+    if kind == "random":
+        return P, rng.normal(size=(n, f, 3))
+    if kind == "planar":
+        P[..., 2] = 0.0
+    axis = rng.normal(size=(n, 3))
+    theta = np.pi - rng.uniform(0.0, 1e-3, n) if kind == "near180" else rng.uniform(0.0, 2 * np.pi, n)
+    rot = tg.axis_angle_rotation_matrix(torch.as_tensor(axis), torch.as_tensor(theta)).numpy()
+    Q = np.einsum("nij,nfj->nfi", rot, P) + rng.normal(size=(n, 1, 3)) + 0.02 * rng.normal(size=P.shape)
+    if kind == "reflected":
+        Q[..., 0] *= -1.0
+    return P, Q
+
+
+def _numpy_kabsch(P, Q):
+    """The float64 SVD Kabsch with the determinant correction (numpy)."""
+    Pc, Qc = P - P.mean(-2, keepdims=True), Q - Q.mean(-2, keepdims=True)
+    U, _, Vt = np.linalg.svd(np.einsum("nfi,nfj->nij", Pc, Qc))
+    V, Ut = np.swapaxes(Vt, -1, -2), np.swapaxes(U, -1, -2)
+    D = np.eye(3)[None].repeat(len(P), 0)
+    D[:, 2, 2] = np.sign(np.linalg.det(V @ Ut))
+    return V @ D @ Ut
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("kind", ["random", "reflected", "near180", "planar", "coincident"])
+def test_closed_form_kabsch_matches_svd(kind, dtype):
+    """The closed-form (QCP) ``kabsch_align`` against the JAX package's SVD
+    Kabsch and against numpy's float64 SVD, batched over 8 sets of 7
+    points: the rotation within 1e-6 in float64 (1e-4 from float32
+    positions), a proper rotation (det +1, orthonormal), the centres of mass
+    and ``superpose``; coincident points give the identity (no rotation
+    is defined there: JAX's SVD of its rounding-level covariance returns
+    any)."""
+    rng = np.random.default_rng(["random", "reflected", "near180", "planar", "coincident"].index(kind))
+    P, Q = _kabsch_sets(kind, rng)
+    tol = 1e-6 if dtype == "float64" else 1e-4
+    Pt, Qt = torch.as_tensor(P, dtype=getattr(torch, dtype)), torch.as_tensor(Q, dtype=getattr(torch, dtype))
+    rot, cp, cq = tg.kabsch_align(Pt, Qt)
+    assert rot.dtype == cp.dtype == Pt.dtype and rot.shape == (8, 3, 3)
+    r = rot.double().numpy()
+    assert np.all(np.isfinite(r))
+    np.testing.assert_allclose(np.linalg.det(r), 1.0, atol=tol)
+    np.testing.assert_allclose(r @ np.swapaxes(r, -1, -2), np.eye(3)[None].repeat(8, 0), atol=tol)
+    if kind == "coincident":
+        np.testing.assert_allclose(r, np.eye(3)[None].repeat(8, 0), atol=tol)
+    else:
+        np.testing.assert_allclose(r, _numpy_kabsch(Pt.double().numpy(), Qt.double().numpy()), atol=tol)
+    np.testing.assert_allclose(cp.double().numpy(), Pt.double().numpy().mean(1), atol=tol)
+    np.testing.assert_allclose(cq.double().numpy(), Qt.double().numpy().mean(1), atol=tol)
+    with jax.enable_x64(dtype == "float64"):
+        for k in range(8 if kind != "coincident" else 0):  # JAX's SVD of a rounding-level H: any rotation
+            rj, _, _ = jg.kabsch_align(jnp.asarray(Pt[k].numpy()), jnp.asarray(Qt[k].numpy()))
+            np.testing.assert_allclose(r[k], np.asarray(rj, np.float64), atol=tol)
+    sup = tg.superpose(Pt, Qt).double().numpy()
+    cp, cq = cp.double().numpy()[:, None], cq.double().numpy()[:, None]
+    want = np.einsum("nfj,nij->nfi", Pt.double().numpy() - cp, r) + cq
+    np.testing.assert_allclose(sup, want, atol=tol)
+
+
+
 def test_geometry_matches_jax():
     rng = np.random.default_rng(7)
     P = rng.normal(size=(4, 12, 3))
