@@ -7,7 +7,8 @@ C-H); waters are solved in closed form (Miyamoto & Kollman 1992), every
 other cluster by a fixed 6 Newton iterations on padded (C, K, K) systems
 with SHAKE directions, and velocities by one exact RATTLE solve. All
 functions take (R, n, 3) arrays; constraints between two frozen atoms are
-inert and dropped.
+inert and dropped. A solve is the span ``constraints.positions`` or
+``constraints.velocities`` while tracing is on (``profiling.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import Constraints
 
@@ -277,10 +279,24 @@ def _make_settle_fns(st, device):
     return settle_positions, settle_velocities
 
 
+def _spanned(fn, name):
+    def solve(a, b):
+        with profiling.span(name):
+            return fn(a, b)
+
+    return solve
+
+
 def make_constraint_fns(constraints: Constraints, masses, device=DEFAULT_DEVICE, use_settle: bool = True):
     """(constrain_positions(x_new, x_ref), constrain_velocities(v, x));
     identities when nothing is constrained."""
     ident_x, ident_v = (lambda x_new, x_ref: x_new), (lambda v, x: v)
+    cx, cv = _constraint_fns(constraints, masses, device, use_settle, ident_x, ident_v)
+    return (cx if cx is ident_x else _spanned(cx, "constraints.positions"),
+            cv if cv is ident_v else _spanned(cv, "constraints.velocities"))
+
+
+def _constraint_fns(constraints, masses, device, use_settle, ident_x, ident_v):
     if len(constraints) == 0:
         return ident_x, ident_v
     cl = _build_clusters(constraints, masses, use_settle=use_settle)

@@ -21,6 +21,10 @@ E(x, lam_new) - E(x, lam_cached) at fixed x, the move adds the energy
 difference across the position change. With the lambda split the cached
 lambda-independent (E0, F0) is reused across the micro-step boundary and
 only the alchemical part Ea re-evaluates.
+
+Called as a function with tracing on (``profiling.py``), each micro-step
+and the move is the span of its phase (``graphs.replay:micro``,
+``graphs.replay:move``), as its replay is in a graphed iteration.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .. import units
+from .. import profiling, units
 from ..core.device import DEFAULT_DEVICE
 from ..core.state import KahanAccumulator
 from .langevin import LangevinParams, make_baoab_machinery
@@ -265,7 +269,8 @@ class NCMCProtocol:
         snaps, snap_work = [None] * self.n_records, [None] * self.n_records
 
         def run(name):
-            c.update((self.micro if name == "micro" else self.apply_move)(c))
+            with profiling.phase(name):
+                c.update((self.micro if name == "micro" else self.apply_move)(c))
 
         def record(k, wkey):
             snaps[k], snap_work[k] = c["px"], c[wkey]

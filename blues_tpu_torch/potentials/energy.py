@@ -22,6 +22,10 @@ the nonbonded pair sum has ``build``, the energy function gets
 (autograd forces of every other term plus the list's analytic pair forces)
 and ``nlist_skin``; the MD driver builds a list every
 ``nlist_rebuild_interval`` steps and applies it in between.
+
+Spans (``profiling.py``): ``energy.forward`` around an energy's evaluation
+(the plain call, and the first half of an energy-and-force call) and
+``energy.backward`` around the autograd half.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import DEFAULT_DEVICE
 from ..core.system import System
 from .bonded import BondedTerms
@@ -44,8 +49,10 @@ def _value_and_force(fn, x, *args):
     the gradient of the sum is each replica's gradient."""
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
-        e = fn(xg, *args)
-        (g,) = torch.autograd.grad(e.sum(), xg)
+        with profiling.span("energy.forward"):
+            e = fn(xg, *args)
+        with profiling.span("energy.backward"):
+            (g,) = torch.autograd.grad(e.sum(), xg)
     return e.detach(), -g
 
 
@@ -110,18 +117,20 @@ class EnergyFunction:
         ``nlist_build``, which the energy has with the 'verlet' backend)."""
         e_r, f_r = _value_and_force(self._rest_energy, x, box, globals_)
         nb = self.nonbonded
-        e_p, f_p = nb.pair_sum.apply(nlist, x, box, *nb.pair_factors(globals_, x.dtype, x.device))
+        with profiling.span("kernels.pair"):
+            e_p, f_p = nb.pair_sum.apply(nlist, x, box, *nb.pair_factors(globals_, x.dtype, x.device))
         return e_r + e_p, f_r + f_p
 
     def __call__(self, x, box=None, globals_=None):
-        e = self.bonded(x, box) if self.bonded else x.new_zeros(x.shape[0])
-        for cp in self.custom_pairs:
-            e = e + cp(x, box, globals_)
-        if self.gb is not None:
-            e = e + self.gb(x, box, globals_)
-        if self.nonbonded is not None:
-            e = e + self.nonbonded(x, box, globals_)
-        return e
+        with profiling.span("energy.forward"):
+            e = self.bonded(x, box) if self.bonded else x.new_zeros(x.shape[0])
+            for cp in self.custom_pairs:
+                e = e + cp(x, box, globals_)
+            if self.gb is not None:
+                e = e + self.gb(x, box, globals_)
+            if self.nonbonded is not None:
+                e = e + self.nonbonded(x, box, globals_)
+            return e
 
     def _e0_total(self, x, box=None):
         e = self.nonbonded.lambda_e0(x, box)

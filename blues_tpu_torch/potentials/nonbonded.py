@@ -52,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import units
+from .. import profiling, units
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import AlchemicalRegion, NonbondedParams
 from .features import Consts, build_pair_features
@@ -925,9 +925,11 @@ class NonbondedEnergy(_NonbondedBase):
         if self.exact:
             q = torch.where(c("is_alch"), q * lam_e, q)
         if self.recip_override is not None:
-            e = self.recip_override(x, q, box)
+            with profiling.span("energy.pme"):
+                e = self.recip_override(x, q, box)
         else:
-            e = self.recip(x, q, box)
+            with profiling.span("energy.pme"):
+                e = self.recip(x, q, box)
             if self._frozen_grid:
                 mismatch = (box - c("box0", dt)).abs().amax((-2, -1)) > 1e-5
                 e = torch.where(mismatch, float("nan"), 0.0).to(dt) + e
@@ -977,7 +979,8 @@ class NonbondedEnergy(_NonbondedBase):
     def __call__(self, x, box=None, globals_=None):
         box = replica_boxes(box, x.shape[0])
         lam_s, lam_e, f_aa = self.pair_factors(globals_, x.dtype, x.device)
-        e = self.pair_sum.energy(x, box, lam_s, lam_e, f_aa)
+        with profiling.span("kernels.pair"):
+            e = self.pair_sum.energy(x, box, lam_s, lam_e, f_aa)
         return e + self.cull_guard(x, box) + self.energy_rest(x, box, globals_)
 
     def lambda_e0(self, x, box=None):
@@ -986,7 +989,8 @@ class NonbondedEnergy(_NonbondedBase):
         box = replica_boxes(box, x.shape[0])
         e = self.cull_guard(x, box)
         if self.pair_sum0 is not None:
-            e = e + self.pair_sum0.energy(x, box, 1.0, 1.0, 1.0)
+            with profiling.span("kernels.pair"):
+                e = e + self.pair_sum0.energy(x, box, 1.0, 1.0, 1.0)
         e = e + self._sub_excluded(x, box, "x0sub", 1.0, 1.0, 1.0)
         e = e + self._exceptions(x, box, "exc0", 1.0, 1.0, scaled=False)
         return e + self._tail(x, box)
@@ -1025,7 +1029,8 @@ class NonbondedEnergy(_NonbondedBase):
         box = replica_boxes(box, x.shape[0])
         lam_s, lam_e, f_aa = self.pair_factors(globals_, dt, x.device)
         if self.ea_sweep is not None:
-            e = self.ea_sweep.energy(x, box, lam_s, lam_e, f_aa)
+            with profiling.span("kernels.pair"):
+                e = self.ea_sweep.energy(x, box, lam_s, lam_e, f_aa)
         else:
             e = self._ea_block(x, box, lam_s, lam_e, f_aa)
         idx = c("aa_idx")
@@ -1194,7 +1199,8 @@ class DenseNonbondedEnergy(_NonbondedBase):
             q = torch.where(c("is_alch"), q * lam_e, q)
         else:
             q = c("q_std", dt)
-        e = self.recip(x, q, box)
+        with profiling.span("energy.pme"):
+            e = self.recip(x, q, box)
         e = e - ke * alpha / math.sqrt(math.pi) * (q * q).sum()
         e = e - ke * math.pi / (2.0 * alpha * alpha) * q.sum() ** 2 / self._volume(box)
         idx = c("erf_idx")

@@ -6,7 +6,8 @@ and each energy/force evaluation rebuilds the full (R, N, 3) array by
 writing the mobile slice over the frozen reference frame (bit-identical to
 the frozen atoms' runtime coordinates for all time). Forces are taken on
 the full array and sliced, so every value comes from the same composed
-energy function.
+energy function. Both directions (``expand``, ``put``) are the span
+``compact`` while tracing is on (``profiling.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.system import Constraints, System
 
@@ -53,6 +55,11 @@ class MobileCompaction(NamedTuple):
 
     def gather(self, x_full):
         return x_full.index_select(1, self.mobile_idx_t)
+
+    def put(self, x_full, xm):
+        """``x_full`` with the mobile slice ``xm`` written over it."""
+        with profiling.span("compact"):
+            return x_full.index_copy(1, self.mobile_idx_t, xm)
 
 
 def build_mobile_compaction(
@@ -97,7 +104,8 @@ def build_mobile_compaction(
     mob_t = torch.as_tensor(mob, device=dev)
 
     def expand(xm):
-        return x_frozen.to(xm.dtype).expand(xm.shape[0], -1, -1).index_copy(1, mob_t, xm)
+        with profiling.span("compact"):
+            return x_frozen.to(xm.dtype).expand(xm.shape[0], -1, -1).index_copy(1, mob_t, xm)
 
     def ffn_m(xm, box=None, globals_=None):
         e, f = ffn(expand(xm), box, globals_)

@@ -77,7 +77,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from .. import units
+from .. import profiling, units
 from ..core.device import DEFAULT_DEVICE, resolve_device
 from ..core.rng import TorchRandomSource
 from ..core.state import SimState, maxwell_boltzmann_velocities, velocity_scale
@@ -338,7 +338,7 @@ class BLUESSimulation:
 
             self._ffn_md_d = ffn_md_m
             self._gather = comp.gather
-            self._put = lambda x, xm: x.index_copy(1, comp.mobile_idx_t, xm)
+            self._put = comp.put
         self._masses_d = masses
         self._v_scale = velocity_scale(masses, self.cfg.temperature, self.dtype, self.device)
         cx, cv = self._constrain_d
@@ -420,21 +420,26 @@ class BLUESSimulation:
         Eagerly, the phases run one op at a time: the protocol as a whole
         (``protocol_fn``), then the correction and the Metropolis test, the
         MD steps and the MD end. Graphed, ``runner`` replays the captured
-        phases over its carry; the first graphed iteration captures them."""
+        phases over its carry; the first graphed iteration captures them
+        (``capture``). With tracing on (``profiling.enable``) the iteration
+        is the span ``driver.iteration``."""
         if self.state is None:
             raise RuntimeError("call initialize() first")
-        if self.graphs:
-            if self.runner is None:
-                self.runner = self._capture()
-            c = self.runner.carry
-            self.runner.load(self._carry_in())
-            snaps = self._ncmc_graphed(c)
-        else:
-            c = self._carry_in()
-            snaps = self._ncmc_eager(c)
-        md_frames = self._md(c)
-        self._run_phase("md_end", c)
-        return self._finish(c, snaps, md_frames)
+        if self.graphs and self.runner is None:
+            self.runner = self._capture()
+        with profiling.iteration(self.device):
+            if self.graphs:
+                c = self.runner.carry
+                with profiling.span("driver.carry_load"):
+                    self.runner.load(self._carry_in())
+                snaps = self._ncmc_graphed(c)
+            else:
+                c = self._carry_in()
+                snaps = self._ncmc_eager(c)
+            md_frames = self._md(c)
+            self._run_phase("md_end", c)
+            with profiling.span("driver.finish"):
+                return self._finish(c, snaps, md_frames)
 
     def _carry_in(self):
         """What an iteration starts from: the state, and the barostat state
@@ -450,7 +455,8 @@ class BLUESSimulation:
         if self.graphs:
             self.runner.replay(name)
         else:
-            c.update(self._phases()[name](c))
+            with profiling.phase(name):
+                c.update(self._phases()[name](c))
 
     def _phases(self):
         """{name: phase(carry) -> outputs} of the iteration: 'begin', the
@@ -491,8 +497,9 @@ class BLUESSimulation:
         work = c["wt"].new_empty((c["wt"].shape[0], K)) if K else None
 
         def record(k, wkey):
-            snaps[:, k].copy_(c["px"])
-            work[:, k].copy_(c[wkey])
+            with profiling.span("driver.record"):
+                snaps[:, k].copy_(c["px"])
+                work[:, k].copy_(c[wkey])
 
         prot.walk(lambda name: self._run_phase(name, c), record)
         self._run_phase("end", c)
@@ -601,9 +608,7 @@ class BLUESSimulation:
         without an interval."""
         cfg, baro = self.cfg, self._barostat
         n_md, interval = cfg.nstepsMD, cfg.md_report_interval
-        chunk = interval if interval is not None else (cfg.barostat_frequency if baro is not None else max(n_md, 1))
-        chunk = max(min(chunk, max(n_md, 1)), 1)
-        n_chunks = n_md // chunk if n_md > 0 else 0
+        chunk, n_chunks = self._md_chunks()
         frames = None
         if interval is not None and n_chunks:
             frames = c["x"].new_empty((c["x"].shape[0], n_chunks, *c["x"].shape[1:]))
@@ -625,6 +630,28 @@ class BLUESSimulation:
                 frames[:, j].copy_(self._put(c["x"], c["xd"]))
         steps(n_md - n_chunks * chunk)
         return frames
+
+    def _md_chunks(self):
+        """(chunk, n_chunks) of ``_md``: the MD segment's chunks of steps."""
+        cfg, n_md = self.cfg, self.cfg.nstepsMD
+        chunk = cfg.md_report_interval
+        if chunk is None:
+            chunk = cfg.barostat_frequency if self._barostat is not None else max(n_md, 1)
+        chunk = max(min(chunk, max(n_md, 1)), 1)
+        return chunk, (n_md // chunk if n_md > 0 else 0)
+
+    def _replays_per_iteration(self, phases):
+        """{phase: replays in one graphed iteration} of ``phases``."""
+        chunk, n_chunks = self._md_chunks()
+        n_md = self.cfg.nstepsMD
+        builds = 0
+        if "md_build" in phases:
+            every = max(1, self.cfg.nlist_rebuild_interval)
+            rest = n_md - n_chunks * chunk
+            builds = n_chunks * -(-chunk // every) + -(-rest // every)
+        n = dict(begin=1, micro=self.schedule.n_micro, move=1, end=1, md=n_md - builds, md_build=builds,
+                 baro=n_chunks, md_end=1)
+        return {k: n[k] for k in phases if n[k]}
 
     def _finish(self, c, snaps, md_frames):
         """The state and the stats from the carry (copies of a graphed
@@ -665,6 +692,21 @@ class BLUESSimulation:
         ``*launches`` counts the runner advances at each replay."""
         return kernel_counters(self.energy_md, self.energy_alch)
 
+    def capture(self):
+        """Capture the iteration's graphs now, with the tracing state now in
+        force (with ``profiling.enable``, the spans inside each phase stamp
+        the device's clock), as the first graphed iteration does; the
+        current runner's graphs and their memory are dropped first."""
+        if self.state is None:
+            raise RuntimeError("call initialize() first")
+        if not self.graphs:
+            raise ValueError(f"this simulation runs its iterations eagerly: {self.eager_reason() or 'graphs=False'}")
+        if self.runner is not None:
+            self.runner.release()
+            self.runner = None
+        self.runner = self._capture()
+        return self.runner
+
     def _capture(self):
         """Warm every graphed phase up, then capture it (``graphs.py``)."""
         from .graphs import GraphRunner
@@ -676,6 +718,7 @@ class BLUESSimulation:
             {k: phases[k] for k in names}, self.device, generators=[self.source.generator],
             counted=self.kernel_counters(),
         )
+        runner.per_iteration = self._replays_per_iteration(names)
         warm = ["begin", "micro", "micro"] + opt("move") + ["end"] + opt("md_build") + ["md", "md"] + opt("baro")
         runner.capture(self._carry_in(), warm + ["md_end"])
         return runner

@@ -34,6 +34,12 @@ While a phase is captured, ``HostSyncGuard`` refuses what a graph cannot
 hold: a host read of a device value (``item``, ``bool``, ``nonzero``,
 ...) or a tensor made from host data. A capture or a replay that fails
 raises; nothing runs eagerly in its place.
+
+Tracing (``profiling.py``): a phase captured while tracing is on holds a
+stamp kernel node at each end of the phase and of every span inside it,
+writing into the phase's ring of ``per_iteration`` rows, one per replay. A
+replay while tracing is on is the span ``graphs.replay:<phase>``, timed by
+events around the launch. Off, a replay costs one flag test more.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten, tree_map
 
+from .. import profiling
 from ..core.device import cached_consts
 
 #: Tensor methods and torch functions that read a device value on the host
@@ -211,6 +218,11 @@ class GraphRunner:
         #: replays of each phase since capture
         self.replays = {}
         self.capture_s = None
+        #: {phase: replays per iteration}: the rows of a traced phase's ring
+        self.per_iteration = {}
+        #: {phase: ``profiling.GraphSpans``}: the spans captured inside it
+        #: with tracing on
+        self.in_graph = {}
         #: bytes of the graphs' memory pool (segments of the pool, on the card)
         self.pool_bytes = None
         #: bytes of the static carry
@@ -233,7 +245,7 @@ class GraphRunner:
         stream = self._stream()
         if cuda:
             stream.wait_stream(torch.cuda.current_stream(self.device))
-        with self._on(stream):
+        with self._on(stream), profiling.TRACER.capturing():
             c = {k: tree_map(_clone, v) for k, v in carry.items()}
             for name in warmup:
                 c.update(self.phases[name](c))
@@ -266,11 +278,14 @@ class GraphRunner:
         counts = _counts(self.counted)
         graph = self.graph_type(pool, stream, self.generators)
         guard = HostSyncGuard(name)
+        in_graph = None
+        if profiling.TRACER.on and self.device.type == "cuda":
+            in_graph = profiling.GraphSpans(self.device, self.per_iteration.get(name, 1))
 
         def body():
             _GUARDS.append(guard)
             try:
-                with guard:
+                with guard, profiling.phase(name):
                     self._write(phase(carry))
             finally:
                 _GUARDS.remove(guard)
@@ -281,7 +296,8 @@ class GraphRunner:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            graph.capture(body)
+            with profiling.TRACER.capturing(in_graph):
+                graph.capture(body)
         except GraphCaptureError:
             raise
         except Exception as e:  # noqa: BLE001 - re-raised with the phase named
@@ -296,6 +312,14 @@ class GraphRunner:
         self.load(saved)
         self.graphs[name] = graph
         self.replays[name] = 0
+        if in_graph is not None and in_graph.entries:
+            self.in_graph[name] = in_graph
+
+    def release(self):
+        """Drop the graphs (and with them their memory pool), the static
+        carry and the in-graph spans."""
+        self.graphs, self.launches, self.replays, self.in_graph = {}, {}, {}, {}
+        self.carry = None
 
     def load(self, values):
         """Copy ``values`` ({key: a tensor, or lists, dicts and named tuples
@@ -328,8 +352,12 @@ class GraphRunner:
             d.copy_(s)
 
     def replay(self, name):
-        """Replay phase ``name``'s graph and count its kernels' launches."""
-        self.graphs[name].replay()
+        """Replay phase ``name``'s graph and count its kernels' launches;
+        while tracing is on, as a span."""
+        if profiling.TRACER.on:
+            profiling.TRACER.replay(name, self.graphs[name].replay, self.in_graph.get(name), self.replays[name] + 1)
+        else:
+            self.graphs[name].replay()
         self.replays[name] += 1
         for (i, k), n in self.launches[name].items():
             obj = self.counted[i]

@@ -30,6 +30,13 @@ size 1 over ``nccl``: the spatial force function on both FFT paths
 against the single-device 'tiled' energy, a sharded R = 4 graphed
 iteration bit for bit equal to the unsharded one, and the refusals of a
 CUDA tensor on a ``gloo`` group and a CPU tensor on an ``nccl`` group.
+The program's tracing (``profiling.py``) on the frozen and the unfrozen
+box: a capture with tracing on holds stamp nodes around every span inside
+each phase (under the capture's host-sync guard), and one with tracing
+off none; graphed iterations with tracing on equal those with it off bit
+for bit; a replay's in-graph spans cover its outside-the-graph device
+interval within 1 %; the anchor puts a synchronised event and stamp on
+the host clock.
 
 Marked ``gpu``; each test skips without CUDA. This file imports no JAX,
 so it runs on a machine that has only PyTorch and the CUDA toolkit
@@ -945,3 +952,142 @@ def test_collectives_refuse_the_other_device(group_of_one):
         all_reduce(torch.ones(2))
     with pytest.raises(ValueError, match="nccl"):
         make_replica_mesh(device="cpu")
+
+
+# --- the program's tracing (profiling.py) ------------------------------------
+
+#: the spans every phase set of a graphed iteration holds on both boxes
+TRACED = {"energy.forward", "energy.backward", "kernels.pair", "energy.pme", "constraints.positions",
+          "constraints.velocities"}
+
+
+@pytest.fixture
+def tracing():
+    from blues_tpu_torch import profiling
+
+    yield profiling
+    profiling.disable()
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_traced_capture_holds_stamps_on_the_card(case, tracing):
+    """``capture()`` with tracing on: every phase holds its own span and the
+    spans inside it, two stamp kernel nodes each, in a ring of one row per
+    replay of an iteration (the capture runs under its host-sync guard);
+    captured again with tracing off, no phase holds one."""
+    sim, x = _graph_sim(case, None, dev=_cuda())
+    sim.initialize(x, seed=5)
+    tracing.enable()
+    runner = sim.capture()
+    assert set(runner.in_graph) == set(runner.graphs)
+    for name, g in runner.in_graph.items():
+        assert g.entries[0] == (tracing.PHASE + name, -1) and g.capacity == runner.per_iteration[name]
+    names = {e[0] for g in runner.in_graph.values() for e in g.entries}
+    assert TRACED | ({"compact"} if case == "frozen" else set()) <= names
+    stamps = sum(len(g.entries) for g in runner.in_graph.values())
+    assert tracing.TRACER.counters["graphs.stamps"] == 2 * stamps
+    tracing.disable()
+    assert not sim.capture().in_graph
+    sim.run_iteration()  # the graphs captured with tracing off replay
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_tracing_changes_no_number_on_the_card(case, tracing):
+    """Two graphed iterations captured and run with tracing on (every
+    replay's in-graph spans read) give the stats, MD frames, NCMC
+    snapshots, state and generator of two with it off, bit for bit."""
+    dev = _cuda()
+    out = []
+    for traced in (False, True):
+        sim, x = _graph_sim(case, None, dev=dev)
+        sim.initialize(x, seed=5)
+        if traced:
+            tracing.enable()
+        sim.capture()
+        runs = [sim.run_iteration_frames() for _ in range(2)]
+        torch.cuda.synchronize()
+        tracing.disable()
+        out.append((runs, sim.state, sim.source.generator.get_state()))
+    micro = tracing.summary()["phases"]["micro"]
+    assert micro["timed"] == micro["replays"] == 2 * sim.schedule.n_micro
+    (a_runs, a_state, a_gen), (b_runs, b_state, b_gen) = out
+    for (sa, fa, na), (sb, fb, nb) in zip(a_runs, b_runs):
+        for k in sa._fields:
+            assert _same_bits(getattr(sa, k), getattr(sb, k)), k
+        assert _same_bits(fa, fb) and _same_bits(na.positions, nb.positions) and _same_bits(na.work, nb.work)
+    assert all(_same_bits(p, q) for p, q in zip(a_state, b_state)) and torch.equal(a_gen, b_gen)
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_replay_spans_cover_its_device_interval_on_the_card(case, tracing):
+    """The self times of a micro-step replay and of every span inside it
+    sum to its in-graph interval (first to last stamp), which is within
+    1 % of the events recorded around the launch, outside the graph; the
+    replays' device intervals start after the iteration's host start and
+    end before the host clock read after it (the host runs ahead of the
+    card, so they may end after the iteration's host interval)."""
+    import time
+
+    sim, x = _graph_sim(case, None, dev=_cuda())
+    sim.initialize(x, seed=5)
+    tracing.enable()
+    sim.capture()
+    sim.run_iteration()
+    t_after = time.perf_counter_ns()
+    tracing.disable()
+    spans = tracing.TRACER.spans
+    selfs = tracing.self_times(spans)
+    kids = {}
+    for s in spans:
+        kids.setdefault(id(s.parent), []).append(s)
+    micro = [s for s in spans if s.name == tracing.PHASE + "micro"]
+    assert len(micro) == sim.schedule.n_micro and all(s.inner is not None for s in micro)
+    for s in micro:
+        todo, total = [s], 0
+        while todo:
+            c = todo.pop()
+            todo.extend(kids.get(id(c), []))
+            total += selfs[id(c)][1]
+        assert total == s.inner[1] - s.inner[0]
+        assert abs(total - (s.d1 - s.d0)) <= 0.01 * (s.d1 - s.d0), (total, s.d1 - s.d0)
+    it = next(s for s in spans if s.name == tracing.ITERATION)
+    reps = [s for s in spans if s.graphed]
+    assert it.t0 <= min(s.d0 for s in reps) and max(s.d1 for s in reps) <= t_after
+    assert 0 < tracing.summary()["device_span_ms"] <= (t_after - it.t0) * 1e-6
+
+
+def test_anchor_puts_the_device_clocks_on_the_host_clock(tracing):
+    """An event and a stamp recorded right after a synchronise map, through
+    the iteration's anchor, to within 100 us of the host clock read after
+    their launch (medians over 50; printed)."""
+    import math
+    import statistics
+    import time
+
+    dev = _cuda()
+    tracing.enable()
+    tr = tracing.TRACER
+    tr.begin_iteration(dev)
+    anchor, t_anchor, anchor_stamp, t_stamp = tr.anchor
+    stamps = tracing.GraphSpans(dev, 1)
+    x = torch.ones(1 << 20, device=dev)
+    ev_off, stamp_off, ticks = [], [], []
+    for _ in range(50):
+        x.mul_(1.0)
+        torch.cuda.synchronize(dev)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        t = time.perf_counter_ns()
+        torch.cuda.synchronize(dev)
+        ev_off.append(t_anchor + anchor.elapsed_time(ev) * 1e6 - t)
+        stamps.stamp(0)
+        t = time.perf_counter_ns()
+        torch.cuda.synchronize(dev)
+        ticks.append(int(stamps.ring[0, 0]))
+        stamp_off.append(t_stamp + ticks[-1] - int(anchor_stamp.ring[0, 0]) - t)
+    tr.end_iteration()
+    med = [statistics.median(o) for o in (ev_off, stamp_off)]
+    print(f"anchor offset: event median {med[0] / 1e3:.3f} us (range {min(ev_off) / 1e3:.3f} to "
+          f"{max(ev_off) / 1e3:.3f}), stamp median {med[1] / 1e3:.3f} us (range {min(stamp_off) / 1e3:.3f} to "
+          f"{max(stamp_off) / 1e3:.3f}); the stamps' common divisor {math.gcd(*(t - ticks[0] for t in ticks))} ns")
+    assert max(abs(m) for m in med) < 100_000
